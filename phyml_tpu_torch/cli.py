@@ -1,0 +1,360 @@
+"""Command-line front end, mirroring the reference's phyml CLI.
+
+Reference: Read_Command_Line (cl.c:19) and the per-dataset
+loop (main.c:108-434).  The parser takes the same flags as
+phyml_tpu's; this port runs the fixed-topology ML fit so far:
+`-u` tree, `-o` in {l, r, lr, n/''}, `-b 0`, the model and data flags,
+and `--print_site_lnl`.  Every other analysis flag stops the run with
+a message naming the ROADMAP.md item that ports it.
+
+    python -m phyml_tpu_torch.cli -i aln.phy -u tree.nwk -m GTR -c 4 \\
+        -o lr -b 0 --platform gpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="phyml-tpu-torch",
+        description="PyTorch/CUDA phylogenetic ML (PhyML-compatible CLI)",
+    )
+    p.add_argument("-i", "--input", required=True,
+                   help="PHYLIP/FASTA/NEXUS alignment")
+    p.add_argument("-d", "--datatype",
+                   choices=["nt", "aa", "generic", "gen"],
+                   default=None)
+    p.add_argument("-q", "--sequential", action="store_true",
+                   help="sequential (non-interleaved) PHYLIP")
+    p.add_argument("-n", "--multiple", type=int, default=1,
+                   help="number of data sets (PHYLIP multi-alignment)")
+    p.add_argument("-m", "--model", default=None,
+                   help="JC69|K80|F81|HKY85|F84|TN93|GTR|custom string "
+                        "| LG|WAG|JTT|...|LG4X (aa)")
+    p.add_argument("-f", "--frequencies", default=None,
+                   help="'e' empirical, 'm' model/ML, 'o' optimized, "
+                        "or 'fA,fC,fG,fT'")
+    p.add_argument("-t", "--ts_tv", default="e",
+                   help="transition/transversion ratio (or 'e')")
+    p.add_argument("-c", "--n_classes", "--nclasses", type=int,
+                   default=4)
+    # reference default: alpha FIXED at 1.0 unless `-a e`
+    p.add_argument("-a", "--alpha", default="1.0",
+                   help="gamma shape (or 'e' to estimate)")
+    p.add_argument("-v", "--pinv", default="0.0",
+                   help="proportion of invariant sites (or 'e')")
+    p.add_argument("--free_rates", "--freerates", "--freerate",
+                   action="store_true",
+                   help="FreeRate model instead of discrete gamma")
+    p.add_argument("--codpos", type=int, default=None,
+                   help="analyse only this codon position (1|2|3)")
+    p.add_argument("--aa_rate_file", default=None,
+                   help="PAML-format custom AA rate matrix")
+    p.add_argument("--il", action="store_true",
+                   help="integrated-length model")
+    p.add_argument("-u", "--user_tree", "--inputtree",
+                   default=None,
+                   help="starting tree newick file")
+    p.add_argument("-o", "--optimize", default="tlr",
+                   help="t=topology l=lengths r=rates; 'n' = none")
+    p.add_argument("-s", "--search", choices=["NNI", "SPR", "BEST"],
+                   default="NNI")
+    p.add_argument("-b", "--bootstrap", type=int, default=0,
+                   help=">0: replicates; 0: none; -1: aLRT stat; "
+                        "-2: aLRT chi2; -4: SH-aLRT; -5: aBayes")
+    p.add_argument("--tbe", action="store_true")
+    p.add_argument("--bayesian_bootstrap", action="store_true")
+    p.add_argument("--rapid_boot", action="store_true")
+    p.add_argument("--r_seed", type=int, default=None)
+    p.add_argument("--rand_start", action="store_true")
+    p.add_argument("--n_rand_starts", type=int, default=5)
+    p.add_argument("--pars_start", action="store_true")
+    p.add_argument("--constraint_file", default=None)
+    p.add_argument("--platform", choices=["cpu", "gpu"], default="gpu",
+                   help="device to run on (default gpu: one CUDA "
+                        "device; cpu runs float64 unless --float32)")
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--weights", default=None,
+                   help="site-weight file")
+    p.add_argument("--cov", action="store_true")
+    p.add_argument("--cov_delta", default=None)
+    p.add_argument("--cov_alpha", default=None)
+    p.add_argument("--cov_ncats", type=int, default=3)
+    p.add_argument("--cov_free", action="store_true")
+    p.add_argument("--cv", choices=["tip", "kfold.col", "kfold.pos"],
+                   default=None)
+    p.add_argument("--ancestral", "--anc", action="store_true")
+    p.add_argument("--ps", action="store_true")
+    p.add_argument("--print_site_lnl", "--print_site_lk",
+                   action="store_true")
+    p.add_argument("--print_trace", action="store_true")
+    p.add_argument("--json_trace", action="store_true")
+    p.add_argument("--min_diff_lk_global", type=float, default=None)
+    p.add_argument("--no_five_branch", action="store_true")
+    p.add_argument("--alias_subpatt", action="store_true")
+    p.add_argument("--mutmap", action="store_true")
+    p.add_argument("--no_gap", action="store_true")
+    p.add_argument("--append", action="store_true",
+                   help="append to existing output files instead of "
+                        "overwriting (cl.c case 40)")
+    p.add_argument("--leave_duplicates", action="store_true")
+    p.add_argument("--no_memory_check", action="store_true")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--run_id", default=None)
+    p.add_argument("--xml", default=None)
+    p.add_argument("--datatype_guess", action="store_true")
+    p.add_argument("--float32", action="store_true",
+                   help="fp32 likelihood (default on the GPU; fp64 on "
+                        "the CPU)")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint_every", type=int, default=300)
+    return p
+
+
+# ROADMAP.md Queue 1 items that port what this CLI does not run yet
+_SEARCH = "Queue 1, 'BioNJ start tree' and 'Topology search'"
+_CLI = "Queue 1, 'Remaining CLI flags and the checkpoint'"
+_MODELS = "Queue 1, 'Covarion, mixtures and partitions'"
+_SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
+_TOOLS = "Queue 1, 'Auxiliary tools'"
+
+
+def _unported(args) -> list[tuple[str, str]]:
+    """(flag, ROADMAP item) for every requested feature this port does
+    not run yet."""
+    checks = [
+        (args.user_tree is None, "no -u (BioNJ start tree)", _SEARCH),
+        ("t" in args.optimize, "-o with 't' (topology search)", _SEARCH),
+        (args.rand_start, "--rand_start", _SEARCH),
+        (args.pars_start, "--pars_start", _SEARCH),
+        (args.constraint_file is not None, "--constraint_file", _SEARCH),
+        (args.min_diff_lk_global is not None, "--min_diff_lk_global",
+         _SEARCH),
+        (args.no_five_branch, "--no_five_branch", _SEARCH),
+        (args.print_trace or args.json_trace,
+         "--print_trace/--json_trace", _SEARCH),
+        (args.bootstrap != 0, "-b other than 0", _SUPPORT),
+        (args.tbe or args.bayesian_bootstrap or args.rapid_boot,
+         "--tbe/--bayesian_bootstrap/--rapid_boot", _SUPPORT),
+        (args.distributed, "--distributed", _SUPPORT),
+        (args.cov or args.cov_free or args.cov_delta is not None
+         or args.cov_alpha is not None, "--cov*", _MODELS),
+        ((args.model or "").upper() == "LG4X", "-m LG4X", _MODELS),
+        (args.xml is not None, "--xml", _MODELS),
+        (args.il, "--il", _CLI),
+        (args.aa_rate_file is not None, "--aa_rate_file", _CLI),
+        (args.multiple != 1, "-n other than 1", _CLI),
+        (args.codpos is not None, "--codpos", _CLI),
+        (args.weights is not None, "--weights", _CLI),
+        (args.no_gap, "--no_gap", _CLI),
+        (args.checkpoint is not None, "--checkpoint", _CLI),
+        (args.datatype_guess, "--datatype_guess", _CLI),
+        (args.cv is not None, "--cv", _TOOLS),
+        (args.ancestral, "--ancestral", _TOOLS),
+        (args.ps, "--ps", _TOOLS),
+        (args.mutmap, "--mutmap", _TOOLS),
+        (args.alias_subpatt, "--alias_subpatt", _TOOLS),
+    ]
+    return [(flag, item) for hit, flag, item in checks if hit]
+
+
+def _build_model(args, aln):
+    from phyml_tpu_torch.models.substitution import SubstModel
+
+    if aln.datatype == "generic":
+        # custom alphabet: JC over the inferred state count
+        # (cl.c:929-932, init.c:1519-1533)
+        return SubstModel(
+            datatype="generic",
+            generic_ns=int(aln.partials.shape[-1]),
+            n_classes=args.n_classes,
+            invar=(args.pinv == "e" or float(args.pinv or 0) > 0),
+            optimize_alpha="r" in args.optimize and args.alpha == "e",
+            optimize_pinv="r" in args.optimize and args.pinv == "e",
+        )
+    name = args.model
+    if name is None:
+        name = "HKY85" if aln.datatype == "nt" else "LG"
+    freqs_mode = None
+    fixed = None
+    if args.frequencies:
+        f = args.frequencies
+        if f == "e":
+            freqs_mode = "empirical"
+        elif f == "m":
+            freqs_mode = "model" if aln.datatype == "aa" else "optimize"
+        elif f == "o":
+            freqs_mode = "optimize"
+        else:
+            fixed = np.asarray([float(x) for x in f.split(",")])
+            freqs_mode = "fixed"
+    opt_r = "r" in args.optimize
+    return SubstModel(
+        datatype=aln.datatype,
+        name=name,
+        n_classes=args.n_classes,
+        invar=(args.pinv == "e" or float(args.pinv or 0) > 0),
+        freerate=args.free_rates,
+        freqs_mode=freqs_mode,
+        fixed_freqs=fixed,
+        optimize_kappa=opt_r and args.ts_tv == "e",
+        optimize_alpha=opt_r and args.alpha == "e",
+        optimize_pinv=opt_r and args.pinv == "e",
+        optimize_rr=opt_r,
+    )
+
+
+def _init_params(args, model, aln):
+    params = model.init_params(aln.obs_state_freqs)
+    f64 = dict(dtype=torch.float64)
+    if args.ts_tv != "e" and "kappa" in params:
+        params["kappa"] = torch.tensor(float(args.ts_tv), **f64)
+    if args.alpha != "e" and "alpha" in params:
+        params["alpha"] = torch.tensor(float(args.alpha), **f64)
+    if args.pinv != "e" and model.invar:
+        params["pinv"] = torch.tensor(float(args.pinv), **f64)
+    return params
+
+
+def run_analysis(args) -> int:
+    unported = _unported(args)
+    if unported:
+        for flag, item in unported:
+            print(f"!! {flag}: not ported to phyml_tpu_torch yet "
+                  f"(ROADMAP.md {item})", file=sys.stderr)
+        return 2
+    if args.platform == "gpu":
+        if not torch.cuda.is_available():
+            print("!! --platform gpu: no CUDA device found; run with "
+                  "--platform cpu instead", file=sys.stderr)
+            return 1
+        device = torch.device("cuda")
+    else:
+        device = torch.device("cpu")
+    # dtype rule: float32 on the card, float64 on the CPU unless
+    # --float32
+    dtype = torch.float32 if (args.float32 or device.type == "cuda") \
+        else torch.float64
+
+    from phyml_tpu_torch.io.alignment import read_alignment
+
+    seed = args.r_seed if args.r_seed is not None else int(
+        time.time()) % (2 ** 31)
+    if args.datatype == "gen":
+        args.datatype = "generic"
+    aln = read_alignment(args.input, datatype=args.datatype,
+                         interleaved=not args.sequential)
+    return _run_dataset(args, aln, seed, device, dtype)
+
+
+def _run_dataset(args, aln, seed, device, dtype) -> int:
+    from phyml_tpu_torch.io.output import (
+        format_stats, write_results, write_site_lnl,
+    )
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.ops.parsimony import parsimony_score
+    from phyml_tpu_torch.optim.round import round_optimize
+    from phyml_tpu_torch.topology import Topology
+
+    t_start = time.time()
+
+    # duplicate-sequence removal (Remove_Duplicates utilities.c:2675;
+    # re-inserted in the output tree as in main.c:389)
+    dup_name_pairs: list[tuple[str, str]] = []
+    dup_indices: list[int] = []
+    orig_names = list(aln.names)
+    if not args.leave_duplicates and aln.n_otu >= 4:
+        from phyml_tpu_torch.io.alignment import (
+            drop_taxa, find_duplicate_taxa,
+        )
+        pairs = find_duplicate_taxa(aln)
+        if pairs and aln.n_otu - len(pairs) >= 4:
+            for d, k in pairs:
+                if not args.quiet:
+                    print(f". Note: taxon '{aln.names[d]}' is a "
+                          f"duplicate of taxon '{aln.names[k]}'.")
+                dup_name_pairs.append((aln.names[d], aln.names[k]))
+            dup_indices = [d for d, _ in pairs]
+            aln = drop_taxa(aln, dup_indices)
+
+    if not args.quiet:
+        print(f". {aln.n_patterns} patterns found (out of a total of "
+              f"{aln.n_sites} sites).")
+
+    model = _build_model(args, aln)
+    params = _init_params(args, model, aln)
+    engine = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+
+    # ---- starting tree ------------------------------------------------
+    with open(args.user_tree) as fh:
+        user_nwk = fh.read()
+    if dup_indices:
+        topo = Topology.from_newick(user_nwk, orig_names) \
+            .without_leaves(set(dup_indices))
+    else:
+        topo = Topology.from_newick(user_nwk, aln.names)
+    start_desc = f"user tree ({args.user_tree})"
+
+    # ---- optimize (fixed topology) -------------------------------------
+    opt_len = "l" in args.optimize
+    opt_rates = "r" in args.optimize
+    ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+    if opt_len or opt_rates:
+        params, ta, lnl = round_optimize(
+            engine, model, params, ta,
+            opt_blen=opt_len, opt_params=opt_rates,
+            verbose=not args.quiet,
+        )
+    else:
+        lnl = float(engine.loglik(params, ta))
+    rv = topo.rooted()
+    topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
+
+    # ---- outputs ------------------------------------------------------
+    stats = format_stats(
+        input_name=args.input, aln=aln, model=model, params=params,
+        lnl=lnl, topo=topo, search_desc="none",
+        start_tree_desc=start_desc, runtime_s=time.time() - t_start,
+        seed=seed, n_parsimony=parsimony_score(engine, topo),
+    )
+    run_id = f"_{args.run_id}" if args.run_id else ""
+    prefix = f"{args.input}{run_id}"
+    tree_path, stats_path = write_results(
+        prefix, topo, aln.names, stats, support_fmt="%.2f",
+        append=args.append,
+    )
+    if dup_name_pairs:
+        from phyml_tpu_torch.io.newick import insert_duplicate_leaves
+        with open(tree_path) as fh:
+            full = insert_duplicate_leaves(fh.read(), dup_name_pairs)
+        with open(tree_path, "w") as fh:
+            fh.write(full + "\n")
+    if args.print_site_lnl:
+        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+        write_site_lnl(f"{prefix}_phyml_lk.txt", aln,
+                       engine.site_logliks(params, ta))
+    if not args.quiet:
+        print(f". Log-likelihood: {lnl:.5f}")
+        print(f". Results written to {tree_path} and {stats_path}")
+    return 0
+
+
+def main(argv=None) -> int:
+    real_argv = sys.argv[1:] if argv is None else argv
+    if not real_argv:
+        print("!! the interactive menu is not ported to phyml_tpu_torch "
+              f"yet (ROADMAP.md {_TOOLS}); give the options on the "
+              "command line", file=sys.stderr)
+        return 2
+    return run_analysis(build_parser().parse_args(real_argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,242 @@
+"""Substitution-model configuration and class-system construction.
+
+A `SubstModel` is the static description (model family, number of rate
+classes, what's free); `class_system(params)` turns a parameter dict
+into the per-class eigensystem the likelihood engine consumes:
+
+    lam   [..., C, ns]       eigenvalues with the class rate folded in
+    V     [..., C, ns, ns]   right eigenvectors
+    Vinv  [..., C, ns, ns]
+    pi    [..., C, ns]       per-class stationary frequencies
+    w     [..., C]           class weights
+    pinv  [...]              invariant fraction (0 when disabled)
+
+Parameters are float64 tensors.  A scalar parameter may carry a
+leading batch shape [B] (a vector parameter then [B, n]): every
+output gains that leading shape, which is how a parameter grid is
+scored in one batched call (the counterpart of phyml_tpu's vmap).
+
+Reference parity notes:
+  * GTR rates are exp(log-rates) grouped by a 6-char custom string and
+    normalized by the G<->T rate (Update_Qmat_GTR models.c:487-510).
+  * Frequencies: 'empirical' (counted from data, the default for DNA),
+    'model' (the empirical AA matrix's frequencies, default for AA),
+    'optimize' (ML, via softmax of unconstrained logits), or 'fixed'
+    user values (cl.c -f handling).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+import numpy as np
+import torch
+
+from phyml_tpu_torch.models import dna as dna_mod
+from phyml_tpu_torch.models import matrices
+from phyml_tpu_torch.models.eigen import reversible_eigen
+from phyml_tpu_torch.models.rates import discrete_gamma, freerate_normalize
+
+RR_MIN, RR_MAX = 0.01, 100.0  # utilities.h clamps for GTR rates
+
+_F64 = torch.float64
+# parameters whose unbatched value is a vector (all others are scalars)
+_VECTOR_PARAMS = ("rr_val", "freqs_raw", "freqs_const",
+                  "class_rates_raw", "class_weights_raw")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=_F64)
+
+
+def batch_shape(params: dict) -> tuple:
+    """Leading batch shape shared by the parameter values."""
+    shapes = []
+    for k, v in params.items():
+        v = torch.as_tensor(v)
+        rank = 1 if k in _VECTOR_PARAMS else 0
+        shapes.append(tuple(v.shape[:v.dim() - rank]))
+    return tuple(torch.broadcast_shapes(*shapes)) if shapes else ()
+
+
+@dataclass
+class SubstModel:
+    datatype: str = "nt"              # "nt" | "aa" | "generic"
+    name: str = "HKY85"
+    # custom-alphabet state count (-d generic, utilities.h:303)
+    generic_ns: int = 0
+    n_classes: int = 4                # gamma / freerate classes
+    gamma_median: bool = False
+    invar: bool = False               # +I
+    freerate: bool = False
+    freqs_mode: str | None = None     # empirical|model|optimize|fixed
+    fixed_freqs: Any = None           # np [ns] when freqs_mode == fixed
+    custom_string: str = "012345"     # DNA CUSTOM grouping
+    # covarion (M4) is not ported yet (ROADMAP.md Queue 1, "Covarion,
+    # mixtures and partitions"); True raises
+    covarion: bool = False
+    # which scalar parameters are optimized (used by the optimizer)
+    optimize_kappa: bool = True
+    optimize_alpha: bool = True
+    optimize_pinv: bool = False
+    optimize_rr: bool = True
+
+    def __post_init__(self):
+        if self.covarion:
+            raise NotImplementedError(
+                "the covarion model is not ported to phyml_tpu_torch yet "
+                "(ROADMAP.md Queue 1, 'Covarion, mixtures and "
+                "partitions')")
+        self.name = self.name.upper()
+        if self.datatype == "generic":
+            if self.generic_ns < 2:
+                raise ValueError("generic datatype needs generic_ns")
+            # reference: uniform state frequencies, all rates equal
+            # (init.c:1519-1533)
+            self.name = "GENERIC"
+            self.freqs_mode = "fixed"
+            self.fixed_freqs = np.full(self.generic_ns,
+                                       1.0 / self.generic_ns)
+        if self.freqs_mode is None:
+            self.freqs_mode = "empirical"
+        if self.name in ("JC69", "K80"):
+            # these models fix pi = 1/4 (utilities.h model defs)
+            self.freqs_mode = "fixed"
+            self.fixed_freqs = np.full(4, 0.25)
+
+    # ------------------------------------------------------------------
+    @property
+    def obs_ns(self) -> int:
+        """Observed (alphabet) states - what tips are encoded over."""
+        if self.datatype == "generic":
+            return self.generic_ns
+        return 4 if self.datatype == "nt" else 20
+
+    @property
+    def ns(self) -> int:
+        return self.obs_ns
+
+    def init_params(self, obs_freqs: np.ndarray | None = None) -> dict:
+        """Default parameter dict of float64 tensors (reference
+        defaults: Set_Defaults_Model init.c:669 - kappa 4, alpha 1,
+        pinv 0)."""
+        p: dict[str, torch.Tensor] = {}
+        ns = self.obs_ns
+        if self.datatype == "nt":
+            if self.name in ("K80", "HKY85", "F84", "TN93"):
+                p["kappa"] = _t(4.0)
+            if self.name == "TN93":
+                p["lambda"] = _t(1.0)
+            if self.name in ("GTR", "CUSTOM"):
+                _, n_rr = dna_mod.parse_custom_string(
+                    self.custom_string if self.name == "CUSTOM"
+                    else "012345"
+                )
+                p["rr_val"] = torch.zeros(n_rr, dtype=_F64)  # log-rates
+        if self.n_classes > 1 and not self.freerate:
+            p["alpha"] = _t(1.0)
+        if self.freerate:
+            p["class_rates_raw"] = torch.zeros(self.n_classes,
+                                               dtype=_F64)
+            p["class_weights_raw"] = torch.zeros(self.n_classes,
+                                                 dtype=_F64)
+        if self.invar:
+            p["pinv"] = _t(0.2)
+        if self.freqs_mode == "optimize":
+            base = obs_freqs if obs_freqs is not None else np.full(ns, 1 / ns)
+            p["freqs_raw"] = torch.log(_t(np.asarray(base)))
+        elif self.freqs_mode == "empirical":
+            if obs_freqs is None:
+                raise ValueError("empirical freqs need observed counts")
+            p["freqs_const"] = _t(np.asarray(obs_freqs))
+        elif self.freqs_mode == "fixed":
+            p["freqs_const"] = _t(np.asarray(self.fixed_freqs))
+        # 'model' mode: frequencies come from the empirical table
+        return p
+
+    # ------------------------------------------------------------------
+    def _frequencies(self, params, comp_pi):
+        """Per-class OBSERVED-state pi [..., C, obs_ns]."""
+        C = self.n_classes
+        if self.freqs_mode == "optimize":
+            pi = torch.softmax(_t(params["freqs_raw"]), dim=-1)
+        elif self.freqs_mode in ("empirical", "fixed"):
+            pi = _t(params["freqs_const"])
+            pi = pi / torch.sum(pi, dim=-1, keepdim=True)
+        else:
+            return comp_pi  # 'model': the empirical table's frequencies
+        return pi[..., None, :].expand(*pi.shape[:-1], C, pi.shape[-1])
+
+    def class_system(self, params: dict):
+        """params -> (lam, V, Vinv, pi, w, pinv), float64 tensors with
+        the parameters' batch shape leading (see the module notes)."""
+        C, ns = self.n_classes, self.obs_ns
+        lead = batch_shape(params)
+
+        # --- per-class rates & weights -------------------------------
+        if self.freerate:
+            rates, w = freerate_normalize(
+                params["class_rates_raw"], params["class_weights_raw"]
+            )
+        elif C > 1:
+            rates, w = discrete_gamma(
+                params["alpha"], C, median=self.gamma_median
+            )
+        else:
+            rates = torch.ones(1, dtype=_F64)
+            w = torch.ones(1, dtype=_F64)
+
+        # --- per-class exchangeabilities & base freqs -----------------
+        comp_pi = None
+        if self.datatype == "generic":
+            # JC over the custom alphabet: unit exchangeabilities
+            S = torch.ones(ns, ns, dtype=_F64) - torch.eye(ns, dtype=_F64)
+        elif self.datatype == "aa":
+            S_np, pi_np = matrices.empirical_aa(self.name)
+            S = _t(S_np)
+            comp_pi = _t(pi_np).expand(C, ns)
+        else:
+            dparams = {k: _t(v) for k, v in params.items()}
+            if self.name == "F84":
+                # lambda recomputed from current freqs & kappa
+                pi_now = self._frequencies(params, None)[..., 0, :]
+                dparams["lambda"] = _f84_lambda(pi_now, dparams["kappa"])
+            cmap = None
+            if self.name == "CUSTOM":
+                cmap_np, _ = dna_mod.parse_custom_string(self.custom_string)
+                cmap = torch.as_tensor(cmap_np, dtype=torch.long)
+                dparams["rr"] = torch.clamp(
+                    torch.exp(dparams["rr_val"]), RR_MIN, RR_MAX)
+            elif self.name == "GTR":
+                rr6 = torch.exp(dparams["rr_val"])
+                rr6 = torch.clamp(rr6 / rr6[..., 5:6], RR_MIN, RR_MAX)
+                dparams["rr"] = rr6
+            S = dna_mod.exchangeabilities(self.name, dparams, cmap)
+        S = S[..., None, :, :]                     # one Q for all classes
+
+        pi = self._frequencies(params, comp_pi)
+
+        # --- eigensystem (batched over classes and the batch shape) ---
+        lam, V, Vinv = reversible_eigen(S, pi)
+        pinv = _t(params.get("pinv", 0.0))
+        lam = lam * rates[..., :, None]  # fold class rate into lam
+        if self.invar:
+            # Branch lengths follow the reference's FILE convention
+            # (expected substitutions per site INCLUDING the never-
+            # changing invariant fraction): internally the variable-
+            # site process runs on t/(1-pinv)
+            # (Br_Len_Not_Involving_Invar utilities.c:4155).
+            # Folding 1/(1-pinv) into the eigenvalues is exactly
+            # equivalent and keeps every tree array in file units.
+            lam = lam / torch.clamp(1.0 - pinv, min=1e-8)[..., None,
+                                                           None]
+        return (lam.expand(lead + (C, ns)), V.expand(lead + (C, ns, ns)),
+                Vinv.expand(lead + (C, ns, ns)), pi.expand(lead + (C, ns)),
+                w.expand(lead + (C,)), pinv.expand(lead))
+
+
+def _f84_lambda(pi, kappa):
+    A, C, G, T = pi[..., 0], pi[..., 1], pi[..., 2], pi[..., 3]
+    R, Y = A + G, C + T
+    kappa = torch.clamp(kappa, min=1e-5)
+    return (Y + (R - Y) / (2.0 * kappa)) / (R - (R - Y) / (2.0 * kappa))

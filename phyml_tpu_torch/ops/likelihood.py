@@ -1,0 +1,420 @@
+"""The likelihood engine: Felsenstein pruning on one device.
+
+PyTorch port of phyml_tpu/ops/likelihood.py (the reference's hot core:
+lk.c:443 Lk, lk.c:1659 Core_Default_Update_Partial_Lk, the SIMD
+kernels avx.c/sse.c).  Design:
+
+  * Topology is data: a postorder child table (int32 [n_int, 2]) and
+    a branch-length vector indexed by rooted node.  The child table
+    stays on the host (it comes from topology.RootedView), so the
+    slot kernel's schedule is built from it directly; device copies
+    are cached per topology.
+  * Each entry point maps to the kernel phyml_tpu uses there:
+      - host `loglik` / `site_logliks`      -> K1 (ops/clv_slots.py)
+      - `_loglik_sys` / `loglik_batch`      -> K3 (ops/clv.py), batched
+        over parameter sets for the line search
+      - `edge_dotprods_sys`                 -> K2 (ops/edotp.py)
+    On CUDA tensors these launch the hand-written kernels; on CPU
+    tensors the kernels' plain PyTorch versions run.
+  * The unmasked scan path (`_up_pass` / `_down_pass`, divide-by-max
+    rescaling) is kept as the independent reference
+    (`site_logliks_scan`, `edge_dotprods_scan`).
+  * Class mixing (Gamma / FreeRate) is a leading axis; the +I
+    invariant fraction mixes at the root exactly as lk.c:820-837.  All
+    per-site logs accumulate in float64.
+  * Model parameters are host float64 tensors; the eigensystem is
+    built on the host and moved to the engine's device and dtype.
+
+Sites (patterns) are the last axis of every array.  The engine's
+device and dtype are fixed when it is built.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from phyml_tpu_torch.io.alignment import Alignment
+from phyml_tpu_torch.models.eigen import pmat
+from phyml_tpu_torch.models.substitution import SubstModel
+from phyml_tpu_torch.ops.clv import uppass_site_lse
+from phyml_tpu_torch.ops.clv_slots import (
+    build_slot_schedule, uppass_site_lse_slots,
+)
+from phyml_tpu_torch.ops.edotp import edge_dotprods
+
+
+class TreeArrays(NamedTuple):
+    """Topology + branch lengths (see topology.RootedView)."""
+    child: torch.Tensor  # int32 [n_internal, 2] on the host, postorder,
+    #                      last row = root
+    blen: torch.Tensor   # [n_nodes] edge length to parent, on device
+
+
+def tree_arrays(rv, dtype=torch.float32, device=None) -> TreeArrays:
+    return TreeArrays(
+        child=torch.as_tensor(np.asarray(rv.child, dtype=np.int32)),
+        blen=torch.as_tensor(np.asarray(rv.node_blen), dtype=dtype,
+                             device=device),
+    )
+
+
+def _param_key(params: dict):
+    """Content identity of a params dict: each value's object id and
+    in-place version counter (a write into a tensor bumps it)."""
+    return tuple(sorted((k, id(v), getattr(v, "_version", 0))
+                        for k, v in params.items()))
+
+
+class LikelihoodEngine(nn.Module):
+    """Likelihood programs for one (alignment, model) pair.
+
+    Buffers: tips [n_otu, ns, P], weights float64 [P], invar_state
+    int64 [P] and invar_ok [P] (1 where the pattern is constant).
+    """
+
+    def __init__(self, aln: Alignment, model: SubstModel,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.aln = aln
+        self.model = model
+        self.dtype = dtype
+        self.device = torch.device(device or "cpu")
+        self.n_otu = aln.n_otu
+        self.ns = model.ns
+        self.C = model.n_classes
+        self.n_nodes = 2 * self.n_otu - 1
+        self.n_internal = self.n_otu - 1
+        self.P = aln.n_patterns
+        # Sethi-Ullman bound of the slot schedule (build_slot_schedule)
+        self.slot_count = int(math.ceil(math.log2(max(self.n_otu, 2)))) + 2
+        if self.device.type == "cuda":
+            # the P-matrix einsum must run in full float32: a TF32
+            # P(t) is a ~1e-3 per-site likelihood error
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        dev = dict(device=self.device)
+        tips = np.ascontiguousarray(np.transpose(aln.partials, (0, 2, 1)))
+        self.register_buffer("tips", torch.as_tensor(tips, dtype=dtype,
+                                                     **dev))
+        self.register_buffer("weights", torch.as_tensor(
+            aln.weights, dtype=torch.float64, **dev))
+        inv = np.asarray(aln.invariant)
+        self.register_buffer("invar_state", torch.as_tensor(
+            np.maximum(inv, 0), dtype=torch.long, **dev))
+        self.register_buffer("invar_ok", torch.as_tensor(
+            inv >= 0, dtype=dtype, **dev))
+        self._tiny = torch.finfo(dtype).tiny
+
+        # caches: the eigensystem of the last params dict, P-matrices
+        # per (system, branch lengths), device topology per child table
+        self._sys_cache = None
+        self._pm_cache: collections.OrderedDict = collections.OrderedDict()
+        self._topo_cache: collections.OrderedDict = \
+            collections.OrderedDict()
+
+    def _w(self, weights):
+        return self.weights if weights is None else weights
+
+    # ------------------------------------------------------------------
+    # model plumbing
+    # ------------------------------------------------------------------
+    def system_of(self, params):
+        """Device-resident (lam, V, Vinv, pi, w, pinv), cached by the
+        content identity of the params dict (see _param_key).  Callers
+        replace parameter tensors rather than writing into them; a
+        write in place bumps the tensor's version and misses the
+        cache."""
+        key = _param_key(params)
+        hit = self._sys_cache
+        if hit is not None and hit[0] == key:
+            return hit[2]
+        sys = self._system(params)
+        # strong refs to the values keep their ids from being reused
+        self._sys_cache = (key, list(params.values()), sys)
+        return sys
+
+    def _system(self, params):
+        """Eigensystem of params (batched when the params are; see
+        SubstModel.class_system), on the engine's device and dtype."""
+        params = {k: torch.as_tensor(v).detach().to("cpu", torch.float64)
+                  for k, v in params.items()}
+        lam, V, Vinv, pi, w, pinv = self.model.class_system(params)
+        if "il_sigma" in params:
+            # Integrated-length (IL) model (reference --il,
+            # gamma_mgf_bl cl.c:430-434): each branch length is
+            # Gamma-distributed with mean t and variance t*sigma, and
+            # E[P(L)] = V diag(exp(t*mu)) V^-1 with
+            # mu = -log(1-lam*sigma)/sigma — an exponential family in
+            # t again, so substituting mu for lam makes every path
+            # exact under IL.
+            sig = torch.exp(params["il_sigma"])[..., None, None]
+            lam_il = -torch.log(torch.clamp(1.0 - lam * sig, min=1e-30)) \
+                / torch.clamp(sig, min=1e-30)
+            lam = torch.where(sig > 1e-12, lam_il, lam)
+        return tuple(x.to(self.device, self.dtype).contiguous()
+                     for x in (lam, V, Vinv, pi, w, pinv))
+
+    def _pmats(self, lam, V, Vinv, blen):
+        """P [..., n_nodes, C, ns, ns]; class rates are folded into
+        lam, whose leading batch shape (if any) leads the result."""
+        t = blen.to(self.dtype)[:, None].expand(self.n_nodes, self.C)
+        return pmat(lam, V, Vinv, t).contiguous()
+
+    def _pmats_cached(self, sys, tree):
+        """P-matrices for host entry points, cached per (system,
+        branch lengths): repeated evaluations of the same tree skip
+        the P-matrix build."""
+        key = (id(sys), id(tree.blen), tree.blen._version)
+        hit = self._pm_cache.get(key)
+        if hit is not None:
+            self._pm_cache.move_to_end(key)
+            return hit[2]
+        lam, V, Vinv = sys[:3]
+        pm = self._pmats(lam, V, Vinv, tree.blen)
+        # strong refs to sys and blen keep their ids from being reused
+        self._pm_cache[key] = (sys, tree.blen, pm)
+        while len(self._pm_cache) > 32:
+            self._pm_cache.popitem(last=False)
+        return pm
+
+    def _topology(self, child):
+        """(device child table, device slot schedule) for a host child
+        table, cached by its bytes."""
+        host = np.ascontiguousarray(np.asarray(child, dtype=np.int32))
+        key = host.tobytes()
+        hit = self._topo_cache.get(key)
+        if hit is not None:
+            self._topo_cache.move_to_end(key)
+            return hit
+        sched, n_slots = build_slot_schedule(self.n_otu, host)
+        assert n_slots <= self.slot_count, (n_slots, self.slot_count)
+        hit = (torch.as_tensor(host, device=self.device),
+               torch.as_tensor(sched, device=self.device))
+        self._topo_cache[key] = hit
+        while len(self._topo_cache) > 1024:
+            self._topo_cache.popitem(last=False)
+        return hit
+
+    def _logw(self, w):
+        return torch.log(torch.clamp(w, min=self._tiny))
+
+    # ------------------------------------------------------------------
+    # host entry points: K1 (slot kernel)
+    # ------------------------------------------------------------------
+    def _site_logliks_slots(self, sys, tree):
+        lam, V, Vinv, pi, w, pinv = sys
+        _, sched = self._topology(tree.child)
+        lse = uppass_site_lse_slots(
+            sched, self.tips, self._pmats_cached(sys, tree), pi,
+            self._logw(w), n_slots=self.slot_count)
+        return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
+
+    def loglik(self, params, tree: TreeArrays, weights=None):
+        """Weighted lnL (float64 0-d tensor on the engine's device)."""
+        site = self._site_logliks_slots(self.system_of(params), tree)
+        return torch.sum(site.double() * self._w(weights))
+
+    def site_logliks(self, params, tree: TreeArrays):
+        return self._site_logliks_slots(self.system_of(params), tree)
+
+    # ------------------------------------------------------------------
+    # traced-topology entry points: K3 (dense kernel, batched)
+    # ------------------------------------------------------------------
+    def _site_logliks_sys(self, sys, tree: TreeArrays):
+        """Site log-likelihoods [..., P] for a system whose leading
+        batch shape (none, or [B]) is carried through one launch."""
+        lam, V, Vinv, pi, w, pinv = sys
+        child, _ = self._topology(tree.child)
+        lse = uppass_site_lse(child, self.tips,
+                              self._pmats(lam, V, Vinv, tree.blen), pi,
+                              self._logw(w))
+        return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
+
+    def _loglik_sys(self, sys, tree: TreeArrays, weights=None):
+        site = self._site_logliks_sys(sys, tree)
+        return torch.sum(site.double() * self._w(weights), dim=-1)
+
+    # lnL [B] of a batch of systems (leading axis B, from _system of
+    # batched params) on one tree: batched P-matrices, then one
+    # batched K3 launch
+    loglik_batch = _loglik_sys
+
+    # ------------------------------------------------------------------
+    # scan path (independent reference; divide-by-max rescaling)
+    # ------------------------------------------------------------------
+    def _up_pass(self, pmats, child):
+        n, C, ns, P = self.n_otu, self.C, self.ns, self.P
+        pup = self.tips.new_zeros((self.n_nodes, C, ns, P))
+        clv = torch.zeros_like(pup)
+        sc = self.tips.new_zeros((self.n_nodes, C, P))
+        tip_clv = self.tips[:, None].expand(n, C, ns, P)
+        pup[:n] = torch.einsum("ncxy,ncyp->ncxp", pmats[:n], tip_clv)
+        clv[:n] = tip_clv
+        for i, (c0, c1) in enumerate(child.tolist()):
+            u = n + i
+            x = pup[c0] * pup[c1]                            # [C, ns, P]
+            m = torch.clamp(torch.amax(x, dim=1, keepdim=True),
+                            min=self._tiny)
+            x = x / m
+            sc[u] = sc[c0] + sc[c1] + torch.log(m[:, 0, :])
+            pup[u] = torch.einsum("cxy,cyp->cxp", pmats[u], x)
+            clv[u] = x
+        return pup, clv, sc
+
+    def _down_pass(self, pmats, child, pup, sc, pi):
+        """Outside partials O[u]: the likelihood of all data outside
+        subtree(u), conditional on the state at u's parent."""
+        n = self.n_otu
+        rows = child.tolist()
+        out = torch.zeros_like(pup)
+        sc_out = torch.zeros_like(sc)
+        r0, r1 = rows[-1]
+        pi_b = pi[:, :, None]
+        out[r0] = pi_b * pup[r1]
+        sc_out[r0] = sc[r1]
+        out[r1] = pi_b * pup[r0]
+        sc_out[r1] = sc[r0]
+        # reverse preorder: internal nodes except the root row
+        for i in range(self.n_internal - 2, -1, -1):
+            u = n + i
+            c0, c1 = rows[i]
+            grand = torch.einsum("cwz,cwp->czp", pmats[u], out[u])
+            o0 = grand * pup[c1]
+            o1 = grand * pup[c0]
+            m0 = torch.clamp(torch.amax(o0, dim=1, keepdim=True),
+                             min=self._tiny)
+            m1 = torch.clamp(torch.amax(o1, dim=1, keepdim=True),
+                             min=self._tiny)
+            out[c0] = o0 / m0
+            out[c1] = o1 / m1
+            sc_out[c0] = sc_out[u] + sc[c1] + torch.log(m0[:, 0, :])
+            sc_out[c1] = sc_out[u] + sc[c0] + torch.log(m1[:, 0, :])
+        return out, sc_out
+
+    def _root_site_loglik(self, pup, sc, pi, w, pinv):
+        """log L per pattern [P], mixing classes and +I exactly as the
+        reference root loop (lk.c:767-860 Lk_Core)."""
+        root = self.n_nodes - 1
+        lroot = torch.clamp(torch.einsum("cx,cxp->cp", pi, pup[root]),
+                            min=self._tiny)
+        a = torch.log(w)[:, None] + sc[root] + torch.log(lroot)
+        return self._mix_invar(torch.logsumexp(a, dim=0), pi, w, pinv)
+
+    def site_logliks_scan(self, sys, tree: TreeArrays):
+        lam, V, Vinv, pi, w, pinv = sys
+        pup, _, sc = self._up_pass(self._pmats(lam, V, Vinv, tree.blen),
+                                   tree.child)
+        return self._root_site_loglik(pup, sc, pi, w, pinv)
+
+    def edge_dotprods_scan(self, sys, tree: TreeArrays, weights=None):
+        """edge_dotprods_sys through the scan path."""
+        lam, V, Vinv, pi, w, pinv = sys
+        pmats = self._pmats(lam, V, Vinv, tree.blen)
+        pup, clv, sc = self._up_pass(pmats, tree.child)
+        out, sc_out = self._down_pass(pmats, tree.child, pup, sc, pi)
+        b = torch.einsum("ciy,ncyp->ncip", Vinv, clv)
+        a = torch.einsum("czi,nczp->ncip", V, out)
+        return a * b, sc_out + sc, self._aux(sys, weights)
+
+    # ------------------------------------------------------------------
+    # root reduction helpers
+    # ------------------------------------------------------------------
+    def _inv_lk(self, pi, w):
+        """Per-pattern invariant-site likelihood pi[invar_state]
+        (lk.c:1240), 0 for non-invariant patterns."""
+        pi_mix = torch.einsum("...c,...cx->...x", w, pi)
+        return pi_mix[..., self.invar_state] * self.invar_ok
+
+    def _mix_invar(self, lse, pi, w, pinv):
+        """Fold the +I invariant fraction into the variable-rate site
+        log-likelihoods (lk.c:820-837: L = (1-p) L_var + p pi[invar])."""
+        if not self.model.invar:
+            return lse
+        pinv = pinv[..., None]
+        inv_lk = self._inv_lk(pi, w)
+        var_part = torch.log1p(-pinv) + lse
+        inv_part = torch.log(torch.clamp(pinv * inv_lk, min=self._tiny))
+        return torch.where(self.invar_ok > 0,
+                           torch.logaddexp(var_part, inv_part), var_part)
+
+    # ------------------------------------------------------------------
+    # eigen-LR edge machinery (lk.c:1038 / lk.c:655, all edges at once)
+    # ------------------------------------------------------------------
+    def _aux(self, sys, weights):
+        lam, V, Vinv, pi, w, pinv = sys
+        inv_lk = self._inv_lk(pi, w) if self.model.invar else \
+            self.tips.new_zeros(self.P)
+        return dict(lam=lam, w=w, pinv=pinv, weights=self._w(weights),
+                    inv_lk=inv_lk)
+
+    def edge_dotprods_sys(self, sys, tree: TreeArrays, weights=None):
+        """Eigen-basis dot products for every edge simultaneously:
+        d [n_nodes, C, ns, P], sc_d [n_nodes, C, P] such that the
+        per-(class, pattern) site likelihood as a function of edge-u's
+        length alone is
+            L_u(t)[c, p] = exp(sc_d[u, c, p]) * sum_i d[u,c,i,p] e^{lam[c,i] t}.
+        The rows for the root and for the zero-length root child are
+        meaningless and must be masked by the caller."""
+        lam, V, Vinv, pi, w, pinv = sys
+        child, _ = self._topology(tree.child)
+        d, sc_d = edge_dotprods(child, self.tips,
+                                self._pmats(lam, V, Vinv, tree.blen), V,
+                                Vinv, pi)
+        return d.to(self.dtype), sc_d.to(self.dtype), \
+            self._aux(sys, weights)
+
+    def edge_site_terms(self, d_n, sc_n, aux, t):
+        """Per-site (log-likelihood, dlnL, d2lnL) as a function of ONE
+        edge length t, from that edge's dot products.  Shapes: site
+        [..., P]."""
+        lam, w, pinv = aux["lam"], aux["w"], aux["pinv"]
+        inv_lk = aux["inv_lk"]
+        lam_b = lam[..., :, :, None]                     # [C, ns, 1]
+        t_b = torch.as_tensor(t)[..., None, None, None]  # scalar or [E]
+        e = torch.exp(lam_b * t_b)
+        s0 = torch.sum(d_n * e, dim=-2)                  # [..., C, P]
+        s1 = torch.sum(d_n * lam_b * e, dim=-2)
+        s2 = torch.sum(d_n * lam_b * lam_b * e, dim=-2)
+
+        m = torch.amax(sc_n, dim=-2, keepdim=True)       # [..., 1, P]
+        ew = w[:, None] * torch.exp(sc_n - m)            # [..., C, P]
+        A0 = torch.clamp(torch.sum(ew * s0, dim=-2), min=self._tiny)
+        A1 = torch.sum(ew * s1, dim=-2)
+        A2 = torch.sum(ew * s2, dim=-2)
+        m = m[..., 0, :]                                 # [..., P]
+
+        one_m_p = 1.0 - pinv
+        if self.model.invar:
+            log_var = torch.log(one_m_p) + torch.log(A0) + m
+            inv_part = torch.log(torch.clamp(pinv * inv_lk,
+                                             min=self._tiny))
+            site = torch.where(self.invar_ok > 0,
+                               torch.logaddexp(log_var, inv_part), log_var)
+        else:
+            site = torch.log(A0) + m
+        # d site / dt = (1-p) A1 e^{m - site}; stable in both regimes
+        ratio = one_m_p * torch.exp(
+            torch.log(torch.clamp(torch.abs(A1), min=self._tiny)) + m
+            - site) * torch.sign(A1)
+        ratio2 = one_m_p * torch.exp(
+            torch.log(torch.clamp(torch.abs(A2), min=self._tiny)) + m
+            - site) * torch.sign(A2)
+        return site, ratio, ratio2 - ratio ** 2
+
+    def edge_lnl_terms(self, d_n, sc_n, aux, t):
+        """(lnL, dlnL, d2lnL) of the whole tree as a function of ONE
+        edge length t, from that edge's dot products d_n [C, ns, P] and
+        scales sc_n [C, P] (the reference's dLk, lk.c:655 +
+        Br_Len_Spline Newton, optimiz.c:2244).  Broadcasts: t may be
+        [n_edges] with d_n [n_edges, C, ns, P]."""
+        site, dln, d2ln = self.edge_site_terms(d_n, sc_n, aux, t)
+        wts = aux["weights"]
+        return (torch.sum(site.double() * wts, dim=-1),
+                torch.sum(dln.double() * wts, dim=-1),
+                torch.sum(d2ln.double() * wts, dim=-1))
