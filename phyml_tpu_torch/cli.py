@@ -2,13 +2,16 @@
 
 Reference: Read_Command_Line (cl.c:19) and the per-dataset
 loop (main.c:108-434).  The parser takes the same flags as
-phyml_tpu's; this port runs the fixed-topology ML fit so far:
+phyml_tpu's; this port runs the fixed-topology ML fit so far, on DNA
+and on amino acids (LG, WAG, JTT and the other empirical matrices):
 `-u` tree, `-o` in {l, r, lr, n/''}, `-b 0`, the model and data flags,
 and `--print_site_lnl`.  Every other analysis flag stops the run with
 a message naming the ROADMAP.md item that ports it.
 
     python -m phyml_tpu_torch.cli -i aln.phy -u tree.nwk -m GTR -c 4 \\
         -o lr -b 0 --platform gpu
+    python -m phyml_tpu_torch.cli -i prot.phy -u tree.nwk -d aa -m LG \\
+        -c 4 -a e -o lr -b 0 --platform gpu
 """
 
 from __future__ import annotations

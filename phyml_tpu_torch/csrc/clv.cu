@@ -17,7 +17,10 @@
 // the FLOPs are ~2*ns^2 per child.  The layout puts the pattern axis
 // last, so a warp's loads and stores are coalesced, and every thread
 // of a warp reads the same P-matrix entry (an L1 broadcast).  The
-// batch is the grid's y dimension.
+// batch is the grid's y dimension.  The workspace grows with ns: at
+// amino acids (ns = 20), 128 taxa, C = 4, ~4096 patterns and the
+// line search's B = 13 it is 13*127*4*20*4096*4 B, about 2.2 GB, which
+// the 80 GB card holds easily.
 #include "common.cuh"
 
 namespace phyml {
@@ -109,6 +112,10 @@ extern "C" int phyml_dense_site_lse(const int* child, const float* tips,
     case 4:
       return phyml::launch_dense<4>(child, tips, pmats, pi, logw, out, ws_pup,
                                     ws_sc, n_otu, n_int, C, P, Pw, B, tp, st);
+    case 20:
+      return phyml::launch_dense<20>(child, tips, pmats, pi, logw, out,
+                                     ws_pup, ws_sc, n_otu, n_int, C, P, Pw, B,
+                                     tp, st);
     default:
       return phyml::kUnsupported;
   }

@@ -14,7 +14,8 @@
 // child.  Every thread of a warp reads the same P-matrix entry (an L1
 // broadcast), tip loads are coalesced across the pattern axis, and
 // the slot layout [slot][ns+1][thread] keeps shared-memory accesses
-// free of bank conflicts.
+// free of bank conflicts.  At ns = 20 the slots take (n_slots*21+1)
+// floats per thread, 97 KB for a 128-thread block at 128 taxa.
 #include "common.cuh"
 
 namespace phyml {
@@ -108,6 +109,9 @@ extern "C" int phyml_slot_site_lse(const int* sched, const float* tips,
     case 4:
       return phyml::launch_slot<4>(sched, tips, pmats, pi, logw, out, n_int,
                                    n_slots, C, P, tp, st);
+    case 20:
+      return phyml::launch_slot<20>(sched, tips, pmats, pi, logw, out, n_int,
+                                    n_slots, C, P, tp, st);
     default:
       return phyml::kUnsupported;
   }

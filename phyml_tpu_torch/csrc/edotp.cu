@@ -75,26 +75,55 @@ __global__ void edge_dotprods_kernel(
   }
 
   // ---- down sweep: outside partials, d and sc_d per node -----------
+  // At ns = 4 a step holds both children's partials and forms whole
+  // V^T O and V^-1 C vectors for each d.  At ns = 20 that spilled (255
+  // registers, 2.6 KB of spill stores a thread, and K5 2.3x slower on
+  // an H100), so there a child's partial is loaded again for its d, and
+  // each d row is stored as soon as its two dot products are formed:
+  // 168 registers, no spill.  kHoldPartials picks the form at compile
+  // time; both take the same sums in the same order.
   const float* Vc = V + c * NS * NS;
   const float* Vic = Vinv + c * NS * NS;
-  auto emit = [&](int node, const float(&o)[NS], float sco,
-                  const float(&x)[NS], float sx) {
+  auto d_col = [&](int node) {
+    return d + (static_cast<size_t>(node) * C + c) * NS * sP + p;
+  };
+  auto sc_d = [&](int node) -> float& {
+    return scd[(static_cast<size_t>(node) * C + c) * sP + p];
+  };
+  auto emit_held = [&](int node, const float(&o)[NS], float sco,
+                       const float(&x)[NS], float sx) {
     float a[NS], bb[NS];
     matvec_t<NS>(Vc, o, a);
     matvec<NS>(Vic, x, bb);
     if (!live) return;
-    float* dn = d + (static_cast<size_t>(node) * C + c) * NS * sP + p;
+    float* dn = d_col(node);
 #pragma unroll
     for (int j = 0; j < NS; ++j) dn[j * sP] = a[j] * bb[j];
-    scd[(static_cast<size_t>(node) * C + c) * sP + p] = (sco + sx) * kLn2;
+    sc_d(node) = (sco + sx) * kLn2;
+  };
+  auto emit_reload = [&](int node, const float(&o)[NS], float sco) {
+    // loaded before the ragged-edge test: the other order spilled
+    // 2.8 KB at ns = 20 (ptxas)
+    float x[NS], sx;
+    node_clv(node, x, sx);
+    if (!live) return;
+    eigen_dot_rows<NS>(Vc, Vic, o, x, d_col(node), sP);
+    sc_d(node) = (sco + sx) * kLn2;
   };
   for (int i = n_int - 1; i >= 0; --i) {  // root row first
     const int c0 = child[2 * i], c1 = child[2 * i + 1];
     float x0[NS], x1[NS], p0[NS], p1[NS], s0, s1;
-    node_clv(c0, x0, s0);
-    node_clv(c1, x1, s1);
-    matvec<NS>(pm(c0), x0, p0);
-    matvec<NS>(pm(c1), x1, p1);
+    if constexpr (kHoldPartials<NS>) {
+      node_clv(c0, x0, s0);
+      node_clv(c1, x1, s1);
+      matvec<NS>(pm(c0), x0, p0);
+      matvec<NS>(pm(c1), x1, p1);
+    } else {  // one partial live at a time
+      node_clv(c0, x0, s0);
+      matvec<NS>(pm(c0), x0, p0);
+      node_clv(c1, x0, s1);
+      matvec<NS>(pm(c1), x0, p1);
+    }
     float g[NS], sg;
     if (i == n_int - 1) {
 #pragma unroll
@@ -106,26 +135,30 @@ __global__ void edge_dotprods_kernel(
       sg = wsc(ws_sco, i);
       matvec_t<NS>(pm(n_otu + i), o, g);
     }
-    float o0[NS], o1[NS];
+    // outside partials of the children: o0 = g * p1 (into p1) and
+    // o1 = g * p0 (into p0)
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      o0[j] = g[j] * p1[j];
-      o1[j] = g[j] * p0[j];
+      p1[j] *= g[j];
+      p0[j] *= g[j];
     }
-    const float e0 = rescale<NS>(o0);
-    const float e1 = rescale<NS>(o1);
-    const float sco0 = sg + s1 + e0;
-    const float sco1 = sg + s0 + e1;
+    const float sco0 = sg + s1 + rescale<NS>(p1);
+    const float sco1 = sg + s0 + rescale<NS>(p0);
     if (c0 >= n_otu) {
-      store_col<NS>(wvec(ws_out, c0 - n_otu), sW, o0);
+      store_col<NS>(wvec(ws_out, c0 - n_otu), sW, p1);
       wsc(ws_sco, c0 - n_otu) = sco0;
     }
     if (c1 >= n_otu) {
-      store_col<NS>(wvec(ws_out, c1 - n_otu), sW, o1);
+      store_col<NS>(wvec(ws_out, c1 - n_otu), sW, p0);
       wsc(ws_sco, c1 - n_otu) = sco1;
     }
-    emit(c0, o0, sco0, x0, s0);
-    emit(c1, o1, sco1, x1, s1);
+    if constexpr (kHoldPartials<NS>) {
+      emit_held(c0, p1, sco0, x0, s0);
+      emit_held(c1, p0, sco1, x1, s1);
+    } else {
+      emit_reload(c0, p1, sco0);
+      emit_reload(c1, p0, sco1);
+    }
   }
 
   // root row: meaningless, written as zeros
@@ -166,6 +199,10 @@ extern "C" int phyml_edge_dotprods(const int* child, const float* tips,
       return phyml::launch_edotp<4>(child, tips, pmats, V, Vinv, pi, d, scd,
                                     ws_clv, ws_sc, ws_out, ws_sco, n_otu,
                                     n_int, C, P, Pw, tp, st);
+    case 20:
+      return phyml::launch_edotp<20>(child, tips, pmats, V, Vinv, pi, d, scd,
+                                     ws_clv, ws_sc, ws_out, ws_sco, n_otu,
+                                     n_int, C, P, Pw, tp, st);
     default:
       return phyml::kUnsupported;
   }

@@ -184,15 +184,28 @@ def drop_taxa(aln: Alignment, drop: list[int]) -> Alignment:
 def empirical_freqs(aln: Alignment, n_iter: int = 8) -> np.ndarray:
     """EM estimate of equilibrium frequencies, distributing ambiguity
     mass by current estimates (utilities.c:594 Get_Base_Freqs /
-    utilities.c:710 Get_AA_Freqs; both run 8 fixed-point iterations)."""
+    utilities.c:710 Get_AA_Freqs; both run 8 fixed-point iterations).
+
+    A cell (taxon, pattern) enters the iteration only through its row
+    of compatible states, so the cells are grouped by that row (a few
+    dozen distinct rows: one per state plus the ambiguity codes) and
+    each row carries its cells' summed pattern weight; the iteration's
+    cost then no longer grows with the alignment's size."""
     ns = aln.ns
-    compat = (aln.partials > 0).astype(np.float64)  # [n_otu, n_pat, ns]
-    w = aln.weights[None, :, None]
+    compat = aln.partials > 0                        # [n_otu, n_pat, ns]
+    nb = -(-ns // 8)
+    keys = np.ascontiguousarray(np.packbits(compat, axis=-1)
+                                .reshape(-1, nb)).view(f"V{nb}").ravel()
+    _, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    cell_w = np.broadcast_to(aln.weights[None, :], compat.shape[:2])
+    row_w = np.bincount(inv.ravel(), weights=cell_w.ravel(),
+                        minlength=len(first))[:, None]      # [R, 1]
+    rows = compat.reshape(-1, ns)[first].astype(np.float64)  # [R, ns]
     f = np.full(ns, 1.0 / ns)
     for _ in range(n_iter):
-        mass = compat * f  # [n_otu, n_pat, ns]
+        mass = rows * f
         denom = mass.sum(axis=-1, keepdims=True)
-        counts = (w * mass / np.maximum(denom, 1e-300)).sum(axis=(0, 1))
+        counts = (row_w * mass / np.maximum(denom, 1e-300)).sum(axis=0)
         f = counts / counts.sum()
     return f
 

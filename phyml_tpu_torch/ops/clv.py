@@ -115,7 +115,7 @@ def uppass_site_lse(child, tips, pmats, pi, logw):
             ptr(child), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
             ptr(out), ptr(ws_pup), ptr(ws_sc), n_otu, n_int, ns, C, P,
             Pw, B, tp, _build.stream_of(tips))
-    _build.check(rc, name)
+    _build.check(rc, name, ns)
     uppass_site_lse.launches += 1
     return out if batched else out[0]
 

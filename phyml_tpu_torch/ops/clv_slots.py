@@ -19,6 +19,14 @@ in +I.
 `uppass_site_lse_slots` launches the kernel for CUDA tensors and runs
 the plain PyTorch version `uppass_site_lse_slots_plain` for CPU
 tensors.
+
+K4, `uppass_site_lse_slots_stream`, replaces
+phyml_tpu/ops/pallas_clv_slots.py:_slot_stream_kernel (wrapper
+uppass_site_lse_slots_stream).  It computes K1's function; each
+schedule step's two P-matrices and tip rows are staged into a
+double-buffered shared-memory ring (`csrc/clv_slots_stream.cu`), for
+trees whose P-matrices no longer stay close to one SM
+(likelihood.kernel_route).  Its plain version is K1's.
 """
 
 from __future__ import annotations
@@ -136,13 +144,9 @@ def uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw, *,
     return torch.logsumexp(a, dim=0)
 
 
-def uppass_site_lse_slots(sched, tips, pmats, pi, logw, *, n_slots: int):
-    """Variable-rate site log-likelihood [P] via K1 (same contract as
-    uppass_site_lse_slots_plain)."""
-    if tips.device.type == "cpu":
-        return uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw,
-                                           n_slots=n_slots)
-    name = "uppass_site_lse_slots"
+def _launch_slots(fn_name, name, sched, tips, pmats, pi, logw, n_slots):
+    """Check the operands and launch one of the slot kernels (K1, K4),
+    which share a C signature; returns the site lse [P]."""
     _build.check_operands(name, ints=(sched,),
                           floats=(tips, pmats, pi, logw))
     n_otu, ns, P = tips.shape
@@ -155,13 +159,43 @@ def uppass_site_lse_slots(sched, tips, pmats, pi, logw, *, n_slots: int):
     out = torch.empty(P, dtype=torch.float32, device=tips.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(tips.device):
-        rc = _build.library().phyml_slot_site_lse(
+        rc = getattr(_build.library(), fn_name)(
             ptr(sched), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
             ptr(out), n_int, n_slots, ns, C, P,
             _build.block_patterns(C), _build.stream_of(tips))
-    _build.check(rc, name)
+    _build.check(rc, name, ns)
+    return out
+
+
+def uppass_site_lse_slots(sched, tips, pmats, pi, logw, *, n_slots: int):
+    """Variable-rate site log-likelihood [P] via K1 (same contract as
+    uppass_site_lse_slots_plain)."""
+    if tips.device.type == "cpu":
+        return uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw,
+                                           n_slots=n_slots)
+    out = _launch_slots("phyml_slot_site_lse", "uppass_site_lse_slots",
+                        sched, tips, pmats, pi, logw, n_slots)
     uppass_site_lse_slots.launches += 1
     return out
 
 
+def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
+                                 n_slots: int):
+    """Variable-rate site log-likelihood [P] via K4, the streamed slot
+    kernel.  It computes K1's function, so its plain version is K1's,
+    uppass_site_lse_slots_plain (same contract), which runs for CPU
+    tensors."""
+    if tips.device.type == "cpu":
+        return uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw,
+                                           n_slots=n_slots)
+    # the ring copies P-matrices in 16-byte pieces
+    _build.check_aligned("uppass_site_lse_slots_stream", pmats)
+    out = _launch_slots("phyml_slot_site_lse_stream",
+                        "uppass_site_lse_slots_stream", sched, tips,
+                        pmats, pi, logw, n_slots)
+    uppass_site_lse_slots_stream.launches += 1
+    return out
+
+
 uppass_site_lse_slots.launches = 0
+uppass_site_lse_slots_stream.launches = 0

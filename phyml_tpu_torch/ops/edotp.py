@@ -20,6 +20,14 @@ LikelihoodEngine.edge_site_terms, never raw d.
 
 `edge_dotprods` launches the kernel for CUDA tensors and runs the
 plain PyTorch version `edge_dotprods_plain` for CPU tensors.
+
+K5, `edge_dotprods_stream`, replaces
+phyml_tpu/ops/pallas_edotp.py:_edotp_stream_kernel (wrapper
+edge_dotprods_pallas_stream).  It computes K2's function; each step's
+three P-matrices (child 0, child 1, parent) and tip rows are staged
+into a double-buffered shared-memory ring (`csrc/edotp_stream.cu`),
+for trees whose P-matrices no longer stay close to one SM
+(likelihood.kernel_route).  Its plain version is K2's.
 """
 
 from __future__ import annotations
@@ -80,11 +88,9 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
     return d, sc_d
 
 
-def edge_dotprods(child, tips, pmats, V, Vinv, pi):
-    """(d, sc_d) via K2 (same contract as edge_dotprods_plain)."""
-    if tips.device.type == "cpu":
-        return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    name = "edge_dotprods"
+def _launch_edotp(fn_name, name, child, tips, pmats, V, Vinv, pi):
+    """Check the operands and launch one of the edge-dot-product
+    kernels (K2, K5), which share a C signature; returns (d, sc_d)."""
     _build.check_operands(name, ints=(child,),
                           floats=(tips, pmats, V, Vinv, pi))
     n_otu, ns, P = tips.shape
@@ -106,13 +112,39 @@ def edge_dotprods(child, tips, pmats, V, Vinv, pi):
           torch.empty((n_int, C, Pw), **f32)]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
-        rc = _build.library().phyml_edge_dotprods(
+        rc = getattr(_build.library(), fn_name)(
             ptr(child), ptr(tips), ptr(pmats), ptr(V), ptr(Vinv),
             ptr(pi), ptr(d), ptr(sc_d), *map(ptr, ws), n_otu, n_int, ns,
             C, P, Pw, tp, _build.stream_of(tips))
-    _build.check(rc, name)
-    edge_dotprods.launches += 1
+    _build.check(rc, name, ns)
     return d, sc_d
 
 
+def edge_dotprods(child, tips, pmats, V, Vinv, pi):
+    """(d, sc_d) via K2 (same contract as edge_dotprods_plain)."""
+    if tips.device.type == "cpu":
+        return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
+    out = _launch_edotp("phyml_edge_dotprods", "edge_dotprods", child,
+                        tips, pmats, V, Vinv, pi)
+    edge_dotprods.launches += 1
+    return out
+
+
+def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
+    """(d, sc_d) via K5, the streamed edge-dot-product kernel.  It
+    computes K2's function, so its plain version is K2's,
+    edge_dotprods_plain (same contract), which runs for CPU
+    tensors."""
+    if tips.device.type == "cpu":
+        return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
+    # the ring copies P-matrices, V and V^-1 in 16-byte pieces
+    _build.check_aligned("edge_dotprods_stream", pmats, V, Vinv)
+    out = _launch_edotp("phyml_edge_dotprods_stream",
+                        "edge_dotprods_stream", child, tips, pmats, V,
+                        Vinv, pi)
+    edge_dotprods_stream.launches += 1
+    return out
+
+
 edge_dotprods.launches = 0
+edge_dotprods_stream.launches = 0

@@ -10,12 +10,16 @@ kernels avx.c/sse.c).  Design:
     slot kernel's schedule is built from it directly; device copies
     are cached per topology.
   * Each entry point maps to the kernel phyml_tpu uses there:
-      - host `loglik` / `site_logliks`      -> K1 (ops/clv_slots.py)
+      - host `loglik` / `site_logliks`      -> K1, or K4 when streamed
+        (ops/clv_slots.py)
       - `_loglik_sys` / `loglik_batch`      -> K3 (ops/clv.py), batched
         over parameter sets for the line search
-      - `edge_dotprods_sys`                 -> K2 (ops/edotp.py)
-    On CUDA tensors these launch the hand-written kernels; on CPU
-    tensors the kernels' plain PyTorch versions run.
+      - `edge_dotprods_sys`                 -> K2, or K5 when streamed
+        (ops/edotp.py)
+    One rule picks the streamed pair (`kernel_route`): the tree's
+    P-matrices no longer stay close to one SM.  On CUDA tensors these
+    launch the hand-written kernels; on CPU tensors the kernels'
+    plain PyTorch versions run.
   * The unmasked scan path (`_up_pass` / `_down_pass`, divide-by-max
     rescaling) is kept as the independent reference
     (`site_logliks_scan`, `edge_dotprods_scan`).
@@ -26,7 +30,8 @@ kernels avx.c/sse.c).  Design:
     built on the host and moved to the engine's device and dtype.
 
 Sites (patterns) are the last axis of every array.  The engine's
-device and dtype are fixed when it is built.
+device and dtype are fixed when it is built; the device is the CUDA
+device unless the caller passes another (`default_device`).
 """
 
 from __future__ import annotations
@@ -44,9 +49,40 @@ from phyml_tpu_torch.models.eigen import pmat
 from phyml_tpu_torch.models.substitution import SubstModel
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
-    build_slot_schedule, uppass_site_lse_slots,
+    build_slot_schedule, uppass_site_lse_slots, uppass_site_lse_slots_stream,
 )
-from phyml_tpu_torch.ops.edotp import edge_dotprods
+from phyml_tpu_torch.ops.edotp import edge_dotprods, edge_dotprods_stream
+
+# The streamed kernels (K4, K5) stage each step's P-matrices in shared
+# memory; the resident ones (K1, K2) read them through L1/L2, which
+# serves them well only while the whole tree's P-matrices stay close
+# to one SM.  The limit sits below the H100's 256 KB of L1 + shared
+# memory per SM.  On an H100 the streamed pair is 2-3x faster at
+# 128-taxon protein (1.6 MB) and 4-8 % slower than the resident pair
+# at 128-taxon DNA (65 KB); PERF.md keeps the times.
+RESIDENT_PMATS_BYTES = 192 * 1024
+
+
+def kernel_route(n_otu: int, C: int, ns: int) -> tuple[str, str]:
+    """(host lnL kernel, edge-dot-product kernel) for a tree of n_otu
+    taxa: ("K1", "K2") while its float32 P-matrices, n_nodes*C*ns^2*4
+    bytes, fit RESIDENT_PMATS_BYTES, else the streamed ("K4", "K5")."""
+    pm_bytes = (2 * n_otu - 1) * C * ns * ns * 4
+    return ("K1", "K2") if pm_bytes <= RESIDENT_PMATS_BYTES \
+        else ("K4", "K5")
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when given, else
+    the CUDA device.  Without one this raises rather than falling
+    back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "phyml_tpu_torch runs on the CUDA device by default and none "
+            "is available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 class TreeArrays(NamedTuple):
@@ -57,10 +93,12 @@ class TreeArrays(NamedTuple):
 
 
 def tree_arrays(rv, dtype=torch.float32, device=None) -> TreeArrays:
+    """TreeArrays of a RootedView, branch lengths on `device` (the
+    CUDA device unless given; see default_device)."""
     return TreeArrays(
         child=torch.as_tensor(np.asarray(rv.child, dtype=np.int32)),
         blen=torch.as_tensor(np.asarray(rv.node_blen), dtype=dtype,
-                             device=device),
+                             device=default_device(device)),
     )
 
 
@@ -76,6 +114,8 @@ class LikelihoodEngine(nn.Module):
 
     Buffers: tips [n_otu, ns, P], weights float64 [P], invar_state
     int64 [P] and invar_ok [P] (1 where the pattern is constant).
+    `lnl_route` / `edotp_route` name the kernels the host lnL and the
+    edge dot products run through (kernel_route).
     """
 
     def __init__(self, aln: Alignment, model: SubstModel,
@@ -84,7 +124,7 @@ class LikelihoodEngine(nn.Module):
         self.aln = aln
         self.model = model
         self.dtype = dtype
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.n_otu = aln.n_otu
         self.ns = model.ns
         self.C = model.n_classes
@@ -93,6 +133,8 @@ class LikelihoodEngine(nn.Module):
         self.P = aln.n_patterns
         # Sethi-Ullman bound of the slot schedule (build_slot_schedule)
         self.slot_count = int(math.ceil(math.log2(max(self.n_otu, 2)))) + 2
+        self.lnl_route, self.edotp_route = kernel_route(self.n_otu, self.C,
+                                                        self.ns)
         if self.device.type == "cuda":
             # the P-matrix einsum must run in full float32: a TF32
             # P(t) is a ~1e-3 per-site likelihood error
@@ -205,12 +247,14 @@ class LikelihoodEngine(nn.Module):
         return torch.log(torch.clamp(w, min=self._tiny))
 
     # ------------------------------------------------------------------
-    # host entry points: K1 (slot kernel)
+    # host entry points: K1 (slot kernel) or K4 (streamed)
     # ------------------------------------------------------------------
     def _site_logliks_slots(self, sys, tree):
         lam, V, Vinv, pi, w, pinv = sys
         _, sched = self._topology(tree.child)
-        lse = uppass_site_lse_slots(
+        slots = uppass_site_lse_slots if self.lnl_route == "K1" \
+            else uppass_site_lse_slots_stream
+        lse = slots(
             sched, self.tips, self._pmats_cached(sys, tree), pi,
             self._logw(w), n_slots=self.slot_count)
         return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
@@ -363,9 +407,10 @@ class LikelihoodEngine(nn.Module):
         meaningless and must be masked by the caller."""
         lam, V, Vinv, pi, w, pinv = sys
         child, _ = self._topology(tree.child)
-        d, sc_d = edge_dotprods(child, self.tips,
-                                self._pmats(lam, V, Vinv, tree.blen), V,
-                                Vinv, pi)
+        edotp = edge_dotprods if self.edotp_route == "K2" \
+            else edge_dotprods_stream
+        d, sc_d = edotp(child, self.tips,
+                        self._pmats(lam, V, Vinv, tree.blen), V, Vinv, pi)
         return d.to(self.dtype), sc_d.to(self.dtype), \
             self._aux(sys, weights)
 

@@ -51,7 +51,7 @@ def _problem(C, seed=0):
     if C > 1:
         jp["alpha"] = jnp.asarray(0.6)
     jeng = JEngine(jaln, jm, dtype=jnp.float32, use_pallas=True)
-    teng = TEngine(taln, tm, dtype=torch.float32)
+    teng = TEngine(taln, tm, dtype=torch.float32, device="cpu")
     rv = Topology.random(N_TAXA, rng, mean_blen=0.15).rooted()
     jta = jtree_arrays(rv, dtype=jnp.float32)
     sysv = jeng.system_of(jp)

@@ -25,7 +25,7 @@ from phyml_tpu_torch.interop import params_from_numpy, tree_arrays_from_numpy
 from phyml_tpu_torch.io.alignment import compact as tcompact
 from phyml_tpu_torch.models.substitution import SubstModel as TModel
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine as TEngine
-from phyml_tpu_torch.ops.likelihood import tree_arrays
+from phyml_tpu_torch.ops.likelihood import default_device, tree_arrays
 
 LNL_TOL = 1e-6
 SITE_TOL = 1e-8
@@ -49,11 +49,12 @@ def _setup(invar: bool, seed: int = 0):
     jp["alpha"] = jnp.asarray(0.55)
     tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
     jeng = JEngine(jaln, jm, dtype=jnp.float64, use_pallas=False)
-    teng = TEngine(taln, tm, dtype=torch.float64)
+    teng = TEngine(taln, tm, dtype=torch.float64, device="cpu")
     rv = topo.rooted()
     jta = jtree_arrays(rv, dtype=jnp.float64)
     tta = tree_arrays_from_numpy(np.asarray(jta.child),
-                                 np.asarray(jta.blen), dtype=torch.float64)
+                                 np.asarray(jta.blen), device="cpu",
+                                 dtype=torch.float64)
     return jeng, jp, jta, teng, tp, tta, jaln.n_patterns
 
 
@@ -116,5 +117,23 @@ def test_params_and_tree_carried_across():
     rv = Topology.random(N_TAXA, np.random.default_rng(9),
                          mean_blen=0.2).rooted()
     want = float(jeng.loglik(jp, jtree_arrays(rv, dtype=jnp.float64)))
-    got = float(teng.loglik(tp, tree_arrays(rv, dtype=torch.float64)))
+    got = float(teng.loglik(tp, tree_arrays(rv, dtype=torch.float64,
+                                            device="cpu")))
     assert abs(got - want) < LNL_TOL
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a device argument the engine and the tree arrays go to
+    the CUDA device; with none they raise and name device="cpu"
+    rather than falling back to the CPU."""
+    _, _, _, teng, _, _, _ = _setup(False)
+    rv = Topology.random(N_TAXA, np.random.default_rng(0)).rooted()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: TEngine(teng.aln, teng.model),
+                  lambda: tree_arrays(rv),
+                  lambda: tree_arrays_from_numpy(rv.child, rv.node_blen)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    assert tree_arrays(rv, device="cpu").blen.device.type == "cpu"
