@@ -11,9 +11,14 @@
 4. for each, runs the kernels against their plain PyTorch versions on
    the same card tensors: the host lnL kernel (K1 slot walk, or its
    streamed twin K4), the edge dot products (K2, or the streamed K5)
-   and K3 (dense, at the optimizer's batch sizes); the pair off the
-   problem's route runs beside the one on it, for the record.  The
-   host lnL kernel is also held against a float64 evaluation;
+   and K3 (slot schedule, batched over parameter sets) at the
+   optimizer's batch sizes B = 1 (branch-length probes), 2 (the line
+   search's pair probe) and 13 per free scalar (its grid), each with
+   the peak device memory of its call, its registers and spills from
+   the ptxas report (a spill fails the run) and the blocks per SM the
+   runtime grants; the pair off the problem's route runs beside the
+   one on it, for the record.  The host lnL kernel is also held
+   against a float64 evaluation;
 5. checks the fixed-topology fit end to end on a small problem of each
    kind (card float32 against CPU float64);
 6. runs each main path, `phyml_tpu_torch.cli -u tree -c 4 -o lr -b 0
@@ -181,6 +186,46 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_report(log_path):
+    """K3's ptxas report from the build log: state count -> (registers,
+    spill bytes stored + loaded) of each instantiation."""
+    import re
+
+    out, ns = {}, None
+    with open(log_path) as fh:
+        for line in fh:
+            m = re.search(r"(?:entry function|properties for) '?"
+                          r"\S*batched_uppass_kernelILi(\d+)E", line)
+            if m:
+                ns = int(m.group(1))
+                continue
+            if ns is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                regs = out.get(ns, (None, 0))[0]
+                out[ns] = (regs, int(m.group(1)) + int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[ns] = (int(m.group(1)), out.get(ns, (None, 0))[1])
+                ns = None
+    return out
+
+
+def peak_mib(fn):
+    """Device memory one call allocates at its peak, beyond what was
+    allocated before it (MiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -221,7 +266,7 @@ def stats_lnl(aln_path) -> float:
     fail("no Log-likelihood line in the stats file")
 
 
-def kernel_phases(dt, aln_path, tree_path, cuda):
+def kernel_phases(dt, aln_path, tree_path, cuda, k3_regs):
     """Each kernel of the path against its plain version on the same
     card tensors at the main path's shapes; returns the kernels' JSON
     entries (launches filled in later)."""
@@ -245,7 +290,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda):
     sys_ = eng.system_of(params)
     lam, V, Vinv, pi, w, pinv = sys_
     pm = eng._pmats(lam, V, Vinv, tree.blen)
-    child, sched = eng._topology(tree.child)
+    child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(w)
     n, C, ns, k = aln.n_otu, eng.C, eng.ns, aln.n_patterns
     lnl_k, edge_k = eng.lnl_route, eng.edotp_route
@@ -257,7 +302,8 @@ def kernel_phases(dt, aln_path, tree_path, cuda):
     W = wrappers()
     rows = []
 
-    def row(kname, label, err, ms, plain_ms, tol, flops, nb, on_path=True):
+    def row(kname, label, err, ms, plain_ms, tol, flops, nb, on_path=True,
+            **extra):
         b_ms, b_by = bound(flops, nb)
         print(f". [{dt}] {kname} {label}: max|d|={err:.3e} (tol {tol:g})  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
@@ -272,7 +318,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda):
                 source=f"phyml_tpu_torch/csrc/{SOURCE[kname]}",
                 replaces=TPU_KERNEL[kname], launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, ns=ns, path=dt, kernel=kname))
+                library_ms=None, ns=ns, path=dt, kernel=kname, **extra))
 
     # host lnL: K1 (DNA) or K4 (amino acids), against K1's plain version
     args1 = (sched, eng.tips, pm, pi, logw)
@@ -299,29 +345,48 @@ def kernel_phases(dt, aln_path, tree_path, cuda):
              f"{lnl32 - lnl64}")
     del eng64, tree64
 
-    # K3: backtracking probes (one system) and the line-search grid
-    # (n_slots x (grid + 1) systems in one launch)
-    got, ms = timed(lambda: clv.uppass_site_lse(child, eng.tips, pm, pi,
-                                                logw))
-    ref, pms = timed(lambda: clv.uppass_site_lse_plain(
-        child, eng.tips, pm[None], pi[None], logw[None])[0], 1)
-    row("K3", "uppass_site_lse (B=1)", float((got - ref).abs().max()), ms,
-        pms, SITE_TOL[dt], pruning_flops(n, C, ns, k),
-        nbytes(child, eng.tips, pm, pi, logw) + k * 4)
+    # K3: the branch-length probes (one system, unbatched), the line
+    # search's pair probe (B=2) and its grid (13 systems per free
+    # scalar, optimize_scalars grid=12 plus the current value), one
+    # launch each, through the topology's slot schedule
     slots = free_scalar_slots(model, params)
-    B = len(slots) * 13                        # optimize_scalars grid=12
     rng = np.random.default_rng(SEED)
-    S = np.asarray([[rng.uniform(max(lo, -3.0), min(hi, 3.0))
-                     for _, _, _, lo, hi in slots] for _ in range(B)])
-    sysb = eng._system(_batched_params(params, slots, S))
-    pmb = eng._pmats(sysb[0], sysb[1], sysb[2], tree.blen)
-    argsb = (child, eng.tips, pmb, sysb[3], eng._logw(sysb[4]))
-    got, ms = timed(lambda: clv.uppass_site_lse(*argsb))
-    ref, pms = timed(lambda: clv.uppass_site_lse_plain(*argsb), 1)
-    row("K3", f"uppass_site_lse (B={B})", float((got - ref).abs().max()),
-        ms, pms, SITE_TOL[dt], pruning_flops(n, C, ns, k, B),
-        nbytes(*argsb) + B * k * 4)
-    del sysb, pmb, argsb, got, ref
+    tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
+    for B in (1, 2, 13 * len(slots)):
+        blocks = clv.blocks_per_sm(ns, C, n_slots)
+        regs, spill = k3_regs[ns]
+        print(f". [{dt}] K3 B={B}: {n_slots} slots, {regs} registers, "
+              f"{spill} B spilled, {blocks} blocks of {32 * C} threads "
+              f"per SM ({blocks * C} warps)")
+        if B == 1:
+            argsb = (child, eng.tips, pm, pi, logw)
+        else:
+            S = np.asarray([[rng.uniform(max(lo, -3.0), min(hi, 3.0))
+                             for _, _, _, lo, hi in slots]
+                            for _ in range(B)])
+            sysb = eng._system(_batched_params(params, slots, S))
+            pmb = eng._pmats(sysb[0], sysb[1], sysb[2], tree.blen)
+            argsb = (child, eng.tips, pmb, sysb[3], eng._logw(sysb[4]))
+        k3 = lambda: clv.uppass_site_lse(*argsb, sched=sched,
+                                         n_slots=n_slots)
+        peak = peak_mib(k3)
+        old_ws = B * (n - 1) * C * (ns + 1) * (-(-k // tp) * tp) * 4
+        print(f". [{dt}] K3 B={B}: peak {peak:.2f} MiB beyond its "
+              f"inputs (output {B * k * 4 / 2 ** 20:.2f} MiB; a device-"
+              f"memory workspace of every internal node's partial would "
+              f"take {old_ws / 2 ** 20:.1f} MiB, computed)")
+        got, ms = timed(k3)
+        plain = (lambda: clv.uppass_site_lse_plain(
+            child, eng.tips, pm[None], pi[None], logw[None])[0]) \
+            if B == 1 else (lambda: clv.uppass_site_lse_plain(*argsb))
+        ref, pms = timed(plain, 1)
+        row("K3", f"uppass_site_lse (B={B})",
+            float((got - ref).abs().max()), ms, pms, SITE_TOL[dt],
+            pruning_flops(n, C, ns, k, B),
+            nbytes(*argsb[1:], sched) + B * k * 4, B=B, peak_mib=peak,
+            registers=regs, spill_bytes=spill, blocks_per_sm=blocks,
+            warps_per_sm=blocks * C)
+        del argsb, got, ref
 
     # edge dot products: K2 (DNA) or K5 (amino acids), every
     # branch-length Newton round; compared through the per-edge site
@@ -393,6 +458,7 @@ def main_path(dt, aln_path, tree_path, cuda):
     for run in range(2):
         for fn in W.values():
             fn.launches = 0
+        W["K3"].launches_by_batch = {}
         out = io.StringIO()
         torch.cuda.synchronize()
         t1 = time.time()
@@ -402,6 +468,7 @@ def main_path(dt, aln_path, tree_path, cuda):
         walls.append(time.time() - t1)
         if run == 0:
             counts = {name: fn.launches for name, fn in W.items()}
+            k3_by_b = dict(W["K3"].launches_by_batch)
             text = out.getvalue()
         if rc != 0:
             fail(f"[{dt}] main path returned {rc}")
@@ -411,7 +478,7 @@ def main_path(dt, aln_path, tree_path, cuda):
     print(f". [{dt}] main path: start lnL {lnl_start:.5f}  final lnL "
           f"{lnl_final:.5f}  rounds {rounds}  wall {walls[0]:.2f} s "
           f"(first run in the process), {walls[1]:.2f} s (second)  "
-          f"launches {counts}")
+          f"launches {counts}, K3 by batch size {k3_by_b}")
     if not (math.isfinite(lnl_final) and lnl_final >= lnl_start):
         fail(f"[{dt}] final lnL is not finite or below the start lnL")
     with open(f"{aln_path}_phyml_tree.txt") as fh:
@@ -423,7 +490,7 @@ def main_path(dt, aln_path, tree_path, cuda):
             fail(f"[{dt}] {name} never launched on the main path")
         if name not in path and count != 0:
             fail(f"[{dt}] {name} launched {count} times off its route")
-    return counts
+    return counts, k3_by_b
 
 
 def main() -> int:
@@ -455,23 +522,34 @@ def main() -> int:
     so = _build.build()
     _build.library()
     print(f". kernels built in {time.time() - t0:.1f} s: {so}")
-    with open(os.path.join(os.path.dirname(so), "build.log")) as fh:
+    log_path = os.path.join(os.path.dirname(so), "build.log")
+    with open(log_path) as fh:
         for line in fh:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}")
+    k3_regs = ptxas_report(log_path)
+    print(f". K3 ptxas (ns: registers, spill bytes): {k3_regs}")
+    for ns in (4, 20):
+        if ns not in k3_regs or k3_regs[ns][0] is None:
+            fail(f"no ptxas report for K3 at ns={ns}")
+        if k3_regs[ns][1] != 0:
+            fail(f"K3 spills {k3_regs[ns][1]} bytes at ns={ns}")
 
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
                 os.path.join(tmp, dt), dt, N_TAXA, N_SITES, SEED)
-            dt_rows = kernel_phases(dt, aln_path, tree_path, cuda)
+            dt_rows = kernel_phases(dt, aln_path, tree_path, cuda,
+                                    k3_regs)
             torch.cuda.empty_cache()
             small_fit_check(dt, tmp)
-            counts = main_path(dt, aln_path, tree_path, cuda)
+            counts, k3_by_b = main_path(dt, aln_path, tree_path, cuda)
             for r in dt_rows:
                 r["launches"] = counts[r.pop("kernel")]
+                if "B" in r:
+                    r["launches_at_B"] = k3_by_b.get(r["B"], 0)
             rows += dt_rows
             torch.cuda.empty_cache()
 

@@ -43,9 +43,10 @@ _SIGNATURES = {
     # sched tips pmats pi logw out | n_int n_slots ns C P tp | stream
     "phyml_slot_site_lse": _SLOT_ARGS,          # K1
     "phyml_slot_site_lse_stream": _SLOT_ARGS,   # K4
-    # child tips pmats pi logw out ws_pup ws_sc
-    # | n_otu n_int ns C P Pw B tp | stream
-    "phyml_dense_site_lse": [_P] * 8 + [_I] * 8 + [_P],   # K3
+    # sched tips pmats pi logw out | n_otu n_int n_slots ns C P B | stream
+    "phyml_batched_uppass": [_P] * 6 + [_I] * 7 + [_P],   # K3
+    # ns C n_slots | blocks per SM (int*)
+    "phyml_batched_uppass_occupancy": [_I] * 3 + [_P],
     # child tips pmats V Vinv pi d scd ws_clv ws_sc ws_out ws_sco
     # | n_otu n_int ns C P Pw tp | stream
     "phyml_edge_dotprods": _EDOTP_ARGS,         # K2

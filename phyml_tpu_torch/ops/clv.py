@@ -11,8 +11,10 @@ the variable-rate part of the site log-likelihood (the caller folds in
 +I), walking the postorder child table: each internal node combines
 its children's pushed partials, rescales by an exact power of two,
 and pushes the result through its own edge's P-matrix; the root row
-is not pushed.  The CUDA kernel is `csrc/clv.cu`; see its header for
-the design and what bounds it.
+is not pushed.  The CUDA kernel (`csrc/clv.cu`) walks the same tree
+through the Sethi-Ullman slot schedule of K1 and K4, with its partials
+in shared memory, so the wrapper allocates only the output; see the
+kernel's header for the design and what bounds it.
 
 `uppass_site_lse` launches the kernel for CUDA tensors and runs the
 plain PyTorch version `uppass_site_lse_plain` for CPU tensors.
@@ -79,45 +81,84 @@ def uppass_site_lse_plain(child, tips, pmats, pi, logw):
     return torch.logsumexp(a, dim=1)
 
 
-def uppass_site_lse(child, tips, pmats, pi, logw):
-    """Variable-rate site log-likelihood via K3.
-
-    pmats [n_nodes, C, ns, ns] with pi [C, ns], logw [C] -> [P]; or a
-    batch of parameter sets, pmats [B, n_nodes, C, ns, ns] with
-    pi [B, C, ns], logw [B, C] -> [B, P] (one launch).
-    """
-    batched = pmats.dim() == 5
-    if not batched:
-        pmats, pi, logw = pmats[None], pi[None], logw[None]
-    if tips.device.type == "cpu":
-        out = uppass_site_lse_plain(child, tips, pmats, pi, logw)
-        return out if batched else out[0]
-    name = "uppass_site_lse"
-    _build.check_operands(name, ints=(child,),
-                          floats=(tips, pmats, pi, logw))
-    n_otu, ns, P = tips.shape
+def _check_shapes(name, child, sched, tips, pmats, pi, logw, n_slots):
+    """Raise ValueError unless the operands of uppass_site_lse (with a
+    leading batch axis) agree with each other and with a slot schedule
+    of n_slots slots."""
+    n_otu, ns, _ = tips.shape
     B, n_nodes, C = pmats.shape[:3]
     n_int = n_nodes - n_otu
     if child.shape != (n_int, 2) or pmats.shape[3:] != (ns, ns) \
             or pi.shape != (B, C, ns) or logw.shape != (B, C):
         raise ValueError(f"{name}: inconsistent operand shapes")
-    tp = _build.block_patterns(C)
-    Pw = -(-P // tp) * tp
-    dev = tips.device
-    out = torch.empty((B, P), dtype=torch.float32, device=dev)
-    ws_pup = torch.empty((B, n_int, C, ns, Pw), dtype=torch.float32,
-                         device=dev)
-    ws_sc = torch.empty((B, n_int, C, Pw), dtype=torch.float32,
-                        device=dev)
+    if sched.shape != (n_int, 7):
+        raise ValueError(f"{name}: the schedule has shape "
+                         f"{tuple(sched.shape)}, expected ({n_int}, 7)")
+    if not 1 <= n_slots <= n_int:
+        raise ValueError(f"{name}: n_slots={n_slots} outside [1, {n_int}]")
+    if sched.device.type == "cpu":
+        # the same contract as the kernel's, which checks each row of a
+        # card schedule as it loads it and traps on one that does not
+        # fit (a device-side assert: the next synchronization raises)
+        s = sched.to(torch.int64)
+        ids, tip = s[:, [0, 3]], s[:, [1, 4]] != 0
+        outside = lambda v, hi: (v < 0) | (v >= hi)
+        bad = outside(ids, torch.where(tip, n_otu, n_nodes - 1)) \
+            | (~tip & outside(s[:, [2, 5]], n_slots))
+        if bool(bad.any()) or bool(outside(s[:, 6], n_slots).any()):
+            raise ValueError(f"{name}: the schedule does not fit "
+                             f"{n_slots} slots and {n_nodes} nodes")
+
+
+def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
+    """Variable-rate site log-likelihood via K3.
+
+    pmats [n_nodes, C, ns, ns] with pi [C, ns], logw [C] -> [P]; or a
+    batch of parameter sets, pmats [B, n_nodes, C, ns, ns] with
+    pi [B, C, ns], logw [B, C] -> [B, P] (one launch).  child is the
+    postorder child table [n_int, 2], which the plain version walks;
+    sched int32 [n_int, 7] and n_slots are its slot schedule
+    (ops/clv_slots.py:build_slot_schedule), which the kernel walks.
+    """
+    name = "uppass_site_lse"
+    batched = pmats.dim() == 5
+    if not batched:
+        pmats, pi, logw = pmats[None], pi[None], logw[None]
+    _check_shapes(name, child, sched, tips, pmats, pi, logw, n_slots)
+    if tips.device.type == "cpu":
+        out = uppass_site_lse_plain(child, tips, pmats, pi, logw)
+        return out if batched else out[0]
+    _build.check_operands(name, ints=(sched,),
+                          floats=(tips, pmats, pi, logw))
+    # the ring copies P-matrices in 16-byte pieces
+    _build.check_aligned(name, pmats)
+    n_otu, ns, P = tips.shape
+    B, n_nodes, C = pmats.shape[:3]
+    out = torch.empty((B, P), dtype=torch.float32, device=tips.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
-        rc = _build.library().phyml_dense_site_lse(
-            ptr(child), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
-            ptr(out), ptr(ws_pup), ptr(ws_sc), n_otu, n_int, ns, C, P,
-            Pw, B, tp, _build.stream_of(tips))
+    with torch.cuda.device(tips.device):
+        rc = _build.library().phyml_batched_uppass(
+            ptr(sched), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
+            ptr(out), n_otu, n_nodes - n_otu, n_slots, ns, C, P, B,
+            _build.stream_of(tips))
     _build.check(rc, name, ns)
     uppass_site_lse.launches += 1
+    by_b = uppass_site_lse.launches_by_batch
+    by_b[B] = by_b.get(B, 0) + 1
     return out if batched else out[0]
 
 
+def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
+    """Blocks of K3 (32 * C threads each) one SM of the current device
+    holds at this shape, as the CUDA runtime grants them."""
+    blocks = ctypes.c_int(0)
+    rc = _build.library().phyml_batched_uppass_occupancy(
+        ns, C, n_slots, ctypes.byref(blocks))
+    _build.check(rc, "uppass_site_lse blocks_per_sm", ns)
+    return blocks.value
+
+
+# launches in all, and by batch size B (the optimizer's probes are B = 1
+# and 2, its line-search grid 13 per free scalar)
 uppass_site_lse.launches = 0
+uppass_site_lse.launches_by_batch = {}

@@ -12,8 +12,9 @@ kernels avx.c/sse.c).  Design:
   * Each entry point maps to the kernel phyml_tpu uses there:
       - host `loglik` / `site_logliks`      -> K1, or K4 when streamed
         (ops/clv_slots.py)
-      - `_loglik_sys` / `loglik_batch`      -> K3 (ops/clv.py), batched
-        over parameter sets for the line search
+      - `_loglik_sys` / `loglik_batch`      -> K3 (ops/clv.py), the slot
+        schedule batched over parameter sets for the line search and
+        the branch-length probes
       - `edge_dotprods_sys`                 -> K2, or K5 when streamed
         (ops/edotp.py)
     One rule picks the streamed pair (`kernel_route`): the tree's
@@ -226,8 +227,8 @@ class LikelihoodEngine(nn.Module):
         return pm
 
     def _topology(self, child):
-        """(device child table, device slot schedule) for a host child
-        table, cached by its bytes."""
+        """(device child table, device slot schedule, the schedule's
+        slot count) for a host child table, cached by its bytes."""
         host = np.ascontiguousarray(np.asarray(child, dtype=np.int32))
         key = host.tobytes()
         hit = self._topo_cache.get(key)
@@ -237,7 +238,7 @@ class LikelihoodEngine(nn.Module):
         sched, n_slots = build_slot_schedule(self.n_otu, host)
         assert n_slots <= self.slot_count, (n_slots, self.slot_count)
         hit = (torch.as_tensor(host, device=self.device),
-               torch.as_tensor(sched, device=self.device))
+               torch.as_tensor(sched, device=self.device), n_slots)
         self._topo_cache[key] = hit
         while len(self._topo_cache) > 1024:
             self._topo_cache.popitem(last=False)
@@ -251,7 +252,7 @@ class LikelihoodEngine(nn.Module):
     # ------------------------------------------------------------------
     def _site_logliks_slots(self, sys, tree):
         lam, V, Vinv, pi, w, pinv = sys
-        _, sched = self._topology(tree.child)
+        _, sched, _ = self._topology(tree.child)
         slots = uppass_site_lse_slots if self.lnl_route == "K1" \
             else uppass_site_lse_slots_stream
         lse = slots(
@@ -268,16 +269,16 @@ class LikelihoodEngine(nn.Module):
         return self._site_logliks_slots(self.system_of(params), tree)
 
     # ------------------------------------------------------------------
-    # traced-topology entry points: K3 (dense kernel, batched)
+    # batched entry points: K3 (slot kernel, batched over systems)
     # ------------------------------------------------------------------
     def _site_logliks_sys(self, sys, tree: TreeArrays):
         """Site log-likelihoods [..., P] for a system whose leading
         batch shape (none, or [B]) is carried through one launch."""
         lam, V, Vinv, pi, w, pinv = sys
-        child, _ = self._topology(tree.child)
+        child, sched, n_slots = self._topology(tree.child)
         lse = uppass_site_lse(child, self.tips,
                               self._pmats(lam, V, Vinv, tree.blen), pi,
-                              self._logw(w))
+                              self._logw(w), sched=sched, n_slots=n_slots)
         return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
 
     def _loglik_sys(self, sys, tree: TreeArrays, weights=None):
@@ -406,7 +407,7 @@ class LikelihoodEngine(nn.Module):
         The rows for the root and for the zero-length root child are
         meaningless and must be masked by the caller."""
         lam, V, Vinv, pi, w, pinv = sys
-        child, _ = self._topology(tree.child)
+        child, _, _ = self._topology(tree.child)
         edotp = edge_dotprods if self.edotp_route == "K2" \
             else edge_dotprods_stream
         d, sc_d = edotp(child, self.tips,

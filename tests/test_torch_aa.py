@@ -133,9 +133,11 @@ def test_k3_plain_matches_pallas_at_20_states():
         pb["jta"].child, jeng.tips, pb["pmats"], pi, pb["logw"],
         n_otu=pb["n"], n_int=pb["n"] - 1, C=4, ns=20,
         T=jeng.pallas_tile, interpret=True)
+    sched, n_slots = clv_slots.build_slot_schedule(pb["n"], pb["rv"].child)
     got = clv.uppass_site_lse(
         torch.as_tensor(pb["rv"].child), pb["teng"].tips,
-        _t(pb["pmats"]), _t(pi), _t(pb["logw"]))
+        _t(pb["pmats"]), _t(pi), _t(pb["logw"]),
+        sched=torch.as_tensor(sched), n_slots=n_slots)
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:k],
                                atol=AA_TOL)
 

@@ -16,6 +16,10 @@ The pattern count (301) is not a multiple of any block width, so the
 ragged edge is exercised.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(cuda, C, n=40, sites=301, seed=0, datatype="nt"):
+def _setup(cuda, C, n=40, sites=301, seed=0, datatype="nt", topo=None):
     rng = np.random.default_rng(seed)
     ns = 4 if datatype == "nt" else 20
     enc = np.zeros((n, sites, ns), dtype=np.float32)
@@ -54,7 +58,7 @@ def _setup(cuda, C, n=40, sites=301, seed=0, datatype="nt"):
     if C > 1:
         params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
-    rv = Topology.random(n, rng, mean_blen=0.2).rooted()
+    rv = (topo or Topology.random(n, rng, mean_blen=0.2)).rooted()
     tree = tree_arrays(rv, device=cuda)
     sys_ = eng.system_of(params)
     pm = eng._pmats(sys_[0], sys_[1], sys_[2], tree.blen)
@@ -64,18 +68,20 @@ def _setup(cuda, C, n=40, sites=301, seed=0, datatype="nt"):
 @pytest.mark.parametrize("C", [1, 4])
 def test_k1_and_k3_match_plain(cuda, C):
     eng, tree, (lam, V, Vinv, pi, w, _), pm = _setup(cuda, C)
-    child, sched = eng._topology(tree.child)
+    child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(w)
     k1 = clv_slots.uppass_site_lse_slots(sched, eng.tips, pm, pi, logw,
                                          n_slots=eng.slot_count)
     ref = clv_slots.uppass_site_lse_slots_plain(
         sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
     assert float((k1 - ref).abs().max()) < K13_TOL
-    k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw)
+    k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
+                             n_slots=n_slots)
     assert float((k3 - ref).abs().max()) < K13_TOL
     pmb = torch.stack([pm, eng._pmats(lam * 1.5, V, Vinv, tree.blen)])
     pib, lwb = torch.stack([pi, pi]), torch.stack([logw, logw])
-    k3b = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb)
+    k3b = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
+                              n_slots=n_slots)
     refb = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
     assert float((k3b - refb).abs().max()) < K13_TOL
 
@@ -83,7 +89,7 @@ def test_k1_and_k3_match_plain(cuda, C):
 def test_k2_matches_plain(cuda):
     eng, tree, sys_, pm = _setup(cuda, 4, seed=1)
     lam, V, Vinv, pi, w, _ = sys_
-    child, _ = eng._topology(tree.child)
+    child, _, _ = eng._topology(tree.child)
     aux = eng._aux(sys_, None)
     sites = [eng.edge_site_terms(*f(child, eng.tips, pm, V, Vinv, pi),
                                  aux, tree.blen)[0]
@@ -96,10 +102,11 @@ def test_k2_matches_plain(cuda):
 
 def test_wrappers_reject_float64(cuda):
     eng, tree, sys_, pm = _setup(cuda, 4)
-    child, _ = eng._topology(tree.child)
+    child, sched, n_slots = eng._topology(tree.child)
     with pytest.raises(ValueError, match="float32"):
         clv.uppass_site_lse(child, eng.tips.double(), pm.double(),
-                            sys_[3].double(), eng._logw(sys_[4]).double())
+                            sys_[3].double(), eng._logw(sys_[4]).double(),
+                            sched=sched, n_slots=n_slots)
 
 
 def _free_edges(eng, tree):
@@ -117,7 +124,7 @@ def _site_terms_gaps(eng, tree, sys_, pm, kernel):
     conditioned (the eigen-basis sum cancels), so the kernel is held
     to the float32 plain version's own accuracy plus K2_TOL."""
     lam, V, Vinv, pi, w, _ = sys_
-    child, _ = eng._topology(tree.child)
+    child, _, _ = eng._topology(tree.child)
     aux = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
            else v for k, v in eng._aux(sys_, None).items()}
     free = _free_edges(eng, tree)
@@ -139,7 +146,7 @@ def test_streamed_kernels_match_plain(cuda, datatype, C):
     eng, tree, sys_, pm = _setup(cuda, C, seed=2, datatype=datatype)
     assert eng.P % _build.block_patterns(C) != 0
     tol = K13_TOL if datatype == "nt" else AA_TOL
-    _, sched = eng._topology(tree.child)
+    _, sched, _ = eng._topology(tree.child)
     pi, logw = sys_[3], eng._logw(sys_[4])
     n0 = clv_slots.uppass_site_lse_slots_stream.launches
     k4 = clv_slots.uppass_site_lse_slots_stream(
@@ -159,18 +166,20 @@ def test_aa_resident_kernels_match_plain(cuda, C):
     """K1, K2 and K3 (single and batched) at 20 states."""
     eng, tree, sys_, pm = _setup(cuda, C, seed=3, datatype="aa")
     lam, V, Vinv, pi, w, _ = sys_
-    child, sched = eng._topology(tree.child)
+    child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(w)
     ref = clv_slots.uppass_site_lse_slots_plain(
         sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
     k1 = clv_slots.uppass_site_lse_slots(sched, eng.tips, pm, pi, logw,
                                          n_slots=eng.slot_count)
     assert float((k1 - ref).abs().max()) < AA_TOL
-    k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw)
+    k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
+                             n_slots=n_slots)
     assert float((k3 - ref).abs().max()) < AA_TOL
     pmb = torch.stack([pm, eng._pmats(lam * 1.5, V, Vinv, tree.blen)])
     pib, lwb = torch.stack([pi, pi]), torch.stack([logw, logw])
-    k3b = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb)
+    k3b = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
+                              n_slots=n_slots)
     refb = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
     assert float((k3b - refb).abs().max()) < AA_TOL
     k2_err, plain_err = _site_terms_gaps(eng, tree, sys_, pm,
@@ -199,3 +208,153 @@ def test_aa_engine_takes_the_streamed_route(cuda):
         eng64.system_of(params),
         tree._replace(blen=tree.blen.double())) * eng64.weights))
     assert abs(lnl - want) < 0.5
+
+
+def _k3_batch(eng, tree, sys_, pm, B):
+    """K3's operands for B parameter sets: the P-matrices at B rate
+    scales, the same frequencies and class weights."""
+    lam, V, Vinv, pi, w, _ = sys_
+    f = torch.linspace(0.5, 2.0, B).tolist() if B > 1 else [1.0]
+    pmb = torch.stack([pm if x == 1.0 else
+                       eng._pmats(lam * x, V, Vinv, tree.blen) for x in f])
+    return (pmb, pi.expand(B, *pi.shape).contiguous(),
+            eng._logw(w).expand(B, *w.shape).contiguous())
+
+
+@pytest.mark.parametrize("B", [1, 2, 13, 65])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_k3_matches_plain(cuda, datatype, C, B):
+    """The slot-scheduled K3 against its plain version at the
+    optimizer's batch sizes, one launch each; 301 patterns leave a
+    ragged last tile at every tile width."""
+    eng, tree, sys_, pm = _setup(cuda, C, seed=5, datatype=datatype)
+    child, sched, n_slots = eng._topology(tree.child)
+    pmb, pib, lwb = _k3_batch(eng, tree, sys_, pm, B)
+    n0 = clv.uppass_site_lse.launches
+    got = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
+                              n_slots=n_slots)
+    ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
+    torch.cuda.synchronize()
+    assert clv.uppass_site_lse.launches == n0 + 1
+    assert got.shape == (B, eng.P) and bool(torch.isfinite(got).all())
+    tol = K13_TOL if datatype == "nt" else AA_TOL
+    assert float((got - ref).abs().max()) < tol
+
+
+@pytest.mark.parametrize("datatype,sites", [("nt", 5), ("aa", 9),
+                                            ("nt", 130), ("aa", 47)])
+def test_k3_short_and_ragged_pattern_axis(cuda, datatype, sites):
+    """Fewer patterns than one tile (64 at 4 states, 16 at 20) and a
+    ragged last tile: no column past P is stored, every valid one is
+    right."""
+    eng, tree, sys_, pm = _setup(cuda, 4, n=20, sites=sites, seed=6,
+                                 datatype=datatype)
+    child, sched, n_slots = eng._topology(tree.child)
+    pmb, pib, lwb = _k3_batch(eng, tree, sys_, pm, 3)
+    out = torch.full((3, eng.P + 64), 7.0, device=cuda)
+    got = out[:, :eng.P]
+    got.copy_(clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb,
+                                  sched=sched, n_slots=n_slots))
+    ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
+    tol = K13_TOL if datatype == "nt" else AA_TOL
+    assert float((got - ref).abs().max()) < tol
+    assert bool((out[:, eng.P:] == 7.0).all())
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("shape", ["caterpillar", "balanced"])
+def test_k3_tree_shapes(cuda, datatype, shape):
+    """A caterpillar walks one slot in place (every step reads and
+    writes it); a balanced tree needs the most slots of any shape at
+    its size (5 at 64 taxa, rooted on tip 0's edge)."""
+    n = 64
+    topo = (Topology.caterpillar(n, blen=0.05) if shape == "caterpillar"
+            else Topology.from_newick(_balanced_newick(0, n) + ";",
+                                      [f"t{i}" for i in range(n)]))
+    eng, tree, sys_, pm = _setup(cuda, 4, n=n, sites=257, seed=7,
+                                 datatype=datatype, topo=topo)
+    child, sched, n_slots = eng._topology(tree.child)
+    assert n_slots == (1 if shape == "caterpillar" else 5)
+    pmb, pib, lwb = _k3_batch(eng, tree, sys_, pm, 2)
+    got = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
+                              n_slots=n_slots)
+    ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
+    tol = K13_TOL if datatype == "nt" else AA_TOL
+    assert float((got - ref).abs().max()) < tol
+
+
+def _balanced_newick(lo, hi):
+    if hi - lo == 1:
+        return f"t{lo}:0.1"
+    mid = (lo + hi) // 2
+    return (f"({_balanced_newick(lo, mid)},{_balanced_newick(mid, hi)})"
+            ":0.05")
+
+
+def test_k3_allocates_only_its_output(cuda):
+    """A B=13 protein-shaped call (128 taxa, ~3900 patterns, C=4) holds
+    no workspace: its peak stays below inputs + output + 64 MB (the
+    kernel before the slot schedule took 2.1 GB of scratch here)."""
+    eng, tree, sys_, pm = _setup(cuda, 4, n=128, sites=4096, seed=8,
+                                 datatype="aa")
+    child, sched, n_slots = eng._topology(tree.child)
+    pmb, pib, lwb = _k3_batch(eng, tree, sys_, pm, 13)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    out = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
+                              n_slots=n_slots)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert peak <= out.numel() * 4 + 64 * 2 ** 20
+    assert bool(torch.isfinite(out).all())
+
+
+# A child process: K3 on a card schedule that does not fit its launch
+# must trap (the context is lost, hence the process of its own).
+_BAD_SCHEDULE = """
+import sys
+import numpy as np
+import torch
+from phyml_tpu_torch.ops import clv
+from phyml_tpu_torch.ops.clv_slots import build_slot_schedule
+from phyml_tpu_torch.topology import Topology
+
+rng = np.random.default_rng(0)
+n, ns, P, C = 20, int(sys.argv[1]), 300, 4
+child = np.asarray(Topology.random(n, rng).rooted().child, dtype=np.int32)
+sched, n_slots = build_slot_schedule(n, child)
+if sys.argv[2] == "slot":
+    n_slots -= 1          # the schedule's last slot lies past the launch
+else:
+    sched[-1, 0] = 2 * n  # a node past the tree
+cuda = torch.device("cuda")
+f = lambda *shape: torch.rand(*shape, device=cuda)
+pm = f(1, 2 * n - 1, C, ns, ns).contiguous()
+try:
+    clv.uppass_site_lse(torch.as_tensor(child, device=cuda), f(n, ns, P),
+                        pm, f(1, C, ns), f(1, C),
+                        sched=torch.as_tensor(sched, device=cuda),
+                        n_slots=n_slots)
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("raised:", exc)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("what", ["slot", "node"])
+@pytest.mark.parametrize("ns", [4, 20])
+def test_k3_traps_on_a_schedule_that_does_not_fit(cuda, ns, what):
+    """The wrapper checks a card schedule's shape only; the kernel
+    checks each row's slots and nodes as it loads it, so a schedule
+    whose slots exceed n_slots (which size the shared memory) or whose
+    nodes lie past the tree raises instead of writing past the slots."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_SCHEDULE, str(ns), what],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "raised:" in run.stdout

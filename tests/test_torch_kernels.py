@@ -66,6 +66,12 @@ def _t(x):
     return torch.as_tensor(np.array(x))
 
 
+def _schedule(child):
+    """K3's schedule arguments for a child table."""
+    sched, n_slots = clv_slots.build_slot_schedule(N_TAXA, child)
+    return dict(sched=torch.as_tensor(sched), n_slots=n_slots)
+
+
 @pytest.mark.parametrize("C", [1, 4])
 def test_k1_plain_matches_pallas(C):
     pb = _problem(C)
@@ -94,7 +100,7 @@ def test_k3_plain_matches_pallas(C):
         interpret=True)
     got = clv.uppass_site_lse(
         torch.as_tensor(pb["rv"].child), teng.tips, _t(pb["pmats"]),
-        _t(pi), _t(pb["logw"]))
+        _t(pi), _t(pb["logw"]), **_schedule(pb["rv"].child))
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:k],
                                atol=K13_TOL)
 
@@ -115,7 +121,8 @@ def test_k3_batched_matches_vmap():
         n_int=N_TAXA - 1, C=4, ns=4, T=jeng.pallas_tile, interpret=True)
     want = jax.vmap(kern)(pm, pi, logw)
     got = clv.uppass_site_lse(torch.as_tensor(pb["rv"].child), teng.tips,
-                              _t(pm), _t(pi), _t(logw))
+                              _t(pm), _t(pi), _t(logw),
+                              **_schedule(pb["rv"].child))
     assert got.shape == (3, k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :k],
                                atol=K13_TOL)

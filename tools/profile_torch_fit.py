@@ -41,7 +41,7 @@ import chip_smoke  # noqa: E402  (the bench problems and the CLI flags)
 # mangled-name fragment of each port kernel (csrc/*.cu)
 KERNELS = [("slot_site_lse_stream_kernel", "K4"),
            ("slot_site_lse_kernel", "K1"),
-           ("dense_site_lse_kernel", "K3"),
+           ("batched_uppass_kernel", "K3"),
            ("edge_dotprods_stream_kernel", "K5"),
            ("edge_dotprods_kernel", "K2")]
 # host functions whose cumulative time the cProfile run reports

@@ -5,8 +5,11 @@
 
 For each problem (a random 128-taxon tree and 4096 random sites; nt:
 GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4) it times every kernel the
-tree at DIR has (default: this checkout): K1, K2, K3 at B=1 and, where
-present, K4 and K5. Each time is the median over 7 windows of 50
+tree at DIR has (default: this checkout): K1, K2, K3 at the optimizer's
+batch sizes (B = 1, 2 and the line-search grid: 65 systems for DNA, 13
+for protein, each at its own rate scale) and, where present, K4 and K5.
+It runs K3 through either wrapper signature: with the slot schedule
+(`sched=`, `n_slots=`) or, on an older tree, without. Each time is the median over 7 windows of 50
 launches back to back between two CUDA events, divided by 50, so the
 host's launch overhead overlaps the card's work. To compare two
 versions of the kernels, run this script on both trees one after the
@@ -67,7 +70,8 @@ def time_problem(dt: str, seed: int = 7) -> dict:
     lam, V, Vinv, pi, w, _ = eng.system_of(m.init_params(
         aln.obs_state_freqs))
     pm = eng._pmats(lam, V, Vinv, tree.blen)
-    child, sched = eng._topology(tree.child)
+    topo = eng._topology(tree.child)
+    child, sched = topo[:2]
     logw = eng._logw(w)
     k = eng.slot_count
     out = {
@@ -75,9 +79,19 @@ def time_problem(dt: str, seed: int = 7) -> dict:
             sched, eng.tips, pm, pi, logw, n_slots=k)),
         "K2": window_ms(lambda: edotp.edge_dotprods(
             child, eng.tips, pm, V, Vinv, pi)),
-        "K3": window_ms(lambda: clv.uppass_site_lse(
-            child, eng.tips, pm, pi, logw)),
     }
+    k3_kw = dict(sched=sched, n_slots=topo[2]) if len(topo) > 2 else {}
+    for B in (1, 2, 65 if dt == "nt" else 13):
+        if B == 1:
+            args = (child, eng.tips, pm, pi, logw)
+        else:
+            pmb = torch.stack([eng._pmats(lam * f, V, Vinv, tree.blen)
+                               for f in np.linspace(0.5, 2.0, B)])
+            args = (child, eng.tips, pmb, pi.expand(B, *pi.shape).contiguous(),
+                    logw.expand(B, *logw.shape).contiguous())
+        out[f"K3(B={B})"] = window_ms(
+            lambda: clv.uppass_site_lse(*args, **k3_kw))
+        del args
     if hasattr(clv_slots, "uppass_site_lse_slots_stream"):
         out["K4"] = window_ms(lambda: clv_slots.uppass_site_lse_slots_stream(
             sched, eng.tips, pm, pi, logw, n_slots=k))
