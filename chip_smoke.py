@@ -15,9 +15,9 @@
    optimizer's batch sizes B = 1 (branch-length probes), 2 (the line
    search's pair probe) and 13 per free scalar (its grid), each with
    the peak device memory of its call, its registers and spills from
-   the ptxas report (a spill fails the run) and the blocks per SM the
-   runtime grants; the pair off the problem's route runs beside the
-   one on it, for the record.  The host lnL kernel is also held
+   the ptxas report (a spill of K2, K3 or K5 fails the run) and the
+   blocks per SM the runtime grants; the pair off the problem's route
+   runs beside the one on it, for the record.  The host lnL kernel is also held
    against a float64 evaluation;
 5. checks the fixed-topology fit end to end on a small problem of each
    kind (card float32 against CPU float64);
@@ -186,16 +186,21 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ptxas_report(log_path):
-    """K3's ptxas report from the build log: state count -> (registers,
-    spill bytes stored + loaded) of each instantiation."""
+# mangled-name fragment of the kernels whose ptxas report is checked
+PTXAS_KERNEL = {"K2": "edge_dotprods_kernel", "K3": "batched_uppass_kernel",
+                "K5": "edge_dotprods_stream_kernel"}
+
+
+def ptxas_report(log_path, fragment):
+    """One kernel's ptxas report from the build log: state count ->
+    (registers, spill bytes stored + loaded) of each instantiation."""
     import re
 
     out, ns = {}, None
     with open(log_path) as fh:
         for line in fh:
             m = re.search(r"(?:entry function|properties for) '?"
-                          r"\S*batched_uppass_kernelILi(\d+)E", line)
+                          rf"\S*{fragment}ILi(\d+)E", line)
             if m:
                 ns = int(m.group(1))
                 continue
@@ -266,7 +271,7 @@ def stats_lnl(aln_path) -> float:
     fail("no Log-likelihood line in the stats file")
 
 
-def kernel_phases(dt, aln_path, tree_path, cuda, k3_regs):
+def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     """Each kernel of the path against its plain version on the same
     card tensors at the main path's shapes; returns the kernels' JSON
     entries (launches filled in later)."""
@@ -354,8 +359,8 @@ def kernel_phases(dt, aln_path, tree_path, cuda, k3_regs):
     tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
     for B in (1, 2, 13 * len(slots)):
         blocks = clv.blocks_per_sm(ns, C, n_slots)
-        regs, spill = k3_regs[ns]
-        print(f". [{dt}] K3 B={B}: {n_slots} slots, {regs} registers, "
+        k3_regs, spill = regs["K3"][ns]
+        print(f". [{dt}] K3 B={B}: {n_slots} slots, {k3_regs} registers, "
               f"{spill} B spilled, {blocks} blocks of {32 * C} threads "
               f"per SM ({blocks * C} warps)")
         if B == 1:
@@ -384,7 +389,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, k3_regs):
             float((got - ref).abs().max()), ms, pms, SITE_TOL[dt],
             pruning_flops(n, C, ns, k, B),
             nbytes(*argsb[1:], sched) + B * k * 4, B=B, peak_mib=peak,
-            registers=regs, spill_bytes=spill, blocks_per_sm=blocks,
+            registers=k3_regs, spill_bytes=spill, blocks_per_sm=blocks,
             warps_per_sm=blocks * C)
         del argsb, got, ref
 
@@ -400,14 +405,34 @@ def kernel_phases(dt, aln_path, tree_path, cuda, k3_regs):
     site_p = eng.edge_site_terms(dp, sp, aux, tree.blen)[0]
     edge_bytes = nbytes(*args2) + nbytes(dp, sp)
     del dp, sp
+    # a call allocates d and sc_d and the two workspace tensors, nothing
+    # more
+    geo = edotp.geometry(ns, C, k)
+    out_bytes = eng.n_nodes * C * (ns + 1) * k * 4
+    ws_bytes = 2 * (n - 1) * geo["workspace_floats_per_node"] * 4
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for kname in ("K2", "K5"):
+        blocks = edotp.blocks_per_sm(ns, kname == "K5")
+        e_regs, spill = regs[kname][ns]
+        peak = peak_mib(lambda: W[kname](*args2))
+        print(f". [{dt}] {kname}: {e_regs} registers, {spill} B spilled, "
+              f"{geo['blocks']} blocks of one warp ({geo['tile']} patterns "
+              f"x 1 class), {blocks} per SM granted ({blocks} warps), "
+              f"{geo['blocks'] / sms:.1f} per SM on {sms} SMs; peak "
+              f"{peak:.2f} MiB beyond its inputs (outputs "
+              f"{out_bytes / 2 ** 20:.2f} + workspace "
+              f"{ws_bytes / 2 ** 20:.2f} MiB)")
+        if peak > (out_bytes + ws_bytes) / 2 ** 20 + 1.0:
+            fail(f"[{dt}] {kname} allocates more than its outputs and "
+                 "workspace")
         (dk, sk), ms = timed(lambda: W[kname](*args2))
         site_k = eng.edge_site_terms(dk, sk, aux, tree.blen)[0]
         del dk, sk
         row(kname, W[kname].__name__,
             float((site_k[mask] - site_p[mask]).abs().max()), ms, pms,
             EDGE_TOL, edotp_flops(n, C, ns, k), edge_bytes,
-            on_path=kname == edge_k)
+            on_path=kname == edge_k, registers=e_regs, spill_bytes=spill,
+            blocks_per_sm=blocks, warps_per_sm=blocks, peak_mib=peak)
     return rows
 
 
@@ -528,21 +553,23 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}")
-    k3_regs = ptxas_report(log_path)
-    print(f". K3 ptxas (ns: registers, spill bytes): {k3_regs}")
-    for ns in (4, 20):
-        if ns not in k3_regs or k3_regs[ns][0] is None:
-            fail(f"no ptxas report for K3 at ns={ns}")
-        if k3_regs[ns][1] != 0:
-            fail(f"K3 spills {k3_regs[ns][1]} bytes at ns={ns}")
+    regs = {}
+    for kname, fragment in PTXAS_KERNEL.items():
+        regs[kname] = ptxas_report(log_path, fragment)
+        print(f". {kname} ptxas (ns: registers, spill bytes): "
+              f"{regs[kname]}")
+        for ns in (4, 20):
+            if ns not in regs[kname] or regs[kname][ns][0] is None:
+                fail(f"no ptxas report for {kname} at ns={ns}")
+            if regs[kname][ns][1] != 0:
+                fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
 
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
                 os.path.join(tmp, dt), dt, N_TAXA, N_SITES, SEED)
-            dt_rows = kernel_phases(dt, aln_path, tree_path, cuda,
-                                    k3_regs)
+            dt_rows = kernel_phases(dt, aln_path, tree_path, cuda, regs)
             torch.cuda.empty_cache()
             small_fit_check(dt, tmp)
             counts, k3_by_b = main_path(dt, aln_path, tree_path, cuda)

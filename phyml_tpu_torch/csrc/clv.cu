@@ -92,72 +92,8 @@ constexpr int kCols = NS == 20 ? 4 : 2;
 template <int NS>
 constexpr int kTile = 32 / (NS / kRows<NS>) * kCols<NS>;
 
-// Q consecutive floats, 4 * Q-byte aligned: v[j] = p[j] / p[j] = v[j]
-template <int Q>
-__device__ __forceinline__ void load_q(const float* p, float (&v)[Q]) {
-  if constexpr (Q == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  }
-}
-
-template <int Q>
-__device__ __forceinline__ void store_q(float* p, const float (&v)[Q]) {
-  if constexpr (Q == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-
-// acc[i][j] = sum_y pm[i * NS + y] * x[y * T + j]: R rows of one
-// row-major NS x NS matrix times Q columns of an [NS][T] tile, summed
-// over y in order (as matvec).
-template <int NS, int R, int Q>
-__device__ __forceinline__ void tile_matmul(const float* __restrict__ pm,
-                                            const float* __restrict__ x,
-                                            int T, float (&acc)[R][Q]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < Q; ++j) acc[i][j] = 0.0f;
-#pragma unroll
-  for (int y0 = 0; y0 < NS; y0 += 4) {
-    float4 p[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      p[i] = *reinterpret_cast<const float4*>(pm + i * NS + y0);
-    float v[4][Q];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) load_q<Q>(x + (y0 + u) * T, v[u]);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float pr[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int j = 0; j < Q; ++j) acc[i][j] += pr[u] * v[u][j];
-    }
-  }
-}
-
-// sum / max of v over the G adjacent lanes of a pattern column
-template <int G>
-__device__ __forceinline__ float column_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int G>
-__device__ __forceinline__ float column_max(float v) {
-#pragma unroll
-  for (int o = 1; o < G; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// load_q, store_q, tile_matmul and column_max / column_sum are in
+// common.cuh, shared with K2 and K5.
 
 template <int NS>
 __global__ void batched_uppass_kernel(const int* __restrict__ sched,

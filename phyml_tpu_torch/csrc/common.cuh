@@ -1,19 +1,19 @@
 // Shared device helpers for the Felsenstein-pruning kernels.
 //
-// Every kernel here runs one thread per (site pattern, rate class):
-// threadIdx.x walks a tile of patterns, threadIdx.y is the class.
-// Neighbouring threads of a warp therefore read neighbouring pattern
-// columns of every [.., P] array, while all of them read the same
-// P-matrix entry (a broadcast from L1, or from shared memory in the
-// streamed kernels).  The arithmetic is plain IEEE float32: build
+// K1 and K4 run one thread per (site pattern, rate class): threadIdx.x
+// walks a tile of patterns, threadIdx.y is the class, so neighbouring
+// threads of a warp read neighbouring pattern columns of every [.., P]
+// array while all of them read the same P-matrix entry (a broadcast
+// from L1, or from shared memory in K4).  K2, K3 and K5 run one warp
+// per class and give each thread a register tile of R states x Q
+// patterns (tile_matmul below; a pattern column split over NS / R
+// adjacent lanes).  The arithmetic is plain IEEE float32: build
 // without --use_fast_math, since flush-to-zero and the approximate
 // logf/expf would change the results.
 //
 // The kernels are instantiated for ns = 4 (DNA) and ns = 20 (amino
-// acids).  At ns = 20 a thread's state vectors are 20 floats each, so
-// K2/K5 keep few of them live at once there (see kHoldPartials) to
-// stay clear of register spills; the build log's ptxas report shows
-// it.
+// acids); the build log's ptxas report shows each instantiation's
+// registers and spills.
 #pragma once
 
 #include <cfloat>
@@ -62,52 +62,8 @@ __device__ __forceinline__ void matvec(const float* __restrict__ pm,
   }
 }
 
-// y = pm^T @ x (contracts the matrix's first axis).
-template <int NS>
-__device__ __forceinline__ void matvec_t(const float* __restrict__ pm,
-                                         const float (&x)[NS],
-                                         float (&y)[NS]) {
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    float acc = pm[i] * x[0];
-#pragma unroll
-    for (int w = 1; w < NS; ++w) acc += pm[w * NS + i] * x[w];
-    y[i] = acc;
-  }
-}
-
-// Whether the edge-dot-product kernels (K2, K5) hold a step's two
-// child partials in registers and form whole vectors for their d
-// (ns = 4), or load each partial again and store d row by row with
-// eigen_dot_rows (ns = 20, where holding them spills).
-template <int NS>
-constexpr bool kHoldPartials = NS <= 4;
-
-// One pattern column of an edge's eigen-basis dot products, row by
-// row: out[j * stride] = (V^T o)[j] * (V^-1 x)[j], each row stored as
-// soon as its two dot products are formed (the same sums, in the same
-// order, as matvec_t and matvec), so no whole vector stays live.
-template <int NS>
-__device__ __forceinline__ void eigen_dot_rows(const float* __restrict__ V,
-                                               const float* __restrict__ Vinv,
-                                               const float (&o)[NS],
-                                               const float (&x)[NS],
-                                               float* __restrict__ out,
-                                               size_t stride) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    float a = V[j] * o[0], b = Vinv[j * NS] * x[0];
-#pragma unroll
-    for (int z = 1; z < NS; ++z) {
-      a += V[z * NS + j] * o[z];
-      b += Vinv[j * NS + z] * x[z];
-    }
-    out[j * stride] = a * b;
-  }
-}
-
-// Strided column load/store: v[x] = base[x * stride] (one pattern
-// column of an [.., NS, P] array).
+// Strided column load: v[x] = base[x * stride] (one pattern column of
+// an [.., NS, P] array).
 template <int NS>
 __device__ __forceinline__ void load_col(const float* __restrict__ base,
                                          size_t stride, float (&v)[NS]) {
@@ -115,12 +71,126 @@ __device__ __forceinline__ void load_col(const float* __restrict__ base,
   for (int x = 0; x < NS; ++x) v[x] = base[x * stride];
 }
 
-template <int NS>
-__device__ __forceinline__ void store_col(float* __restrict__ base,
-                                          size_t stride,
-                                          const float (&v)[NS]) {
+// ---- register tiles (K2, K3, K5) -------------------------------------
+
+// Q consecutive floats, 4 * Q-byte aligned: v[j] = p[j] / p[j] = v[j]
+template <int Q>
+__device__ __forceinline__ void load_q(const float* p, float (&v)[Q]) {
+  if constexpr (Q == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (Q == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    static_assert(Q == 1, "Q is 1, 2 or 4");
+    v[0] = *p;
+  }
+}
+
+template <int Q>
+__device__ __forceinline__ void store_q(float* p, const float (&v)[Q]) {
+  if constexpr (Q == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (Q == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+// acc[i][j] = sum_y pm[i * NS + y] * x[y * T + j]: R rows of one
+// row-major NS x NS matrix (16-byte aligned rows) times Q columns of an
+// [NS][T] tile, summed over y in order (as matvec).  R * Q FMAs for
+// every 16-byte piece of the matrix and every Q-piece of the tile.
+template <int NS, int R, int Q>
+__device__ __forceinline__ void tile_matmul(const float* __restrict__ pm,
+                                            const float* __restrict__ x,
+                                            int T, float (&acc)[R][Q]) {
+  static_assert(NS % 4 == 0, "rows are read in 16-byte pieces");
 #pragma unroll
-  for (int x = 0; x < NS; ++x) base[x * stride] = v[x];
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int y0 = 0; y0 < NS; y0 += 4) {
+    float4 p[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      p[i] = *reinterpret_cast<const float4*>(pm + i * NS + y0);
+    float v[4][Q];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) load_q<Q>(x + (y0 + u) * T, v[u]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float pr[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int j = 0; j < Q; ++j) acc[i][j] += pr[u] * v[u][j];
+    }
+  }
+}
+
+// The transposed product: acc[i][j] = sum_w pm[w * NS + i] * x[w * T + j]
+// (pm points at the first of the R output columns), summed over w in
+// order.  R scalar matrix loads per Q-piece of the tile.
+template <int NS, int R, int Q>
+__device__ __forceinline__ void tile_matmul_t(const float* __restrict__ pm,
+                                              const float* __restrict__ x,
+                                              int T, float (&acc)[R][Q]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NS; ++w) {
+    float v[Q];
+    load_q<Q>(x + w * T, v);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float p = pm[w * NS + i];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) acc[i][j] += p * v[j];
+    }
+  }
+}
+
+// sum / max of v over the G adjacent lanes of a pattern column
+template <int G>
+__device__ __forceinline__ float column_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float column_max(float v) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Exact power-of-two rescale of the Q columns of an R x Q register tile
+// whose columns are split over G lanes: each column is multiplied in
+// place by 2^(127-e), e the biased exponent of its max over all its
+// states (floored at FLT_MIN), and e - 127 is added to s[j].  The same
+// factor as rescale().
+template <int G, int R, int Q>
+__device__ __forceinline__ void rescale_tile(float (&v)[R][Q],
+                                             float (&s)[Q]) {
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    float m = v[0][j];
+#pragma unroll
+    for (int r = 1; r < R; ++r) m = fmaxf(m, v[r][j]);
+    m = fmaxf(column_max<G>(m), FLT_MIN);
+    const int e = (__float_as_int(m) >> 23) & 0xFF;
+    const float f = __int_as_float((254 - e) << 23);
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r][j] *= f;
+    s[j] += static_cast<float>(e - 127);
+  }
 }
 
 // log-sum-exp over the C class values a[c * tp] of one pattern.
@@ -133,7 +203,7 @@ __device__ __forceinline__ float class_lse(const float* a, int C, int tp) {
 }
 
 // ---- cp.async: asynchronous global -> shared copies -----------------
-// The streamed kernels (K4, K5) stage each schedule step's P-matrices
+// K2, K3, K4 and K5 stage each schedule step's P-matrices
 // and tip rows in a double-buffered shared-memory ring: the copies for
 // step i+1 are issued before step i computes, and a thread waits for
 // its own copies with cp.async.wait_group, then the block meets at a
@@ -191,6 +261,22 @@ __device__ __forceinline__ void copy_tip_rows(float* dst,
     const int x = k / tp, l = k - x * tp;
     const int col = p0 + l < P ? p0 + l : P - 1;
     cp_async4(dst + k, row + static_cast<size_t>(x) * P + col);
+  }
+}
+
+// The whole block copies `rows` rows of T floats (T a multiple of 4),
+// row r from src + r * stride to dst + r * T; every row start
+// 16-byte aligned at both ends.
+template <int T>
+__device__ __forceinline__ void copy_rows16(float* dst,
+                                           const float* __restrict__ src,
+                                           int rows, size_t stride, int tid,
+                                           int nthr) {
+  static_assert(T % 4 == 0, "rows are copied in 16-byte pieces");
+  constexpr int kPer = T / 4;
+  for (int k = tid; k < rows * kPer; k += nthr) {
+    const int r = k / kPer, q = k - r * kPer;
+    cp_async16(dst + r * T + 4 * q, src + r * stride + 4 * q);
   }
 }
 

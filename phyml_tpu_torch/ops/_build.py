@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # C signatures: name -> argtypes (every function returns an int error
 # code: 0, a cudaError_t, or -1 for an unsupported (ns, C) shape)
 _SLOT_ARGS = [_P] * 6 + [_I] * 6 + [_P]
-_EDOTP_ARGS = [_P] * 12 + [_I] * 7 + [_P]
+_EDOTP_ARGS = [_P] * 10 + [_I] * 6 + [_P]
 _SIGNATURES = {
     # sched tips pmats pi logw out | n_int n_slots ns C P tp | stream
     "phyml_slot_site_lse": _SLOT_ARGS,          # K1
@@ -47,10 +47,13 @@ _SIGNATURES = {
     "phyml_batched_uppass": [_P] * 6 + [_I] * 7 + [_P],   # K3
     # ns C n_slots | blocks per SM (int*)
     "phyml_batched_uppass_occupancy": [_I] * 3 + [_P],
-    # child tips pmats V Vinv pi d scd ws_clv ws_sc ws_out ws_sco
-    # | n_otu n_int ns C P Pw tp | stream
+    # child tips pmats V Vinv pi d scd ws_clv ws_out
+    # | n_otu n_int ns C P Pw | stream
     "phyml_edge_dotprods": _EDOTP_ARGS,         # K2
     "phyml_edge_dotprods_stream": _EDOTP_ARGS,  # K5
+    # ns | blocks per SM (int*)
+    "phyml_edge_dotprods_occupancy": [_I, _P],
+    "phyml_edge_dotprods_stream_occupancy": [_I, _P],
 }
 # state counts the kernels are instantiated for (DNA, amino acids)
 KERNEL_NS = (4, 20)
@@ -156,8 +159,8 @@ def check(rc: int, name: str, ns: int) -> None:
 
 
 def block_patterns(C: int) -> int:
-    """Patterns per thread block (block = patterns x classes): about
-    128 threads, at least one warp of patterns."""
+    """Patterns per thread block of K1/K4 (block = patterns x classes):
+    about 128 threads, at least one warp of patterns."""
     return 32 * max(1, 4 // C)
 
 

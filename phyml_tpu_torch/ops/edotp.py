@@ -1,8 +1,9 @@
-"""K2: the fused up + outside + edge-dot-product kernel.
+"""K2 and K5: the fused up + outside + edge-dot-product kernels.
 
-Replaces phyml_tpu/ops/pallas_edotp.py:_edotp_kernel (wrapper
-edge_dotprods_pallas).  The branch-length optimizer consumes, for
-every edge u, the eigen-basis dot products
+Replace phyml_tpu/ops/pallas_edotp.py:_edotp_kernel (K2, wrapper
+edge_dotprods_pallas) and _edotp_stream_kernel (K5, wrapper
+edge_dotprods_pallas_stream).  The branch-length optimizer consumes,
+for every edge u, the eigen-basis dot products
 
     d[u]    = (V^T O_u) * (V^-1 C_u)        [C, ns, P]
     sc_d[u] = (sc_out[u] + sc[u]) * ln 2    [C, P]
@@ -10,24 +11,21 @@ every edge u, the eigen-basis dot products
 (LikelihoodEngine.edge_dotprods_sys; reference Update_Eigen_Lr
 lk.c:1038 + dLk lk.c:655).  One postorder sweep stores the rescaled
 internal partials C_u, one reverse sweep builds the outside partials
-O_u and writes d/sc_d per node (`csrc/edotp.cu`; its header gives the
-design and what bounds it).  The root row is zeroed; the row of the
+O_u and writes d/sc_d per node.  The root row is zeroed; the row of the
 zero-length root child is meaningless and masked by the callers.
 
-The kernel and the engine's scan path split d and sc_d differently
+Both kernels run one body (`csrc/edotp.cuh`; its header gives the
+design and what bounds it): one block of one warp per pattern tile
+(TILE patterns) and rate class, register tiles, each step's operands
+(P-matrices, partials, outside partials) staged one step ahead in a
+cp.async ring.  K2 (`edge_dotprods`) serves the resident route, K5
+(`edge_dotprods_stream`) the streamed one (likelihood.kernel_route);
+each keeps its own name and launch counter.  Both take the same plain
+version, `edge_dotprods_plain`, which the wrappers run for CPU tensors.
+
+The kernels and the engine's scan path split d and sc_d differently
 (power-of-two rescale against divide-by-max), so compare them through
 LikelihoodEngine.edge_site_terms, never raw d.
-
-`edge_dotprods` launches the kernel for CUDA tensors and runs the
-plain PyTorch version `edge_dotprods_plain` for CPU tensors.
-
-K5, `edge_dotprods_stream`, replaces
-phyml_tpu/ops/pallas_edotp.py:_edotp_stream_kernel (wrapper
-edge_dotprods_pallas_stream).  It computes K2's function; each step's
-three P-matrices (child 0, child 1, parent) and tip rows are staged
-into a double-buffered shared-memory ring (`csrc/edotp_stream.cu`),
-for trees whose P-matrices no longer stay close to one SM
-(likelihood.kernel_route).  Its plain version is K2's.
 """
 
 from __future__ import annotations
@@ -88,40 +86,82 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
     return d, sc_d
 
 
+# Patterns per thread block by state count (kEdotpTile in
+# csrc/edotp.cuh): the workspace's pattern axis is P rounded up to it.
+TILE = {4: 32, 20: 16}
+# Ring stages: each step's operands are copied one step ahead
+# (kEdotpAhead + 1).
+STAGES = 2
+
+
+def geometry(ns: int, C: int, P: int) -> dict:
+    """Launch geometry of K2 and K5 (one kernel body), as
+    csrc/edotp.cuh computes it: the padded pattern width Pw, the grid
+    (one block of one warp per pattern tile and class), the block's
+    static shared memory (kEdotpSmem) and the workspace floats per
+    internal node."""
+    T = TILE[ns]
+    Pw = -(-P // T) * T
+    smem = ((2 + 2 * STAGES) * ns * ns + 3 * STAGES * (ns + 1) * T
+            + 2 * ns * T) * 4
+    return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32,
+                smem_bytes=smem, workspace_floats_per_node=C * (ns + 1) * Pw)
+
+
+def check_child_table(name: str, child, n_otu: int) -> None:
+    """The kernels' contract on the child table (each block checks it
+    and traps): row i's children lie in [0, n_otu + i), the postorder
+    both sweeps walk.  Checked here for CPU tables."""
+    rows = torch.as_tensor(child).to(torch.int64)
+    limit = n_otu + torch.arange(rows.shape[0])[:, None]
+    if bool(((rows < 0) | (rows >= limit)).any()):
+        raise ValueError(f"{name}: the child table is not a postorder of "
+                         f"{n_otu} tips (a child outside [0, n_otu + i) "
+                         "in row i)")
+
+
+def _check_shapes(name, child, tips, pmats, V, Vinv, pi):
+    n_otu, ns, P = tips.shape
+    n_nodes, C = pmats.shape[:2]
+    n_int = n_nodes - n_otu
+    if n_int < 1 or child.shape != (n_int, 2) or \
+            pmats.shape[2:] != (ns, ns) or V.shape != (C, ns, ns) or \
+            Vinv.shape != (C, ns, ns) or pi.shape != (C, ns):
+        raise ValueError(f"{name}: inconsistent operand shapes")
+    if child.device.type == "cpu":
+        check_child_table(name, child, n_otu)
+
+
 def _launch_edotp(fn_name, name, child, tips, pmats, V, Vinv, pi):
     """Check the operands and launch one of the edge-dot-product
     kernels (K2, K5), which share a C signature; returns (d, sc_d)."""
     _build.check_operands(name, ints=(child,),
                           floats=(tips, pmats, V, Vinv, pi))
+    # the tile products read the P-matrices in 16-byte pieces
+    _build.check_aligned(name, pmats)
     n_otu, ns, P = tips.shape
     n_nodes, C = pmats.shape[:2]
     n_int = n_nodes - n_otu
-    if child.shape != (n_int, 2) or pmats.shape[2:] != (ns, ns) or \
-            V.shape != (C, ns, ns) or Vinv.shape != (C, ns, ns) or \
-            pi.shape != (C, ns):
-        raise ValueError(f"{name}: inconsistent operand shapes")
-    tp = _build.block_patterns(C)
-    Pw = -(-P // tp) * tp
+    Pw = geometry(ns, C, P)["Pw"]
     dev = tips.device
     f32 = dict(dtype=torch.float32, device=dev)
     d = torch.empty((n_nodes, C, ns, P), **f32)
     sc_d = torch.empty((n_nodes, C, P), **f32)
-    ws = [torch.empty((n_int, C, ns, Pw), **f32),
-          torch.empty((n_int, C, Pw), **f32),
-          torch.empty((n_int, C, ns, Pw), **f32),
-          torch.empty((n_int, C, Pw), **f32)]
+    # partials and pushed outside partials, row ns their log2 scales
+    ws = [torch.empty((n_int, C, ns + 1, Pw), **f32) for _ in range(2)]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
         rc = getattr(_build.library(), fn_name)(
             ptr(child), ptr(tips), ptr(pmats), ptr(V), ptr(Vinv),
             ptr(pi), ptr(d), ptr(sc_d), *map(ptr, ws), n_otu, n_int, ns,
-            C, P, Pw, tp, _build.stream_of(tips))
+            C, P, Pw, _build.stream_of(tips))
     _build.check(rc, name, ns)
     return d, sc_d
 
 
 def edge_dotprods(child, tips, pmats, V, Vinv, pi):
     """(d, sc_d) via K2 (same contract as edge_dotprods_plain)."""
+    _check_shapes("edge_dotprods", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
     out = _launch_edotp("phyml_edge_dotprods", "edge_dotprods", child,
@@ -135,15 +175,25 @@ def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
     computes K2's function, so its plain version is K2's,
     edge_dotprods_plain (same contract), which runs for CPU
     tensors."""
+    _check_shapes("edge_dotprods_stream", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    # the ring copies P-matrices, V and V^-1 in 16-byte pieces
-    _build.check_aligned("edge_dotprods_stream", pmats, V, Vinv)
     out = _launch_edotp("phyml_edge_dotprods_stream",
                         "edge_dotprods_stream", child, tips, pmats, V,
                         Vinv, pi)
     edge_dotprods_stream.launches += 1
     return out
+
+
+def blocks_per_sm(ns: int, stream: bool) -> int:
+    """Blocks (one warp each) of K2 (stream=False) or K5 one SM of the
+    current device holds, as the CUDA runtime grants them."""
+    fn = "phyml_edge_dotprods_stream_occupancy" if stream \
+        else "phyml_edge_dotprods_occupancy"
+    blocks = ctypes.c_int(0)
+    rc = getattr(_build.library(), fn)(ns, ctypes.byref(blocks))
+    _build.check(rc, fn, ns)
+    return blocks.value
 
 
 edge_dotprods.launches = 0

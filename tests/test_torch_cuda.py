@@ -13,7 +13,8 @@ version's own gap to float64; see _site_terms_gaps).  The streamed
 kernels K4 and K5 compute K1's and K2's functions, so their plain
 versions are K1's and K2's.
 The pattern count (301) is not a multiple of any block width, so the
-ragged edge is exercised.
+ragged edge is exercised; the edge-dot-product tests add counts below
+one tile, one tile plus one and the bench counts, and tree shapes.
 """
 
 import os
@@ -354,6 +355,165 @@ def test_k3_traps_on_a_schedule_that_does_not_fit(cuda, ns, what):
     nodes lie past the tree raises instead of writing past the slots."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = subprocess.run([sys.executable, "-c", _BAD_SCHEDULE, str(ns), what],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "raised:" in run.stdout
+
+
+def _edotp_kernel(name):
+    return {"K2": edotp.edge_dotprods, "K5": edotp.edge_dotprods_stream}[name]
+
+
+def _tree_of(shape, n, rng):
+    if shape == "caterpillar":
+        return Topology.caterpillar(n, blen=0.05)
+    if shape == "balanced":
+        return Topology.from_newick(_balanced_newick(0, n) + ";",
+                                    [f"t{i}" for i in range(n)])
+    return Topology.random(n, rng, mean_blen=0.2)
+
+
+def _simulated_setup(cuda, C, n, sites, seed, datatype, topo):
+    """_setup's engine and operands on sequences simulated down the tree
+    under its own model (float64 on the CPU), so the site likelihoods
+    are those of real data: random sequences at 20 states and C = 1 make
+    the float32 site terms cancel (see _site_terms_gaps)."""
+    from phyml_tpu_torch.models.eigen import pmat
+
+    rng = np.random.default_rng(seed)
+    ns = 4 if datatype == "nt" else 20
+    model = SubstModel(datatype=datatype,
+                       name="GTR" if datatype == "nt" else "LG",
+                       n_classes=C)
+    params = model.init_params(np.full(ns, 1.0 / ns))
+    if C > 1:
+        params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
+    lam, V, Vinv, pi, w, _ = model.class_system(params)
+    rv = topo.rooted()
+    t = torch.as_tensor(rv.node_blen)[:, None].expand(rv.n_nodes, C)
+    P = np.clip(pmat(lam, V, Vinv, t).numpy(), 0.0, None)
+    P /= P.sum(-1, keepdims=True)
+    cls = rng.choice(C, size=sites, p=w.numpy() / float(w.sum()))
+    states = np.zeros((rv.n_nodes, sites), dtype=np.int64)
+    states[-1] = rng.choice(ns, size=sites, p=pi.numpy()[0])
+    for i in range(rv.n_internal - 1, -1, -1):       # preorder
+        for c in rv.child[i]:
+            cum = P[int(c), cls, states[n + i], :].cumsum(axis=1)
+            r = rng.random(sites)[:, None]
+            states[int(c)] = np.clip((r > cum).sum(axis=1), 0, ns - 1)
+    enc = np.zeros((n, sites, ns), dtype=np.float32)
+    enc[np.arange(n)[:, None], np.arange(sites)[None], states[:n]] = 1.0
+    aln = compact(enc, [f"t{i}" for i in range(n)], datatype)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    tree = tree_arrays(rv, device=cuda)
+    sys_ = eng.system_of(params)
+    return eng, tree, sys_, eng._pmats(sys_[0], sys_[1], sys_[2], tree.blen)
+
+
+@pytest.mark.parametrize("shape", ["caterpillar", "balanced", "random"])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("kernel", ["K2", "K5"])
+def test_edotp_tree_shapes(cuda, kernel, datatype, C, shape):
+    """K2 and K5 (one body) against K2's plain version through the
+    per-edge site terms on the free edges, on a caterpillar (every step
+    hands its result to the next), a balanced and a random tree, on 400
+    sites simulated down the tree (260-400 patterns); one launch
+    each."""
+    n = 32
+    topo = _tree_of(shape, n, np.random.default_rng(9))
+    eng, tree, sys_, pm = _simulated_setup(cuda, C, n, 400, 9, datatype,
+                                           topo)
+    f = _edotp_kernel(kernel)
+    n0 = f.launches
+    k_err, plain_err = _site_terms_gaps(eng, tree, sys_, pm, f)
+    torch.cuda.synchronize()
+    assert f.launches == n0 + 1
+    assert k_err < plain_err + K2_TOL
+
+
+@pytest.mark.parametrize("case", ["below-tile", "tile+1", "bench"])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("kernel", ["K2", "K5"])
+def test_edotp_pattern_counts(cuda, kernel, datatype, case):
+    """Fewer patterns than one tile, one tile plus one, and the odd
+    bench counts (3767 DNA, 3945 protein patterns at 128 taxa): every
+    column up to P right, the root row zero."""
+    ns = 4 if datatype == "nt" else 20
+    T = edotp.TILE[ns]
+    n, sites = {"below-tile": (20, 5), "tile+1": (20, T + 1),
+                "bench": (128, 3767 if ns == 4 else 3945)}[case]
+    eng, tree, sys_, pm = _setup(cuda, 4, n=n, sites=sites, seed=10,
+                                 datatype=datatype)
+    assert eng.P == sites
+    f = _edotp_kernel(kernel)
+    k_err, plain_err = _site_terms_gaps(eng, tree, sys_, pm, f)
+    assert k_err < plain_err + K2_TOL
+    child, _, _ = eng._topology(tree.child)
+    d, sc = f(child, eng.tips, pm, sys_[1], sys_[2], sys_[3])
+    assert bool((d[-1] == 0).all()) and bool((sc[-1] == 0).all())
+    assert bool(torch.isfinite(d).all()) and bool(torch.isfinite(sc).all())
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_edotp_allocates_outputs_and_workspace_only(cuda, datatype):
+    """A bench-shaped call (128 taxa, 4096 sites, C=4) holds d, sc_d and
+    the two workspace tensors at its peak, nothing more."""
+    ns = 4 if datatype == "nt" else 20
+    eng, tree, sys_, pm = _setup(cuda, 4, n=128, sites=4096, seed=11,
+                                 datatype=datatype)
+    child, _, _ = eng._topology(tree.child)
+    g = edotp.geometry(ns, 4, eng.P)
+    want = (eng.n_nodes * 4 * (ns + 1) * eng.P
+            + 2 * (eng.n_otu - 1) * g["workspace_floats_per_node"]) * 4
+    for f in (edotp.edge_dotprods, edotp.edge_dotprods_stream):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        d, sc = f(child, eng.tips, pm, sys_[1], sys_[2], sys_[3])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(cuda) - base
+        assert peak <= want + 2 ** 20, (peak, want)
+        del d, sc
+
+
+# A child process: K2/K5 on a child table that is not a postorder must
+# trap (the context is lost, hence the process of its own).
+_BAD_CHILD = """
+import sys
+import numpy as np
+import torch
+from phyml_tpu_torch.ops import edotp
+from phyml_tpu_torch.topology import Topology
+
+rng = np.random.default_rng(0)
+n, ns, P, C = 20, int(sys.argv[1]), 300, 4
+child = np.asarray(Topology.random(n, rng).rooted().child, dtype=np.int32)
+child[0, 0] = n + 5      # row 0 reads an internal node made later
+cuda = torch.device("cuda")
+f = lambda *shape: torch.rand(*shape, device=cuda)
+fn = edotp.edge_dotprods if sys.argv[2] == "K2" else edotp.edge_dotprods_stream
+try:
+    fn(torch.as_tensor(child, device=cuda), f(n, ns, P),
+       f(2 * n - 1, C, ns, ns).contiguous(), f(C, ns, ns), f(C, ns, ns),
+       f(C, ns))
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("raised:", exc)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K5"])
+@pytest.mark.parametrize("ns", [4, 20])
+def test_edotp_traps_on_a_child_table_out_of_postorder(cuda, ns, kernel):
+    """The wrapper checks a card child table's shape only; each block
+    checks that row i's children lie in [0, n_otu + i) and traps, since
+    the workspace is indexed by node."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_CHILD, str(ns), kernel],
                          cwd=root, capture_output=True, text=True,
                          timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels at the bench shapes, on one GPU.
 
-    python3 tools/time_kernels.py [--root DIR] [--label NAME] [nt] [aa]
+    python3 tools/time_kernels.py [--root DIR] [--label NAME]
+        [--kernels K2,K5] [--data random|smoke] [--compare PARENT] [nt] [aa]
 
-For each problem (a random 128-taxon tree and 4096 random sites; nt:
-GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4) it times every kernel the
+For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; with
+--data random, the default, a random 128-taxon tree and 4096 random
+sites under the model's initial parameters; with --data smoke,
+chip_smoke.py's bench problem, the sequences simulated down its tree,
+3767 and 3945 patterns, under the simulation's parameters) it times
+every kernel the
 tree at DIR has (default: this checkout): K1, K2, K3 at the optimizer's
 batch sizes (B = 1, 2 and the line-search grid: 65 systems for DNA, 13
 for protein, each at its own rate scale) and, where present, K4 and K5.
@@ -13,9 +18,11 @@ It runs K3 through either wrapper signature: with the slot schedule
 launches back to back between two CUDA events, divided by 50, so the
 host's launch overhead overlaps the card's work. To compare two
 versions of the kernels, run this script on both trees one after the
-other on one card (for example parent, change, change, parent), since
-the card's clocks and power limit vary between machines. Without a CUDA
-device it exits nonzero.
+other on one card, since the card's clocks and power limit vary between
+machines: `--compare PARENT` does so in one call, in the order parent,
+this tree, this tree, parent (one process each). `--kernels` times only
+the named kernels (K3 names all its batch sizes). Without a CUDA device
+it exits nonzero.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import os
 import statistics
 import subprocess
 import sys
+
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def window_ms(fn, reps=7, n=50):
@@ -45,18 +55,31 @@ def window_ms(fn, reps=7, n=50):
     return statistics.median(ms)
 
 
-def time_problem(dt: str, seed: int = 7) -> dict:
+def load_problem(dt: str, data: str, tmp: str, seed: int = 7):
+    """(alignment, rooted tree, model, params) of one timing problem."""
     import numpy as np
-    import torch
-    from phyml_tpu_torch.io.alignment import compact
+    from phyml_tpu_torch.io.alignment import compact, read_alignment
     from phyml_tpu_torch.models.substitution import SubstModel
-    from phyml_tpu_torch.ops import clv, clv_slots, edotp
-    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
     from phyml_tpu_torch.topology import Topology
 
-    cuda = torch.device("cuda")
-    rng = np.random.default_rng(seed)
     n, sites = 128, 4096
+    if data == "smoke":
+        sys.path.insert(1, HERE)
+        import chip_smoke
+
+        aln_path, tree_path = chip_smoke.write_problem(
+            os.path.join(tmp, dt), dt, n, sites, chip_smoke.SEED)
+        aln = read_alignment(aln_path, datatype=dt)
+        with open(tree_path) as fh:
+            rv = Topology.from_newick(fh.read(), aln.names).rooted()
+        if dt == "nt":
+            m = SubstModel(datatype="nt", name="GTR", n_classes=4,
+                           freqs_mode="fixed", fixed_freqs=chip_smoke.FREQS)
+        else:
+            m = SubstModel(datatype="aa", name="LG", n_classes=4,
+                           freqs_mode="model")
+        return aln, rv, m, chip_smoke.true_params(dt, m.init_params())
+    rng = np.random.default_rng(seed)
     ns = 4 if dt == "nt" else 20
     enc = np.zeros((n, sites, ns), np.float32)
     enc[np.arange(n)[:, None], np.arange(sites)[None],
@@ -64,24 +87,38 @@ def time_problem(dt: str, seed: int = 7) -> dict:
     aln = compact(enc, [f"t{i}" for i in range(n)], dt)
     m = SubstModel(datatype=dt, name="GTR" if dt == "nt" else "LG",
                    n_classes=4)
+    rv = Topology.random(n, rng, mean_blen=0.08).rooted()
+    return aln, rv, m, m.init_params(aln.obs_state_freqs)
+
+
+def time_problem(dt: str, want, data: str = "random") -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+    from phyml_tpu_torch.ops import clv, clv_slots, edotp
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+
+    cuda = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        aln, rv, m, params = load_problem(dt, data, tmp)
     eng = LikelihoodEngine(aln, m, dtype=torch.float32, device=cuda)
-    tree = tree_arrays(Topology.random(n, rng, mean_blen=0.08).rooted(),
-                       device=cuda)
-    lam, V, Vinv, pi, w, _ = eng.system_of(m.init_params(
-        aln.obs_state_freqs))
+    tree = tree_arrays(rv, device=cuda)
+    lam, V, Vinv, pi, w, _ = eng.system_of(params)
     pm = eng._pmats(lam, V, Vinv, tree.blen)
     topo = eng._topology(tree.child)
     child, sched = topo[:2]
     logw = eng._logw(w)
     k = eng.slot_count
-    out = {
-        "K1": window_ms(lambda: clv_slots.uppass_site_lse_slots(
-            sched, eng.tips, pm, pi, logw, n_slots=k)),
-        "K2": window_ms(lambda: edotp.edge_dotprods(
-            child, eng.tips, pm, V, Vinv, pi)),
-    }
+    out = {}
+    if "K1" in want:
+        out["K1"] = window_ms(lambda: clv_slots.uppass_site_lse_slots(
+            sched, eng.tips, pm, pi, logw, n_slots=k))
+    if "K2" in want:
+        out["K2"] = window_ms(lambda: edotp.edge_dotprods(
+            child, eng.tips, pm, V, Vinv, pi))
     k3_kw = dict(sched=sched, n_slots=topo[2]) if len(topo) > 2 else {}
-    for B in (1, 2, 65 if dt == "nt" else 13):
+    for B in (1, 2, 65 if dt == "nt" else 13) if "K3" in want else ():
         if B == 1:
             args = (child, eng.tips, pm, pi, logw)
         else:
@@ -92,9 +129,10 @@ def time_problem(dt: str, seed: int = 7) -> dict:
         out[f"K3(B={B})"] = window_ms(
             lambda: clv.uppass_site_lse(*args, **k3_kw))
         del args
-    if hasattr(clv_slots, "uppass_site_lse_slots_stream"):
+    if "K4" in want:
         out["K4"] = window_ms(lambda: clv_slots.uppass_site_lse_slots_stream(
             sched, eng.tips, pm, pi, logw, n_slots=k))
+    if "K5" in want:
         out["K5"] = window_ms(lambda: edotp.edge_dotprods_stream(
             child, eng.tips, pm, V, Vinv, pi))
     return out
@@ -102,11 +140,23 @@ def time_problem(dt: str, seed: int = 7) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), help="tree holding phyml_tpu_torch")
+    ap.add_argument("--root", default=HERE, help="tree holding phyml_tpu_torch")
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5")
+    ap.add_argument("--data", choices=["random", "smoke"], default="random")
+    ap.add_argument("--compare", metavar="PARENT",
+                    help="tree to time against: parent, this, this, parent")
     ap.add_argument("problems", nargs="*", default=["nt", "aa"])
     args = ap.parse_args()
+    if args.compare:
+        rc = 0
+        for root, label in ((args.compare, "parent"), (args.root, "change"),
+                            (args.root, "change"), (args.compare, "parent")):
+            rc |= subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--root", root,
+                 "--label", label, "--kernels", args.kernels,
+                 "--data", args.data, *args.problems]).returncode
+        return rc
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -123,8 +173,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for dt in args.problems:
-        times = time_problem(dt)
-        print(f"{args.label} {dt}: " + "  ".join(
+        times = time_problem(dt, args.kernels.split(","), args.data)
+        print(f"{args.label} {dt} ({args.data}): " + "  ".join(
             f"{name} {ms:.4f}" for name, ms in times.items())
             + f" ms  ({smi})", flush=True)
     return 0
