@@ -9,21 +9,24 @@
    from a fixed seed: 128 taxa x 4096 sites under GTR+G4 (DNA) and
    under LG+G4 (amino acids);
 4. for each, runs the kernels against their plain PyTorch versions on
-   the same card tensors: the host lnL kernel (K1 slot walk, or its
-   streamed twin K4), the edge dot products (K2, or the streamed K5)
-   and K3 (slot schedule, batched over parameter sets) at the
-   optimizer's batch sizes B = 1 (branch-length probes), 2 (the line
-   search's pair probe) and 13 per free scalar (its grid), each with
-   the peak device memory of its call, its registers and spills from
-   the ptxas report (a spill of K2, K3 or K5 fails the run) and the
-   blocks per SM the runtime grants; the pair off the problem's route
-   runs beside the one on it, for the record.  The host lnL kernel is also held
-   against a float64 evaluation;
+   the same card tensors: the one-parameter-set pass behind the host
+   lnL and the branch-length probes (K1, or its streamed twin K4; both
+   one body, timed beside K3 at B = 1 on the same tensors), the edge
+   dot products (K2, or the streamed K5) and K3 (slot schedule, batched
+   over parameter sets) at the line search's batch sizes B = 2 (pair
+   probe) and 13 per free scalar (its grid), and at B = 1 for the
+   record, each with the peak device memory of its call, its registers
+   and spills from the ptxas report (a spill fails the run) and the
+   blocks per SM the runtime grants; the kernel off the problem's route
+   runs beside the one on it, for the record (K1 refuses 128-taxon
+   protein, whose matrices do not fit its shared memory).  The host lnL
+   kernel is also held against a float64 evaluation;
 5. checks the fixed-topology fit end to end on a small problem of each
    kind (card float32 against CPU float64);
 6. runs each main path, `phyml_tpu_torch.cli -u tree -c 4 -o lr -b 0
    --platform gpu` with `-m GTR` and with `-d aa -m LG -a e`, with the
-   kernels' launch counters reset just before and read just after.
+   kernels' launch counters reset just before and read just after
+   (K3's by batch size: no single-system pass may reach it).
 
 It prints a JSON line of per-kernel results, the card line, and as the
 last line {"ok": true, "device": {...}}.  Any failure exits nonzero
@@ -187,7 +190,9 @@ def bound(flops, nbytes):
 
 
 # mangled-name fragment of the kernels whose ptxas report is checked
-PTXAS_KERNEL = {"K2": "edge_dotprods_kernel", "K3": "batched_uppass_kernel",
+PTXAS_KERNEL = {"K1": "slot_site_lse_kernel",
+                "K2": "edge_dotprods_kernel", "K3": "batched_uppass_kernel",
+                "K4": "slot_site_lse_stream_kernel",
                 "K5": "edge_dotprods_stream_kernel"}
 
 
@@ -295,10 +300,10 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     sys_ = eng.system_of(params)
     lam, V, Vinv, pi, w, pinv = sys_
     pm = eng._pmats(lam, V, Vinv, tree.blen)
-    child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(w)
     n, C, ns, k = aln.n_otu, eng.C, eng.ns, aln.n_patterns
     lnl_k, edge_k = eng.lnl_route, eng.edotp_route
+    child, sched, n_slots = eng._topology(tree.child)
     want = ("K1", "K2") if dt == "nt" else ("K4", "K5")
     print(f". [{dt}] problem: {n} taxa, {aln.n_sites} sites, {k} "
           f"patterns, C={C}, ns={ns}; route {lnl_k}/{edge_k}")
@@ -325,18 +330,49 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, ns=ns, path=dt, kernel=kname, **extra))
 
-    # host lnL: K1 (DNA) or K4 (amino acids), against K1's plain version
-    args1 = (sched, eng.tips, pm, pi, logw)
+    # one parameter set (the host lnL and the branch-length probes): K1
+    # (DNA) or K4 (amino acids), against K1's plain version and beside
+    # K3 at B=1 on the same tensors, each with its peak memory, registers,
+    # spills and the blocks per SM the runtime grants
+    args1 = (sched, eng.slot_tips, pm, pi, logw)
     ref, pms = timed(lambda: clv_slots.uppass_site_lse_slots_plain(
-        *args1, n_slots=eng.slot_count), 1)
-    slot_bytes = nbytes(*args1) + k * 4
+        *args1, n_slots=n_slots), 1)
+    _, k3_ms = timed(lambda: clv.uppass_site_lse(
+        child, eng.tips, pm, pi, logw, sched=sched, n_slots=n_slots))
+    slot_bytes = nbytes(sched, eng.tips, pm, pi, logw) + k * 4
     slot_flops = pruning_flops(n, C, ns, k)
     got = None
     for kname in ("K1", "K4"):
-        out, ms = timed(lambda: W[kname](*args1, n_slots=eng.slot_count))
+        resident = kname == "K1"
+        geo = clv_slots.geometry(ns, C, k, n, n_slots, resident)
+        if geo["block_smem_bytes"] > clv_slots.MAX_BLOCK_SMEM:
+            print(f". [{dt}] {kname}: refused at this shape (each class's "
+                  f"P-matrices of the whole tree: a block would need "
+                  f"{geo['block_smem_bytes'] / 1024:.1f} KB of shared "
+                  "memory)  [not on this path]")
+            if kname == lnl_k:
+                fail(f"[{dt}] the route's {kname} refuses its shape")
+            continue
+        s_regs, spill = regs[kname][ns]
+        blocks = clv_slots.blocks_per_sm(ns, C, n, n_slots, not resident)
+        peak = peak_mib(lambda: W[kname](*args1, n_slots=n_slots))
+        print(f". [{dt}] {kname}: {s_regs} registers, {spill} B spilled, "
+              f"{geo['blocks']} blocks of {C} warps ({geo['tile']} "
+              f"patterns, a warp per class, "
+              f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
+              f"{blocks} per SM granted ({blocks * C} warps); peak "
+              f"{peak:.3f} MiB beyond its inputs (out "
+              f"{k * 4 / 2 ** 20:.3f} MiB)")
+        if peak > k * 4 / 2 ** 20 + 1.0:
+            fail(f"[{dt}] {kname} allocates more than its outputs")
+        out, ms = timed(lambda: W[kname](*args1, n_slots=n_slots))
+        print(f". [{dt}] {kname} {ms:.4f} ms beside K3 at B=1 {k3_ms:.4f} "
+              "ms on the same tensors")
         row(kname, W[kname].__name__, float((out - ref).abs().max()), ms,
             pms, SITE_TOL[dt], slot_flops, slot_bytes,
-            on_path=kname == lnl_k)
+            on_path=kname == lnl_k, registers=s_regs, spill_bytes=spill,
+            blocks_per_sm=blocks, warps_per_sm=blocks * C, peak_mib=peak,
+            k3_b1_ms=k3_ms)
         if kname == lnl_k:
             got = out
     lnl32 = float(torch.sum(got.double() * eng.weights))
@@ -350,9 +386,9 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
              f"{lnl32 - lnl64}")
     del eng64, tree64
 
-    # K3: the branch-length probes (one system, unbatched), the line
-    # search's pair probe (B=2) and its grid (13 systems per free
-    # scalar, optimize_scalars grid=12 plus the current value), one
+    # K3: the line search's pair probe (B=2) and its grid (13 systems
+    # per free scalar, optimize_scalars grid=12 plus the current value),
+    # and one system (B=1, which the main path sends to K1/K4), one
     # launch each, through the topology's slot schedule
     slots = free_scalar_slots(model, params)
     rng = np.random.default_rng(SEED)
@@ -510,6 +546,9 @@ def main_path(dt, aln_path, tree_path, cuda):
         topo = Topology.from_newick(fh.read(), aln.names)
     if topo.n_otu != N_TAXA or not np.all(np.isfinite(topo.blen)):
         fail(f"[{dt}] the output tree does not parse to a finite tree")
+    if k3_by_b.get(1, 0):
+        fail(f"[{dt}] K3 ran {k3_by_b[1]} single-system passes; those "
+             f"belong to {path[0]}")
     for name, count in counts.items():
         if name in path and count <= 0:
             fail(f"[{dt}] {name} never launched on the main path")

@@ -41,8 +41,8 @@
 //   pieces and X as (state, Q-pattern) pieces from shared memory, R*Q
 //   FMAs for every 4-wide P piece and every X piece.  ns = 4, R = 4,
 //   Q = 2: 64 FMAs per 16 loads (4 per load); ns = 20, R = 5, Q = 4:
-//   400 FMAs per child from 25 + 20 loads (8.9 per load); matvec
-//   (common.cuh) makes one load per FMA.  One Q per state count: at
+//   400 FMAs per child from 25 + 20 loads (8.9 per load); a plain
+//   matvec makes one load per FMA.  One Q per state count: at
 //   ns = 4, Q = 4 ran no faster than Q = 2 at the line search's B = 65;
 //   at ns = 20, Q = 4 halves the P-matrix loads per FMA.
 // * At ns = 20 a pattern column is split over G = 4 adjacent lanes
@@ -132,16 +132,8 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
     const unsigned n_tip = n_nodes - n_int, n_child = n_nodes - 1,
                    n_slot = n_slots;
     bool bad = false;
-    for (int i = tid; i < n_int; i += nthr) {
-      const int* st = sched + 7 * i;
-      bad |= static_cast<unsigned>(st[6]) >= n_slot;
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        bad |= st[3 * k + 1]
-                   ? static_cast<unsigned>(st[3 * k]) >= n_tip
-                   : static_cast<unsigned>(st[3 * k]) >= n_child ||
-                         static_cast<unsigned>(st[3 * k + 2]) >= n_slot;
-    }
+    for (int i = tid; i < n_int; i += nthr)
+      bad |= schedule_row_bad(sched, i, n_tip, n_child, n_slot);
     if (__syncthreads_or(bad)) __trap();
   }
 

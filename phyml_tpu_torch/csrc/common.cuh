@@ -1,15 +1,11 @@
 // Shared device helpers for the Felsenstein-pruning kernels.
 //
-// K1 and K4 run one thread per (site pattern, rate class): threadIdx.x
-// walks a tile of patterns, threadIdx.y is the class, so neighbouring
-// threads of a warp read neighbouring pattern columns of every [.., P]
-// array while all of them read the same P-matrix entry (a broadcast
-// from L1, or from shared memory in K4).  K2, K3 and K5 run one warp
-// per class and give each thread a register tile of R states x Q
-// patterns (tile_matmul below; a pattern column split over NS / R
-// adjacent lanes).  The arithmetic is plain IEEE float32: build
-// without --use_fast_math, since flush-to-zero and the approximate
-// logf/expf would change the results.
+// Every kernel runs one warp per rate class and gives each thread a
+// register tile of R states x Q patterns (tile_matmul below; a pattern
+// column split over NS / R adjacent lanes), its operands staged in
+// shared memory by cp.async.  The arithmetic is plain IEEE float32:
+// build without --use_fast_math, since flush-to-zero and the
+// approximate logf/expf would change the results.
 //
 // The kernels are instantiated for ns = 4 (DNA) and ns = 20 (amino
 // acids); the build log's ptxas report shows each instantiation's
@@ -31,47 +27,7 @@ constexpr int kUnsupported = -1;
 // Shared memory one block may use on Hopper (227 KB).
 constexpr size_t kMaxSmem = 232448;
 
-// Exact power-of-two rescale of one partial vector: the column max m
-// (floored at FLT_MIN) has biased exponent e, and multiplying by
-// 2^(127-e) brings it into [1, 2) without rounding.  Returns the log2
-// scale added, e - 127 (phyml_tpu/ops/pallas_clv_slots.py:189-196).
-template <int NS>
-__device__ __forceinline__ float rescale(float (&x)[NS]) {
-  float m = x[0];
-#pragma unroll
-  for (int i = 1; i < NS; ++i) m = fmaxf(m, x[i]);
-  m = fmaxf(m, FLT_MIN);
-  const int e = (__float_as_int(m) >> 23) & 0xFF;
-  const float factor = __int_as_float((254 - e) << 23);
-#pragma unroll
-  for (int i = 0; i < NS; ++i) x[i] *= factor;
-  return static_cast<float>(e - 127);
-}
-
-// y = pm @ x for one row-major NS x NS matrix.
-template <int NS>
-__device__ __forceinline__ void matvec(const float* __restrict__ pm,
-                                       const float (&x)[NS],
-                                       float (&y)[NS]) {
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    float acc = pm[i * NS] * x[0];
-#pragma unroll
-    for (int j = 1; j < NS; ++j) acc += pm[i * NS + j] * x[j];
-    y[i] = acc;
-  }
-}
-
-// Strided column load: v[x] = base[x * stride] (one pattern column of
-// an [.., NS, P] array).
-template <int NS>
-__device__ __forceinline__ void load_col(const float* __restrict__ base,
-                                         size_t stride, float (&v)[NS]) {
-#pragma unroll
-  for (int x = 0; x < NS; ++x) v[x] = base[x * stride];
-}
-
-// ---- register tiles (K2, K3, K5) -------------------------------------
+// ---- register tiles ---------------------------------------------------
 
 // Q consecutive floats, 4 * Q-byte aligned: v[j] = p[j] / p[j] = v[j]
 template <int Q>
@@ -100,7 +56,7 @@ __device__ __forceinline__ void store_q(float* p, const float (&v)[Q]) {
 
 // acc[i][j] = sum_y pm[i * NS + y] * x[y * T + j]: R rows of one
 // row-major NS x NS matrix (16-byte aligned rows) times Q columns of an
-// [NS][T] tile, summed over y in order (as matvec).  R * Q FMAs for
+// [NS][T] tile, summed over y in order.  R * Q FMAs for
 // every 16-byte piece of the matrix and every Q-piece of the tile.
 template <int NS, int R, int Q>
 __device__ __forceinline__ void tile_matmul(const float* __restrict__ pm,
@@ -174,8 +130,9 @@ __device__ __forceinline__ float column_max(float v) {
 // Exact power-of-two rescale of the Q columns of an R x Q register tile
 // whose columns are split over G lanes: each column is multiplied in
 // place by 2^(127-e), e the biased exponent of its max over all its
-// states (floored at FLT_MIN), and e - 127 is added to s[j].  The same
-// factor as rescale().
+// states (floored at FLT_MIN), and e - 127 is added to s[j]: the
+// exponent bits make the factor exact
+// (phyml_tpu/ops/pallas_clv_slots.py:189-196).
 template <int G, int R, int Q>
 __device__ __forceinline__ void rescale_tile(float (&v)[R][Q],
                                              float (&s)[Q]) {
@@ -202,12 +159,33 @@ __device__ __forceinline__ float class_lse(const float* a, int C, int tp) {
   return amax + logf(s);
 }
 
+// ---- the slot schedule (K1, K3, K4) ---------------------------------
+
+// True where row i of a slot schedule (ops/clv_slots.py:
+// build_slot_schedule; 7 ints a row) lies outside the launch: a slot
+// outside [0, n_slot), a tip outside [0, n_tip) or an internal child
+// outside [0, n_child).  The kernels check every row once per block and
+// trap, since the slots and the matrices index shared memory.
+__device__ __forceinline__ bool schedule_row_bad(const int* __restrict__ sched,
+                                                 int i, unsigned n_tip,
+                                                 unsigned n_child,
+                                                 unsigned n_slot) {
+  const int* st = sched + 7 * i;
+  bool bad = static_cast<unsigned>(st[6]) >= n_slot;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    bad |= st[3 * k + 1] ? static_cast<unsigned>(st[3 * k]) >= n_tip
+                         : static_cast<unsigned>(st[3 * k]) >= n_child ||
+                               static_cast<unsigned>(st[3 * k + 2]) >= n_slot;
+  return bad;
+}
+
 // ---- cp.async: asynchronous global -> shared copies -----------------
-// K2, K3, K4 and K5 stage each schedule step's P-matrices
-// and tip rows in a double-buffered shared-memory ring: the copies for
-// step i+1 are issued before step i computes, and a thread waits for
-// its own copies with cp.async.wait_group, then the block meets at a
-// barrier so every thread's copies are visible.
+// Every kernel stages a schedule step's operands (P-matrices, tip rows,
+// partials) in a shared-memory ring: the copies for a later step are
+// issued while an earlier one computes, and a thread waits for its own
+// copies with cp.async.wait_group, then its warp or block meets at a
+// barrier so that every thread's copies are visible.
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

@@ -37,12 +37,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: name -> argtypes (every function returns an int error
 # code: 0, a cudaError_t, or -1 for an unsupported (ns, C) shape)
-_SLOT_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_SLOT_ARGS = [_P] * 6 + [_I] * 7 + [_P]
 _EDOTP_ARGS = [_P] * 10 + [_I] * 6 + [_P]
 _SIGNATURES = {
-    # sched tips pmats pi logw out | n_int n_slots ns C P tp | stream
+    # sched tips pmats pi logw out | n_otu n_int n_slots ns C P ldt
+    # | stream
     "phyml_slot_site_lse": _SLOT_ARGS,          # K1
     "phyml_slot_site_lse_stream": _SLOT_ARGS,   # K4
+    # ns C n_otu n_slots | blocks per SM (int*)
+    "phyml_slot_site_lse_occupancy": [_I] * 4 + [_P],
+    "phyml_slot_site_lse_stream_occupancy": [_I] * 4 + [_P],
     # sched tips pmats pi logw out | n_otu n_int n_slots ns C P B | stream
     "phyml_batched_uppass": [_P] * 6 + [_I] * 7 + [_P],   # K3
     # ns C n_slots | blocks per SM (int*)
@@ -156,12 +160,6 @@ def check(rc: int, name: str, ns: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with "
                            f"cudaError {rc}")
-
-
-def block_patterns(C: int) -> int:
-    """Patterns per thread block of K1/K4 (block = patterns x classes):
-    about 128 threads, at least one warp of patterns."""
-    return 32 * max(1, 4 // C)
 
 
 def check_operands(name: str, ints=(), floats=()) -> None:

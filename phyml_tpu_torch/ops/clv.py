@@ -94,12 +94,19 @@ def _check_shapes(name, child, sched, tips, pmats, pi, logw, n_slots):
     if sched.shape != (n_int, 7):
         raise ValueError(f"{name}: the schedule has shape "
                          f"{tuple(sched.shape)}, expected ({n_int}, 7)")
+    check_schedule(name, sched, n_otu, n_nodes, n_slots)
+
+
+def check_schedule(name, sched, n_otu, n_nodes, n_slots):
+    """Raise ValueError unless n_slots lies in [1, n_int] and, for a
+    CPU schedule, every row fits n_slots slots and the tree's nodes:
+    the kernels' contract (K1, K3, K4), which they check on the card
+    once per block, trapping on a row that does not fit (a device-side
+    assert: the next synchronization raises)."""
+    n_int = n_nodes - n_otu
     if not 1 <= n_slots <= n_int:
         raise ValueError(f"{name}: n_slots={n_slots} outside [1, {n_int}]")
     if sched.device.type == "cpu":
-        # the same contract as the kernel's, which checks each row of a
-        # card schedule as it loads it and traps on one that does not
-        # fit (a device-side assert: the next synchronization raises)
         s = sched.to(torch.int64)
         ids, tip = s[:, [0, 3]], s[:, [1, 4]] != 0
         outside = lambda v, hi: (v < 0) | (v >= hi)

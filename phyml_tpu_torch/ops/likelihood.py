@@ -9,18 +9,20 @@ kernels avx.c/sse.c).  Design:
     stays on the host (it comes from topology.RootedView), so the
     slot kernel's schedule is built from it directly; device copies
     are cached per topology.
-  * Each entry point maps to the kernel phyml_tpu uses there:
-      - host `loglik` / `site_logliks`      -> K1, or K4 when streamed
-        (ops/clv_slots.py)
-      - `_loglik_sys` / `loglik_batch`      -> K3 (ops/clv.py), the slot
-        schedule batched over parameter sets for the line search and
-        the branch-length probes
+  * Each entry point maps to a kernel:
+      - host `loglik` / `site_logliks`, and `_loglik_sys` with one
+        system (the branch-length probes) -> K1, or K4 when streamed
+        (ops/clv_slots.py), one pass for one parameter set; K3 at B = 1
+        where K4's block does not fit (`single_pass_kernel`)
+      - `_loglik_sys` / `loglik_batch` with a batch of systems -> K3
+        (ops/clv.py), the slot schedule batched over parameter sets
+        for the line search
       - `edge_dotprods_sys`                 -> K2, or K5 when streamed
         (ops/edotp.py)
     One rule picks the streamed pair (`kernel_route`): the tree's
-    P-matrices no longer stay close to one SM.  On CUDA tensors these
-    launch the hand-written kernels; on CPU tensors the kernels'
-    plain PyTorch versions run.
+    P-matrices of one class no longer fit a warp's share of an SM.
+    On CUDA tensors these launch the hand-written kernels; on CPU
+    tensors the kernels' plain PyTorch versions run.
   * The unmasked scan path (`_up_pass` / `_down_pass`, divide-by-max
     rescaling) is kept as the independent reference
     (`site_logliks_scan`, `edge_dotprods_scan`).
@@ -50,27 +52,44 @@ from phyml_tpu_torch.models.eigen import pmat
 from phyml_tpu_torch.models.substitution import SubstModel
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
-    build_slot_schedule, uppass_site_lse_slots, uppass_site_lse_slots_stream,
+    MAX_BLOCK_SMEM, build_slot_schedule, padded_tips, uppass_site_lse_slots,
+    uppass_site_lse_slots_stream,
 )
+from phyml_tpu_torch.ops.clv_slots import geometry as slot_geometry
 from phyml_tpu_torch.ops.edotp import edge_dotprods, edge_dotprods_stream
 
-# The streamed kernels (K4, K5) stage each step's P-matrices in shared
-# memory; the resident ones (K1, K2) read them through L1/L2, which
-# serves them well only while the whole tree's P-matrices stay close
-# to one SM.  The limit sits below the H100's 256 KB of L1 + shared
-# memory per SM.  On an H100 the streamed pair is 2-3x faster at
-# 128-taxon protein (1.6 MB) and 4-8 % slower than the resident pair
-# at 128-taxon DNA (65 KB); PERF.md keeps the times.
-RESIDENT_PMATS_BYTES = 192 * 1024
+# K1 holds each class's P-matrices of the whole tree in its warp's
+# shared memory, K4 streams each step's two through a ring; K2 and K5 are
+# one body (csrc/edotp.cuh) and follow the same rule.  The limit is K1's
+# shared memory per warp (ops/clv_slots.py:geometry, at the schedule's
+# worst-case slot count): past 48 KiB an SM holds fewer than four such
+# warps, and on an H100 K4 was as fast or faster there (PERF.md, PR 5).
+RESIDENT_WARP_BYTES = 48 * 1024
 
 
 def kernel_route(n_otu: int, C: int, ns: int) -> tuple[str, str]:
     """(host lnL kernel, edge-dot-product kernel) for a tree of n_otu
-    taxa: ("K1", "K2") while its float32 P-matrices, n_nodes*C*ns^2*4
-    bytes, fit RESIDENT_PMATS_BYTES, else the streamed ("K4", "K5")."""
-    pm_bytes = (2 * n_otu - 1) * C * ns * ns * 4
-    return ("K1", "K2") if pm_bytes <= RESIDENT_PMATS_BYTES \
-        else ("K4", "K5")
+    taxa: ("K1", "K2") while K1's shared memory fits
+    RESIDENT_WARP_BYTES a warp and a block, else the streamed
+    ("K4", "K5")."""
+    n_slots = int(math.ceil(math.log2(max(n_otu, 2)))) + 1
+    geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=True)
+    fits = geo["warp_smem_bytes"] <= RESIDENT_WARP_BYTES and \
+        geo["block_smem_bytes"] <= MAX_BLOCK_SMEM
+    return ("K1", "K2") if fits else ("K4", "K5")
+
+
+def single_pass_kernel(route: str, ns: int, C: int, n_otu: int,
+                       n_slots: int) -> str:
+    """The kernel of one single-parameter-set pass on an n_otu-taxon
+    tree whose schedule needs n_slots slots: the route's slot kernel
+    (K1 or K4, kernel_route) while its block fits shared memory at that
+    slot count, else K3 at B = 1.  K1's route is chosen at the worst
+    slot count, so only K4 can miss: its C warps each hold a ring and
+    the slots (at 20 states, 25 KB + 2.7 KB a slot a warp), so a block
+    of 8 classes holds one slot only, and one of 4 classes twelve."""
+    geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=route == "K1")
+    return route if geo["block_smem_bytes"] <= MAX_BLOCK_SMEM else "K3"
 
 
 def default_device(device=None) -> torch.device:
@@ -114,7 +133,8 @@ class LikelihoodEngine(nn.Module):
     """Likelihood programs for one (alignment, model) pair.
 
     Buffers: tips [n_otu, ns, P], weights float64 [P], invar_state
-    int64 [P] and invar_ok [P] (1 where the pattern is constant).
+    int64 [P] and invar_ok [P] (1 where the pattern is constant);
+    `slot_tips`, the tips as a view of row-padded storage, feeds K1/K4.
     `lnl_route` / `edotp_route` name the kernels the host lnL and the
     edge dot products run through (kernel_route).
     """
@@ -145,6 +165,9 @@ class LikelihoodEngine(nn.Module):
         tips = np.ascontiguousarray(np.transpose(aln.partials, (0, 2, 1)))
         self.register_buffer("tips", torch.as_tensor(tips, dtype=dtype,
                                                      **dev))
+        # the slot kernels' (K1, K4) view of the tips, rows padded to
+        # their pattern tile
+        self.register_buffer("slot_tips", padded_tips(self.tips))
         self.register_buffer("weights", torch.as_tensor(
             aln.weights, dtype=torch.float64, **dev))
         inv = np.asarray(aln.invariant)
@@ -248,16 +271,28 @@ class LikelihoodEngine(nn.Module):
         return torch.log(torch.clamp(w, min=self._tiny))
 
     # ------------------------------------------------------------------
-    # host entry points: K1 (slot kernel) or K4 (streamed)
+    # one parameter set: K1 (slot kernel) or K4 (streamed), else K3 at B=1
     # ------------------------------------------------------------------
+    def _slot_site_lse(self, tree, pm, pi, w):
+        """The variable-rate site lse [P] of one parameter set through
+        the kernel single_pass_kernel names, on the schedule's own slot
+        count."""
+        child, sched, n_slots = self._topology(tree.child)
+        logw = self._logw(w)
+        kernel = single_pass_kernel(self.lnl_route, self.ns, self.C,
+                                    self.n_otu, n_slots)
+        if kernel == "K3":
+            return uppass_site_lse(child, self.tips, pm[None], pi[None],
+                                   logw[None], sched=sched,
+                                   n_slots=n_slots)[0]
+        slots = uppass_site_lse_slots if kernel == "K1" \
+            else uppass_site_lse_slots_stream
+        return slots(sched, self.slot_tips, pm, pi, logw, n_slots=n_slots)
+
     def _site_logliks_slots(self, sys, tree):
         lam, V, Vinv, pi, w, pinv = sys
-        _, sched, _ = self._topology(tree.child)
-        slots = uppass_site_lse_slots if self.lnl_route == "K1" \
-            else uppass_site_lse_slots_stream
-        lse = slots(
-            sched, self.tips, self._pmats_cached(sys, tree), pi,
-            self._logw(w), n_slots=self.slot_count)
+        lse = self._slot_site_lse(tree, self._pmats_cached(sys, tree), pi,
+                                  w)
         return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
 
     def loglik(self, params, tree: TreeArrays, weights=None):
@@ -269,16 +304,20 @@ class LikelihoodEngine(nn.Module):
         return self._site_logliks_slots(self.system_of(params), tree)
 
     # ------------------------------------------------------------------
-    # batched entry points: K3 (slot kernel, batched over systems)
+    # systems: one (K1/K4) or a batch (K3, batched over systems)
     # ------------------------------------------------------------------
     def _site_logliks_sys(self, sys, tree: TreeArrays):
         """Site log-likelihoods [..., P] for a system whose leading
-        batch shape (none, or [B]) is carried through one launch."""
+        batch shape (none, or [B]) is carried through one launch: one
+        system through the route's slot kernel, a batch through K3."""
         lam, V, Vinv, pi, w, pinv = sys
-        child, sched, n_slots = self._topology(tree.child)
-        lse = uppass_site_lse(child, self.tips,
-                              self._pmats(lam, V, Vinv, tree.blen), pi,
-                              self._logw(w), sched=sched, n_slots=n_slots)
+        pm = self._pmats(lam, V, Vinv, tree.blen)
+        if pm.dim() == 4:
+            lse = self._slot_site_lse(tree, pm, pi, w)
+        else:
+            child, sched, n_slots = self._topology(tree.child)
+            lse = uppass_site_lse(child, self.tips, pm, pi, self._logw(w),
+                                  sched=sched, n_slots=n_slots)
         return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
 
     def _loglik_sys(self, sys, tree: TreeArrays, weights=None):

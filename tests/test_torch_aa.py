@@ -172,16 +172,23 @@ def test_k5_plain_matches_pallas_stream(datatype):
 
 
 @pytest.mark.parametrize("n_otu,C,ns,route", [
-    (128, 4, 4, ("K1", "K2")),     # the DNA bench problem: 65 KB
-    (200, 4, 4, ("K1", "K2")),     # 102 KB
-    (15, 4, 20, ("K1", "K2")),     # 186 KB, under 192 KiB
-    (16, 4, 20, ("K4", "K5")),     # 198 KB, over it
-    (128, 4, 20, ("K4", "K5")),    # the AA bench problem: 1.6 MB
+    (128, 4, 4, ("K1", "K2")),     # the DNA bench problem: 23.9 KiB a warp
+    (200, 4, 4, ("K1", "K2")),     # 33.5 KiB
+    (15, 4, 20, ("K4", "K5")),     # 71.9 KiB, over 48 KiB
+    (16, 4, 20, ("K4", "K5")),     # 75 KiB
+    (128, 4, 20, ("K4", "K5")),    # the AA bench problem: 433 KiB
     (128, 1, 20, ("K4", "K5")),
+    (8, 4, 20, ("K1", "K2")),      # 47.4 KiB, under 48 KiB
+    (256, 4, 4, ("K1", "K2")),     # 40.5 KiB
+    (312, 4, 4, ("K4", "K5")),     # 48.1 KiB
+    (192, 8, 4, ("K4", "K5")),     # 32.5 KiB a warp, 261 KiB a block of 8
+    (300, 4, 4, ("K1", "K2")),     # 46.6 KiB
 ])
 def test_kernel_route(n_otu, C, ns, route):
-    """One rule in the card's terms: the streamed pair once the tree's
-    float32 P-matrices (n_nodes*C*ns^2*4 bytes) pass 192 KiB."""
+    """One rule in the card's terms: the streamed pair once K1's shared
+    memory per warp (its class's P-matrices of the whole tree, the tip
+    ring and the slots, at the worst-case slot count) passes 48 KiB, or
+    its block of C warps passes a block's 227 KB."""
     assert kernel_route(n_otu, C, ns) == route
 
 

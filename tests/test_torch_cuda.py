@@ -27,7 +27,7 @@ import torch
 
 from phyml_tpu_torch.io.alignment import compact
 from phyml_tpu_torch.models.substitution import SubstModel
-from phyml_tpu_torch.ops import _build, clv, clv_slots, edotp
+from phyml_tpu_torch.ops import clv, clv_slots, edotp
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
 from phyml_tpu_torch.topology import Topology
 
@@ -145,7 +145,7 @@ def test_streamed_kernels_match_plain(cuda, datatype, C):
     """K4 against K1's plain version and K5 against K2's, at a ragged
     pattern count."""
     eng, tree, sys_, pm = _setup(cuda, C, seed=2, datatype=datatype)
-    assert eng.P % _build.block_patterns(C) != 0
+    assert eng.P % clv_slots.TILE != 0
     tol = K13_TOL if datatype == "nt" else AA_TOL
     _, sched, _ = eng._topology(tree.child)
     pi, logw = sys_[3], eng._logw(sys_[4])
@@ -164,16 +164,25 @@ def test_streamed_kernels_match_plain(cuda, datatype, C):
 
 @pytest.mark.parametrize("C", [1, 4])
 def test_aa_resident_kernels_match_plain(cuda, C):
-    """K1, K2 and K3 (single and batched) at 20 states."""
+    """K1, K2 and K3 (single and batched) at 20 states; K1 on an 8-taxon
+    tree, since it holds each class's P-matrices of the whole tree in
+    shared memory, which at 20 states fits a block of four classes only
+    for small trees (ops/likelihood.py:kernel_route), the others on a
+    40-taxon one."""
+    eng, tree, sys_, pm = _setup(cuda, C, n=8, seed=3, datatype="aa")
+    _, sched, _ = eng._topology(tree.child)
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    ref = clv_slots.uppass_site_lse_slots_plain(
+        sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
+    k1 = clv_slots.uppass_site_lse_slots(sched, eng.tips, pm, pi, logw,
+                                         n_slots=eng.slot_count)
+    assert float((k1 - ref).abs().max()) < AA_TOL
     eng, tree, sys_, pm = _setup(cuda, C, seed=3, datatype="aa")
     lam, V, Vinv, pi, w, _ = sys_
     child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(w)
     ref = clv_slots.uppass_site_lse_slots_plain(
         sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
-    k1 = clv_slots.uppass_site_lse_slots(sched, eng.tips, pm, pi, logw,
-                                         n_slots=eng.slot_count)
-    assert float((k1 - ref).abs().max()) < AA_TOL
     k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
                              n_slots=n_slots)
     assert float((k3 - ref).abs().max()) < AA_TOL
@@ -516,5 +525,226 @@ def test_edotp_traps_on_a_child_table_out_of_postorder(cuda, ns, kernel):
     run = subprocess.run([sys.executable, "-c", _BAD_CHILD, str(ns), kernel],
                          cwd=root, capture_output=True, text=True,
                          timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "raised:" in run.stdout
+
+
+def _slot_kernel(name):
+    return {"K1": clv_slots.uppass_site_lse_slots,
+            "K4": clv_slots.uppass_site_lse_slots_stream}[name]
+
+
+def _slot_check(eng, tree, sys_, pm, kernel, rel=0.0):
+    """One launch of K1 or K4 on the schedule's own slot count, on the
+    engine's row-padded tips and on the contiguous tips (which the
+    wrapper pads first at an odd P), against K1's plain version and
+    against K3 at B=1 on the same tensors, within the tolerance plus
+    rel times the site lnL; returns the kernel's output."""
+    child, sched, n_slots = eng._topology(tree.child)
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    f = _slot_kernel(kernel)
+    ref = clv_slots.uppass_site_lse_slots_plain(sched, eng.tips, pm, pi,
+                                                logw, n_slots=n_slots)
+    k3 = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
+                             n_slots=n_slots)
+    tol = (K13_TOL if eng.ns == 4 else AA_TOL) + rel * ref.abs()
+    assert eng.slot_tips.stride(1) % 32 == 0
+    for tips in (eng.slot_tips, eng.tips):
+        n0 = f.launches
+        got = f(sched, tips, pm, pi, logw, n_slots=n_slots)
+        torch.cuda.synchronize()
+        assert f.launches == n0 + 1
+        assert got.shape == (eng.P,) and bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() < tol).all())
+        assert bool(((got - k3).abs() < tol).all())
+    return got
+
+
+@pytest.mark.parametrize("shape", ["caterpillar", "balanced", "random"])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_slot_kernels_tree_shapes(cuda, kernel, datatype, C, shape):
+    """K1 and K4 (one body) on a caterpillar (one slot, rewritten in
+    place every step), a balanced tree (the most slots: 5 at 32 taxa)
+    and a random one, on sequences simulated down the tree; 8 taxa for
+    K1 at 20 states and four classes, whose whole-tree matrices of four
+    classes must fit a block."""
+    n = 8 if (kernel, datatype, C) == ("K1", "aa", 4) else 32
+    topo = _tree_of(shape, n, np.random.default_rng(12))
+    eng, tree, sys_, pm = _simulated_setup(cuda, C, n, 400, 12, datatype,
+                                           topo)
+    _slot_check(eng, tree, sys_, pm, kernel)
+
+
+@pytest.mark.parametrize("sites,C", [(1, 1), (31, 2), (33, 3), ("bench", 4)])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_slot_kernels_pattern_counts(cuda, kernel, datatype, sites, C):
+    """One pattern, one below and one above a 32-pattern tile (and 31,
+    33 around two 16-pattern tiles), and the odd bench counts (3767 DNA,
+    3945 protein patterns at 128 taxa; 8 taxa for K1 at 20 states, whose
+    whole-tree matrices of four classes must fit a block): no column
+    past P is stored, every valid one is right."""
+    ns = 4 if datatype == "nt" else 20
+    n = 8 if (kernel, ns) == ("K1", 20) else 20
+    if sites == "bench":
+        sites = 3767 if ns == 4 else 3945
+        n = 8 if (kernel, ns) == ("K1", 20) else 128
+    eng, tree, sys_, pm = _setup(cuda, C, n=n, sites=sites, seed=13,
+                                 datatype=datatype)
+    assert eng.P == sites
+    _slot_check(eng, tree, sys_, pm, kernel)
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_slot_kernels_allocate_their_outputs_only(cuda, datatype):
+    """A bench-shaped call (128 taxa, 4096 sites, C=4) of the route's
+    slot kernel holds only its output [P]."""
+    eng, tree, sys_, pm = _setup(cuda, 4, n=128, sites=4096, seed=14,
+                                 datatype=datatype)
+    _, sched, n_slots = eng._topology(tree.child)
+    f = _slot_kernel(eng.lnl_route)
+    args = (sched, eng.slot_tips, pm, sys_[3], eng._logw(sys_[4]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    out = f(*args, n_slots=n_slots)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert peak <= eng.P * 4 + 2 ** 20, peak
+    assert bool(torch.isfinite(out).all())
+
+
+def test_k1_refuses_a_tree_whose_matrices_do_not_fit(cuda):
+    """K1 holds each class's P-matrices of the whole tree in shared
+    memory: at 128-taxon protein (408 KB a class) it raises, naming the
+    shape limit, and the engine routes that tree to K4."""
+    eng, tree, sys_, pm = _setup(cuda, 4, n=128, sites=64, seed=15,
+                                 datatype="aa")
+    assert eng.lnl_route == "K4"
+    _, sched, n_slots = eng._topology(tree.child)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        clv_slots.uppass_site_lse_slots(sched, eng.tips, pm, sys_[3],
+                                        eng._logw(sys_[4]), n_slots=n_slots)
+
+
+@pytest.mark.parametrize("datatype,n", [("nt", 6500), ("aa", 3000)])
+def test_slot_kernels_on_trees_of_thousands_of_taxa(cuda, datatype, n):
+    """K4 (the route of such trees) on random trees of thousands of
+    taxa: its shared memory does not grow with the tree, only with the
+    schedule's slot count.  The site lnL runs to the thousands there, so
+    the tolerance adds 4e-7 of it (a few float32 steps)."""
+    topo = _tree_of("random", n, np.random.default_rng(17))
+    eng, tree, sys_, pm = _simulated_setup(cuda, 4, n, 33, 17, datatype,
+                                           topo)
+    assert eng.lnl_route == "K4"
+    _slot_check(eng, tree, sys_, pm, "K4", rel=4e-7)
+
+
+@pytest.mark.parametrize("C,n,shape,want", [
+    (8, 16, "caterpillar", "K4"), (8, 16, "balanced", "K3"),
+    (8, 3000, "random", "K3"), (4, 3000, "random", "K4")])
+def test_single_passes_go_to_k3_where_k4_does_not_fit(cuda, C, n, shape,
+                                                      want):
+    """At 20 states K4's block of C warps holds a ring and the slots per
+    warp: at C = 8 one slot only (the 16-taxon balanced tree needs 3,
+    the 3000-taxon random one 6), at C = 4 twelve.  A single-system pass
+    whose schedule needs more goes to K3 at B = 1
+    (ops/likelihood.py:single_pass_kernel), and agrees with K1's plain
+    version."""
+    topo = _tree_of(shape, n, np.random.default_rng(18))
+    eng, tree, sys_, pm = _simulated_setup(cuda, C, n, 33, 18, "aa", topo)
+    _, sched, n_slots = eng._topology(tree.child)
+    f4, k3 = clv_slots.uppass_site_lse_slots_stream, clv.uppass_site_lse
+    n4, n3 = f4.launches, k3.launches_by_batch.get(1, 0)
+    got = eng._site_logliks_sys(sys_, tree)
+    torch.cuda.synchronize()
+    ran = {(1, 0): "K4", (0, 1): "K3"}[
+        (f4.launches - n4, k3.launches_by_batch.get(1, 0) - n3)]
+    assert (eng.lnl_route, ran) == ("K4", want)
+    lse = clv_slots.uppass_site_lse_slots_plain(
+        sched, eng.tips, pm, sys_[3], eng._logw(sys_[4]), n_slots=n_slots)
+    ref = eng._mix_invar(lse, sys_[3], sys_[4], sys_[5])
+    assert bool(((got - ref).abs() < AA_TOL + 4e-7 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_single_systems_take_the_slot_kernels(cuda, datatype):
+    """The branch-length probes' _loglik_sys with one system launches
+    the route's slot kernel, not K3; a batch of two launches K3."""
+    n = 128 if datatype == "aa" else 40
+    eng, tree, sys_, pm = _setup(cuda, 4, n=n, sites=301, seed=16,
+                                 datatype=datatype)
+    f = _slot_kernel(eng.lnl_route)
+    n_slot, n_k3 = f.launches, clv.uppass_site_lse.launches
+    one = eng._loglik_sys(sys_, tree)
+    torch.cuda.synchronize()
+    assert (f.launches, clv.uppass_site_lse.launches) == (n_slot + 1, n_k3)
+    two = eng._loglik_sys(tuple(torch.stack([x, x]) for x in sys_), tree)
+    torch.cuda.synchronize()
+    assert (f.launches, clv.uppass_site_lse.launches) == (n_slot + 1,
+                                                          n_k3 + 1)
+    assert abs(float(one) - float(two[0])) < 1e-2
+
+
+# A child process: K1 or K4 on a card schedule that does not fit its
+# launch must trap (the context is lost, hence the process of its own).
+_BAD_SLOT_SCHEDULE = """
+import sys
+import numpy as np
+import torch
+from phyml_tpu_torch.ops import clv_slots
+from phyml_tpu_torch.topology import Topology
+
+rng = np.random.default_rng(0)
+ns, P, C = int(sys.argv[1]), 300, 4
+# K1 at 20 states holds the whole tree's matrices of 4 classes: 8 taxa
+n = 8 if (sys.argv[3], ns) == ("K1", 20) else 20
+n_slots = 1
+while n_slots < 2:   # a slot to take away
+    child = np.asarray(Topology.random(n, rng).rooted().child,
+                       dtype=np.int32)
+    sched, n_slots = clv_slots.build_slot_schedule(n, child)
+what = sys.argv[2]
+if what == "slot":
+    n_slots -= 1            # the schedule's last slot lies past the launch
+elif what == "node":
+    sched[-1, 0] = 2 * n    # a node past the tree
+    sched[-1, 1] = 0
+else:
+    sched[0, 0], sched[0, 1] = n + 3, 1   # a tip past the tips
+cuda = torch.device("cuda")
+f = lambda *shape: torch.rand(*shape, device=cuda)
+fn = clv_slots.uppass_site_lse_slots if sys.argv[3] == "K1" \
+    else clv_slots.uppass_site_lse_slots_stream
+try:
+    fn(torch.as_tensor(sched, device=cuda), f(n, ns, P),
+       f(2 * n - 1, C, ns, ns).contiguous(), f(C, ns), f(C),
+       n_slots=n_slots)
+    torch.cuda.synchronize()
+except NotImplementedError as exc:   # refused at launch: no trap
+    print("refused:", exc)
+    sys.exit(2)
+except RuntimeError as exc:
+    print("raised:", exc)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("what", ["slot", "node", "tip"])
+@pytest.mark.parametrize("ns", [4, 20])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_slot_kernels_trap_on_a_schedule_that_does_not_fit(cuda, kernel, ns,
+                                                           what):
+    """The wrappers check a card schedule's shape only; each block
+    checks every row once and traps on a slot past n_slots (which sizes
+    the shared memory), an internal node past the tree or a tip past
+    the tips."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_SLOT_SCHEDULE, str(ns),
+                          what, kernel], cwd=root, capture_output=True,
+                         text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "raised:" in run.stdout

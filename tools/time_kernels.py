@@ -2,11 +2,12 @@
 """Time the port's CUDA kernels at the bench shapes, on one GPU.
 
     python3 tools/time_kernels.py [--root DIR] [--label NAME]
-        [--kernels K2,K5] [--data random|smoke] [--compare PARENT] [nt] [aa]
+        [--kernels K2,K5] [--data random|smoke] [--taxa N]
+        [--compare PARENT] [nt] [aa]
 
 For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; with
---data random, the default, a random 128-taxon tree and 4096 random
-sites under the model's initial parameters; with --data smoke,
+--data random, the default, a random tree of --taxa taxa (128) and 4096
+random sites under the model's initial parameters; with --data smoke,
 chip_smoke.py's bench problem, the sequences simulated down its tree,
 3767 and 3945 patterns, under the simulation's parameters) it times
 every kernel the
@@ -21,8 +22,12 @@ versions of the kernels, run this script on both trees one after the
 other on one card, since the card's clocks and power limit vary between
 machines: `--compare PARENT` does so in one call, in the order parent,
 this tree, this tree, parent (one process each). `--kernels` times only
-the named kernels (K3 names all its batch sizes). Without a CUDA device
-it exits nonzero.
+the named kernels (K3 names all its batch sizes). K1 and K4 walk the
+slot count the tree's engine passes them (the schedule's own since
+the slot kernels' redesign, the bound ceil(log2 n)+2 before); a kernel
+that refuses the shape (K1 where one class's P-matrices of the whole
+tree do not fit a block) is reported as "refused". Without a CUDA
+device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -55,14 +60,14 @@ def window_ms(fn, reps=7, n=50):
     return statistics.median(ms)
 
 
-def load_problem(dt: str, data: str, tmp: str, seed: int = 7):
+def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
     """(alignment, rooted tree, model, params) of one timing problem."""
     import numpy as np
     from phyml_tpu_torch.io.alignment import compact, read_alignment
     from phyml_tpu_torch.models.substitution import SubstModel
     from phyml_tpu_torch.topology import Topology
 
-    n, sites = 128, 4096
+    sites = 4096
     if data == "smoke":
         sys.path.insert(1, HERE)
         import chip_smoke
@@ -91,7 +96,7 @@ def load_problem(dt: str, data: str, tmp: str, seed: int = 7):
     return aln, rv, m, m.init_params(aln.obs_state_freqs)
 
 
-def time_problem(dt: str, want, data: str = "random") -> dict:
+def time_problem(dt: str, want, data: str = "random", n: int = 128) -> dict:
     import tempfile
 
     import numpy as np
@@ -101,7 +106,7 @@ def time_problem(dt: str, want, data: str = "random") -> dict:
 
     cuda = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        aln, rv, m, params = load_problem(dt, data, tmp)
+        aln, rv, m, params = load_problem(dt, data, tmp, n=n)
     eng = LikelihoodEngine(aln, m, dtype=torch.float32, device=cuda)
     tree = tree_arrays(rv, device=cuda)
     lam, V, Vinv, pi, w, _ = eng.system_of(params)
@@ -109,11 +114,21 @@ def time_problem(dt: str, want, data: str = "random") -> dict:
     topo = eng._topology(tree.child)
     child, sched = topo[:2]
     logw = eng._logw(w)
-    k = eng.slot_count
+    k = topo[2] if hasattr(eng, "_slot_site_lse") else eng.slot_count
     out = {}
+
+    # the tips as the tree's engine hands them to K1/K4
+    tips = getattr(eng, "slot_tips", eng.tips)
+
+    def slot_ms(fn):
+        try:
+            return window_ms(lambda: fn(sched, tips, pm, pi, logw,
+                                        n_slots=k))
+        except NotImplementedError:
+            return "refused"
+
     if "K1" in want:
-        out["K1"] = window_ms(lambda: clv_slots.uppass_site_lse_slots(
-            sched, eng.tips, pm, pi, logw, n_slots=k))
+        out["K1"] = slot_ms(clv_slots.uppass_site_lse_slots)
     if "K2" in want:
         out["K2"] = window_ms(lambda: edotp.edge_dotprods(
             child, eng.tips, pm, V, Vinv, pi))
@@ -130,8 +145,7 @@ def time_problem(dt: str, want, data: str = "random") -> dict:
             lambda: clv.uppass_site_lse(*args, **k3_kw))
         del args
     if "K4" in want:
-        out["K4"] = window_ms(lambda: clv_slots.uppass_site_lse_slots_stream(
-            sched, eng.tips, pm, pi, logw, n_slots=k))
+        out["K4"] = slot_ms(clv_slots.uppass_site_lse_slots_stream)
     if "K5" in want:
         out["K5"] = window_ms(lambda: edotp.edge_dotprods_stream(
             child, eng.tips, pm, V, Vinv, pi))
@@ -144,6 +158,8 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--kernels", default="K1,K2,K3,K4,K5")
     ap.add_argument("--data", choices=["random", "smoke"], default="random")
+    ap.add_argument("--taxa", type=int, default=128,
+                    help="taxa of the random tree (--data random)")
     ap.add_argument("--compare", metavar="PARENT",
                     help="tree to time against: parent, this, this, parent")
     ap.add_argument("problems", nargs="*", default=["nt", "aa"])
@@ -155,7 +171,8 @@ def main() -> int:
             rc |= subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--root", root,
                  "--label", label, "--kernels", args.kernels,
-                 "--data", args.data, *args.problems]).returncode
+                 "--data", args.data, "--taxa", str(args.taxa),
+                 *args.problems]).returncode
         return rc
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -173,9 +190,11 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for dt in args.problems:
-        times = time_problem(dt, args.kernels.split(","), args.data)
-        print(f"{args.label} {dt} ({args.data}): " + "  ".join(
-            f"{name} {ms:.4f}" for name, ms in times.items())
+        times = time_problem(dt, args.kernels.split(","), args.data,
+                             args.taxa)
+        print(f"{args.label} {dt} ({args.data}, {args.taxa} taxa): "
+              + "  ".join(f"{name} {ms:.4f}" if isinstance(ms, float)
+                          else f"{name} {ms}" for name, ms in times.items())
             + f" ms  ({smi})", flush=True)
     return 0
 
