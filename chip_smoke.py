@@ -23,13 +23,27 @@
    kernel is also held against a float64 evaluation;
 5. checks the fixed-topology fit end to end on a small problem of each
    kind (card float32 against CPU float64);
-6. runs each main path, `phyml_tpu_torch.cli -u tree -c 4 -o lr -b 0
-   --platform gpu` with `-m GTR` and with `-d aa -m LG -a e`, with the
-   kernels' launch counters reset just before and read just after
-   (K3's by batch size: no single-system pass may reach it).
+6. runs the fixed-topology fit, `phyml_tpu_torch.cli -u tree -c 4 -o
+   lr -b 0 --platform gpu` with `-m GTR` and with `-d aa -m LG -a e`,
+   with the kernels' launch counters reset just before and read just
+   after (K3's by batch size: no single-system pass may reach it);
+7. holds the card's ML distances (float32) against the CPU's float64
+   ones on the bench problem (max gap 1e-3), and runs the default run
+   (no -u: BioNJ, then the NNI search) on a 16 x 500 problem on the
+   card and on the CPU (the same tree, lnL within 0.1);
+8. runs the main path, the default `phyml` run at 128 x 4096 (the same
+   flags without -u and -o: BioNJ start tree, `-o tlr -s NNI`), with
+   the launch counters reset just before and read just after and the
+   search's own functions counted and timed: BioNJ time, search
+   wall-clock, NNI rounds, SPR sweeps, scorer calls and ms per call,
+   the SPR block size, start and final lnL, RF distance to the
+   simulating tree; every kernel of the route must launch, none off it,
+   and K3 never at B = 1.
 
-It prints a JSON line of per-kernel results, the card line, and as the
-last line {"ok": true, "device": {...}}.  Any failure exits nonzero
+It prints a JSON line of the default runs' numbers, a JSON line of
+per-kernel results (`launches` from the default run,
+`launches_fixed_fit` from step 6), the card line, and as the last line
+{"ok": true, "device": {...}}.  Any failure exits nonzero
 before that line; so does a machine without CUDA, or a directory
 without the phyml_tpu_torch package.
 """
@@ -63,6 +77,8 @@ F64_TOL = 0.5     # total lnL, host kernel float32 vs float64 scan (:104)
 E2E_TOL = 0.1     # final lnL of the small fit, card f32 vs CPU f64:
 #                   the two optimizers stop at slightly different
 #                   points of a flat optimum
+D_TOL = 1e-3      # ML distances, card f32 vs CPU f64 (clipped to
+#                   [1e-8, 2])
 REPS = 5          # timing windows per measurement
 LAUNCHES = 20     # kernel calls per window (plain versions: 1)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): FP32 outside the
@@ -557,9 +573,276 @@ def main_path(dt, aln_path, tree_path, cuda):
     return counts, k3_by_b
 
 
+# the search's own functions whose calls the default-run phase counts
+# and times (module, attribute, label); each is wrapped for that run only
+SEARCH_PROBES = [
+    ("phyml_tpu_torch.search.distances", "ml_pairwise_distances",
+     "distances"),
+    ("phyml_tpu_torch.search.bionj", "bionj", "agglomeration"),
+    ("phyml_tpu_torch.search.driver", "nni_round", "NNI rounds"),
+    ("phyml_tpu_torch.search.driver", "spr_round", "SPR sweeps"),
+    ("phyml_tpu_torch.search.nni", "nni_scores", "NNI scorer"),
+    ("phyml_tpu_torch.search.spr", "spr_scores_batched", "SPR scorer"),
+]
+
+
+@contextlib.contextmanager
+def search_probes():
+    """Wrap SEARCH_PROBES: label -> {calls, s (wall, the card
+    synchronized before and after each call), sizes (the SPR scorer's
+    candidates per call), last (the last result)}."""
+    import importlib
+
+    import torch
+
+    stats, saved = {}, []
+    for mod_name, attr, label in SEARCH_PROBES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+        rec = stats[label] = {"calls": 0, "s": 0.0, "sizes": []}
+
+        def wrapped(*a, _fn=fn, _rec=rec, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            _rec["s"] += time.time() - t
+            _rec["calls"] += 1
+            _rec["last"] = out
+            if _fn.__name__ == "spr_scores_batched":
+                _rec["sizes"].append(len(a[4]))
+            return out
+
+        setattr(mod, attr, wrapped)
+        saved.append((mod, attr, fn))
+    try:
+        yield stats
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def utilization_sampler(period_ms=100):
+    """Samples the card's utilization with nvidia-smi every period_ms
+    while the block runs (NVML: the share of each period in which a
+    kernel ran); yields a list that holds the samples (0..1) once the
+    block is left.  The sampler is stopped on the way out."""
+    samples = []
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        yield samples
+        return
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        try:
+            out = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        samples += [float(x) / 100 for x in out.split()
+                    if x.replace(".", "").isdigit()]
+
+
+def default_argv(dt, aln_path, platform):
+    """The default `phyml` run: no -u (BioNJ start tree), the default
+    -o tlr -s NNI search."""
+    argv = cli_argv(dt, aln_path, None, platform)
+    i = argv.index("-u")
+    del argv[i:i + 2]
+    i = argv.index("-o")
+    del argv[i:i + 2]
+    return argv
+
+
+def distance_check(dt, aln_path, cuda):
+    """The card's ML distances (float32) against the CPU's float64 on
+    the same alignment and starting parameters; returns the engine's
+    scorer block size (spr.default_batch_k on the BioNJ tree)."""
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine
+    from phyml_tpu_torch.search import distances, spr
+    from phyml_tpu_torch.search.bionj import bionj
+
+    args = cli.build_parser().parse_args(default_argv(dt, aln_path, "gpu"))
+    aln = read_alignment(aln_path, datatype=dt)
+    model = cli._build_model(args, aln)
+    params = cli._init_params(args, model, aln)
+    D, secs = {}, {}
+    for name, dev, dtype in (("gpu", cuda, torch.float32),
+                             ("cpu", "cpu", torch.float64)):
+        eng = LikelihoodEngine(aln, model, dtype=dtype, device=dev)
+        if name == "gpu":
+            distances.ml_pairwise_distances(eng, params)   # warm-up
+            torch.cuda.synchronize()
+        t = time.time()
+        D[name] = distances.ml_pairwise_distances(eng, params)
+        if name == "gpu":
+            torch.cuda.synchronize()
+            batch_k = spr.default_batch_k(eng, bionj(D[name]).rooted())
+        secs[name] = time.time() - t
+    gap = float(np.abs(D["gpu"] - D["cpu"]).max())
+    rf = bionj(D["gpu"]).rf_distance(bionj(D["cpu"]))
+    print(f". [{dt}] ML distances, {aln.n_otu * (aln.n_otu - 1) // 2} "
+          f"pairs: card f32 {secs['gpu']:.3f} s (warm), CPU f64 "
+          f"{secs['cpu']:.3f} s; max |D gpu - D cpu| {gap:.3e} (tol "
+          f"{D_TOL:g}); BioNJ trees of the two: RF {rf}; scorer block "
+          f"batch_k {batch_k}")
+    if not gap <= D_TOL:
+        fail(f"[{dt}] the card's ML distances are off the CPU's float64 "
+             f"ones by {gap}")
+    return batch_k
+
+
+def small_default_check(dt, tmp):
+    """The default run (BioNJ, NNI search) on a small problem: card
+    float32 against CPU float64, the same tree and lnL within E2E_TOL."""
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.topology import Topology
+
+    finals, trees = {}, {}
+    for platform in ("cpu", "gpu"):
+        d = os.path.join(tmp, f"small_default_{dt}_{platform}")
+        aln_path, _ = write_problem(d, dt, 16, 500, SEED + 1)
+        t = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(default_argv(dt, aln_path, platform)
+                          + ["--quiet"])
+        if rc != 0:
+            fail(f"[{dt}] small default run on {platform} returned {rc}")
+        finals[platform] = (stats_lnl(aln_path), time.time() - t)
+        with open(f"{aln_path}_phyml_tree.txt") as fh:
+            trees[platform] = fh.read()
+    names = [f"T{i:04d}" for i in range(16)]
+    rf = Topology.from_newick(trees["gpu"], names).rf_distance(
+        Topology.from_newick(trees["cpu"], names))
+    gap = finals["gpu"][0] - finals["cpu"][0]
+    print(f". [{dt}] small default run (16 x 500, BioNJ + NNI): gpu f32 "
+          f"{finals['gpu'][0]:.5f} ({finals['gpu'][1]:.1f} s)  cpu f64 "
+          f"{finals['cpu'][0]:.5f} ({finals['cpu'][1]:.1f} s)  diff "
+          f"{gap:.2e} (tol {E2E_TOL})  RF {rf}")
+    if rf != 0 or not abs(gap) <= E2E_TOL:
+        fail(f"[{dt}] the small default run disagrees between the card "
+             "and the CPU")
+
+
+def default_run(dt, aln_path, tree_path, cuda, batch_k):
+    """The default `phyml` run (BioNJ start tree, NNI search with its
+    SPR escapes and probes) at full width through the CLI, with every
+    launch counter set to 0 just before and read just after, and the
+    search's functions counted and timed (search_probes).  Returns the
+    launch counts and the run's numbers."""
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.topology import Topology
+
+    argv = default_argv(dt, aln_path, "gpu")
+    path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
+    W = wrappers()
+    for fn in W.values():
+        fn.launches = 0
+    W["K3"].launches_by_batch = {}
+    out = io.StringIO()
+    with search_probes() as st, utilization_sampler() as util:
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    busy = statistics.mean(util) if util else None
+    counts = {name: fn.launches for name, fn in W.items()}
+    k3_by_b = dict(W["K3"].launches_by_batch)
+    if rc != 0:
+        fail(f"[{dt}] the default run returned {rc}")
+    text = out.getvalue()
+    with open(os.path.join(os.path.dirname(aln_path),
+                           "default_run.log"), "w") as fh:
+        fh.write(text)
+    lnl_final = stats_lnl(aln_path)
+    # the BioNJ tree's lnL at the starting parameters (after the run's
+    # counters were read)
+    args = cli.build_parser().parse_args(argv)
+    aln = read_alignment(aln_path, datatype=dt)
+    model = cli._build_model(args, aln)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    start = st["agglomeration"]["last"]
+    lnl_start = float(eng.loglik(cli._init_params(args, model, aln),
+                                 tree_arrays(start.rooted(), device=cuda)))
+    with open(f"{aln_path}_phyml_tree.txt") as fh:
+        topo = Topology.from_newick(fh.read(), aln.names)
+    with open(tree_path) as fh:
+        truth = Topology.from_newick(fh.read(), aln.names)
+    rf_true, rf_start = topo.rf_distance(truth), start.rf_distance(truth)
+    sizes = st["SPR scorer"]["sizes"]
+    res = dict(
+        wall_s=wall, bionj_s=st["distances"]["s"] + st["agglomeration"]["s"],
+        distances_s=st["distances"]["s"],
+        agglomeration_s=st["agglomeration"]["s"],
+        search_s=wall - st["distances"]["s"] - st["agglomeration"]["s"],
+        nni_rounds=st["NNI rounds"]["calls"],
+        spr_sweeps=st["SPR sweeps"]["calls"],
+        nni_scorer_calls=st["NNI scorer"]["calls"],
+        nni_scorer_ms=1e3 * st["NNI scorer"]["s"] /
+        max(1, st["NNI scorer"]["calls"]),
+        spr_scorer_calls=st["SPR scorer"]["calls"],
+        spr_scorer_ms=1e3 * st["SPR scorer"]["s"] /
+        max(1, st["SPR scorer"]["calls"]),
+        spr_candidates=sum(sizes), batch_k=batch_k,
+        max_block=max(sizes, default=0), lnl_start=lnl_start,
+        lnl_final=lnl_final, rf_true=rf_true, rf_start=rf_start,
+        launches=counts, k3_by_batch=k3_by_b, nvml_busy=busy,
+        idle_share=None if busy is None else 1 - busy,
+        nvml_samples=len(util))
+    print(f". [{dt}] default run (BioNJ + NNI search): wall {wall:.2f} s; "
+          f"BioNJ {res['bionj_s']:.3f} s (distances "
+          f"{res['distances_s']:.3f}, agglomeration "
+          f"{res['agglomeration_s']:.3f}); search {res['search_s']:.2f} s; "
+          f"{res['nni_rounds']} NNI rounds, {res['spr_sweeps']} SPR sweeps; "
+          f"NNI scorer {res['nni_scorer_calls']} calls x "
+          f"{res['nni_scorer_ms']:.1f} ms; SPR scorer "
+          f"{res['spr_scorer_calls']} calls x {res['spr_scorer_ms']:.1f} ms "
+          f"({res['spr_candidates']} candidates, blocks of at most "
+          f"{res['max_block']}, batch_k {batch_k}); idle share "
+          + ("not measured (no nvidia-smi samples)" if busy is None else
+             f"{1 - busy:.3f} (nvidia-smi utilization, {len(util)} "
+             "samples)"))
+    print(f". [{dt}] default run: start (BioNJ) lnL {lnl_start:.5f}  final "
+          f"lnL {lnl_final:.5f}  RF to the simulating tree {rf_true} "
+          f"(BioNJ tree {rf_start})  launches {counts}, K3 by batch size "
+          f"{k3_by_b}")
+    if not (math.isfinite(lnl_final) and lnl_final >= lnl_start):
+        fail(f"[{dt}] default run: final lnL is not finite or below the "
+             "start lnL")
+    if topo.n_otu != N_TAXA or not np.all(np.isfinite(topo.blen)):
+        fail(f"[{dt}] default run: the output tree does not parse to a "
+             "finite tree")
+    if k3_by_b.get(1, 0):
+        fail(f"[{dt}] default run: K3 ran {k3_by_b[1]} single-system "
+             f"passes; those belong to {path[0]}")
+    for name, count in counts.items():
+        if name in path and count <= 0:
+            fail(f"[{dt}] {name} never launched in the default run")
+        if name not in path and count != 0:
+            fail(f"[{dt}] {name} launched {count} times off its route in "
+                 "the default run")
+    return counts, res
+
+
 def main() -> int:
     import torch
 
+    t_all = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs "
              "one CUDA device")
@@ -603,7 +886,7 @@ def main() -> int:
             if regs[kname][ns][1] != 0:
                 fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
 
-    rows = []
+    rows, runs = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
@@ -611,14 +894,28 @@ def main() -> int:
             dt_rows = kernel_phases(dt, aln_path, tree_path, cuda, regs)
             torch.cuda.empty_cache()
             small_fit_check(dt, tmp)
-            counts, k3_by_b = main_path(dt, aln_path, tree_path, cuda)
+            fit_counts, fit_k3 = main_path(dt, aln_path, tree_path, cuda)
+            torch.cuda.empty_cache()
+            batch_k = distance_check(dt, aln_path, cuda)
+            small_default_check(dt, tmp)
+            counts, res = default_run(dt, aln_path, tree_path, cuda,
+                                      batch_k)
+            runs[dt] = res
+            # `launches`: the default run's (the main path); the
+            # fixed-topology fit's beside them
             for r in dt_rows:
-                r["launches"] = counts[r.pop("kernel")]
+                kname = r.pop("kernel")
+                r["launches"] = counts[kname]
+                r["launches_fixed_fit"] = fit_counts[kname]
                 if "B" in r:
-                    r["launches_at_B"] = k3_by_b.get(r["B"], 0)
+                    r["launches_at_B"] = res["k3_by_batch"].get(r["B"], 0)
+                    r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
             rows += dt_rows
             torch.cuda.empty_cache()
 
+    print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
+          "build included")
+    print(json.dumps({"default_runs": runs}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

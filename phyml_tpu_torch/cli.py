@@ -2,14 +2,17 @@
 
 Reference: Read_Command_Line (cl.c:19) and the per-dataset
 loop (main.c:108-434).  The parser takes the same flags as
-phyml_tpu's; this port runs the fixed-topology ML fit so far, on DNA
-and on amino acids (LG, WAG, JTT and the other empirical matrices):
-`-u` tree, `-o` in {l, r, lr, n/''}, `-b 0`, the model and data flags,
-and `--print_site_lnl`.  Every other analysis flag stops the run with
-a message naming the ROADMAP.md item that ports it.
+phyml_tpu's; this port runs the `phyml` ML run on DNA and on amino
+acids (LG, WAG, JTT and the other empirical matrices): the start tree
+(`-u` tree, `--rand_start`, else ML distances and BioNJ), the
+topology search (`-o` with `t`, `-s NNI|SPR|BEST`, `--n_rand_starts`,
+`--min_diff_lk_global`, `--no_five_branch`) or the fixed-topology fit
+(`-o` in {l, r, lr, n/''}), `-b 0`, the model and data flags, and
+`--print_site_lnl`.  Every other analysis flag stops the run with a
+message naming the ROADMAP.md item that ports it.
 
-    python -m phyml_tpu_torch.cli -i aln.phy -u tree.nwk -m GTR -c 4 \\
-        -o lr -b 0 --platform gpu
+    python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
+        --platform gpu                       # BioNJ, then NNI search
     python -m phyml_tpu_torch.cli -i prot.phy -u tree.nwk -d aa -m LG \\
         -c 4 -a e -o lr -b 0 --platform gpu
 """
@@ -122,7 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # ROADMAP.md Queue 1 items that port what this CLI does not run yet
-_SEARCH = "Queue 1, 'BioNJ start tree' and 'Topology search'"
+_BIONJ = "Queue 1, 'BioNJ start tree'"
+_SEARCH = "Queue 1, 'Topology search'"
 _CLI = "Queue 1, 'Remaining CLI flags and the checkpoint'"
 _MODELS = "Queue 1, 'Covarion, mixtures and partitions'"
 _SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
@@ -133,14 +137,8 @@ def _unported(args) -> list[tuple[str, str]]:
     """(flag, ROADMAP item) for every requested feature this port does
     not run yet."""
     checks = [
-        (args.user_tree is None, "no -u (BioNJ start tree)", _SEARCH),
-        ("t" in args.optimize, "-o with 't' (topology search)", _SEARCH),
-        (args.rand_start, "--rand_start", _SEARCH),
-        (args.pars_start, "--pars_start", _SEARCH),
+        (args.pars_start, "--pars_start", _BIONJ),
         (args.constraint_file is not None, "--constraint_file", _SEARCH),
-        (args.min_diff_lk_global is not None, "--min_diff_lk_global",
-         _SEARCH),
-        (args.no_five_branch, "--no_five_branch", _SEARCH),
         (args.print_trace or args.json_trace,
          "--print_trace/--json_trace", _SEARCH),
         (args.bootstrap != 0, "-b other than 0", _SUPPORT),
@@ -252,12 +250,45 @@ def run_analysis(args) -> int:
         time.time()) % (2 ** 31)
     if args.datatype == "gen":
         args.datatype = "generic"
+    rng = np.random.default_rng(seed)
     aln = read_alignment(args.input, datatype=args.datatype,
                          interleaved=not args.sequential)
-    return _run_dataset(args, aln, seed, device, dtype)
+    return _run_dataset(args, aln, rng, seed, device, dtype)
 
 
-def _run_dataset(args, aln, seed, device, dtype) -> int:
+def _search(args, engine, model, params, topo, rng, seed, opt_rates):
+    """The topology search of `-o` with `t` (reference
+    phyml_tpu/cli.py:463-503): `-s BEST` runs both strategies and keeps
+    the better tree (cl.c: "BEST: best of NNI and SPR search");
+    --rand_start repeats the search from --n_rand_starts random
+    starting trees and keeps the best final lnL (main.c:126-139,
+    308-312).  Returns (topo, params, lnL)."""
+    from phyml_tpu_torch.search.driver import ml_search
+    from phyml_tpu_torch.topology import Topology
+
+    kinds = ["NNI", "SPR"] if args.search == "BEST" else [args.search]
+    if args.rand_start:
+        starts = [Topology.random(engine.n_otu, rng)
+                  for _ in range(max(1, args.n_rand_starts))]
+    else:
+        starts = [topo]
+    best = None
+    for si, topo0 in enumerate(starts):
+        for kind in kinds:
+            if not args.quiet and (len(starts) > 1 or len(kinds) > 1):
+                print(f". Search {kind}, start {si + 1}/{len(starts)}:")
+            cand = ml_search(
+                engine, model, dict(params), topo0.copy(),
+                kind=kind.lower(), retries=2, opt_params=opt_rates,
+                seed=seed, verbose=not args.quiet,
+                tol=args.min_diff_lk_global,
+                five_branch=not args.no_five_branch)
+            if best is None or cand[2] > best[2]:
+                best = cand
+    return best
+
+
+def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
     from phyml_tpu_torch.io.output import (
         format_stats, write_results, write_site_lnl,
     )
@@ -296,34 +327,49 @@ def _run_dataset(args, aln, seed, device, dtype) -> int:
     engine = LikelihoodEngine(aln, model, dtype=dtype, device=device)
 
     # ---- starting tree ------------------------------------------------
-    with open(args.user_tree) as fh:
-        user_nwk = fh.read()
-    if dup_indices:
-        topo = Topology.from_newick(user_nwk, orig_names) \
-            .without_leaves(set(dup_indices))
+    if args.user_tree:
+        with open(args.user_tree) as fh:
+            user_nwk = fh.read()
+        if dup_indices:
+            topo = Topology.from_newick(user_nwk, orig_names) \
+                .without_leaves(set(dup_indices))
+        else:
+            topo = Topology.from_newick(user_nwk, aln.names)
+        start_desc = f"user tree ({args.user_tree})"
+    elif args.rand_start:
+        topo = Topology.random(aln.n_otu, rng)
+        start_desc = "random"
     else:
-        topo = Topology.from_newick(user_nwk, aln.names)
-    start_desc = f"user tree ({args.user_tree})"
+        from phyml_tpu_torch.search.bionj import bionj_start
+        topo = bionj_start(engine, params)
+        start_desc = "BioNJ"
 
-    # ---- optimize (fixed topology) -------------------------------------
-    opt_len = "l" in args.optimize
+    # ---- optimize -----------------------------------------------------
+    opt_topo = "t" in args.optimize
+    opt_len = "l" in args.optimize or opt_topo
     opt_rates = "r" in args.optimize
-    ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
-    if opt_len or opt_rates:
-        params, ta, lnl = round_optimize(
-            engine, model, params, ta,
-            opt_blen=opt_len, opt_params=opt_rates,
-            verbose=not args.quiet,
-        )
+    if opt_topo:
+        topo, params, lnl = _search(args, engine, model, params, topo, rng,
+                                    seed, opt_rates)
+        search_desc = args.search
     else:
-        lnl = float(engine.loglik(params, ta))
-    rv = topo.rooted()
-    topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
+        search_desc = "none"
+        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+        if opt_len or opt_rates:
+            params, ta, lnl = round_optimize(
+                engine, model, params, ta,
+                opt_blen=opt_len, opt_params=opt_rates,
+                verbose=not args.quiet,
+            )
+        else:
+            lnl = float(engine.loglik(params, ta))
+        rv = topo.rooted()
+        topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
 
     # ---- outputs ------------------------------------------------------
     stats = format_stats(
         input_name=args.input, aln=aln, model=model, params=params,
-        lnl=lnl, topo=topo, search_desc="none",
+        lnl=lnl, topo=topo, search_desc=search_desc,
         start_tree_desc=start_desc, runtime_s=time.time() - t_start,
         seed=seed, n_parsimony=parsimony_score(engine, topo),
     )

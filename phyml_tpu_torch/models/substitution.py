@@ -167,9 +167,14 @@ class SubstModel:
             return comp_pi  # 'model': the empirical table's frequencies
         return pi[..., None, :].expand(*pi.shape[:-1], C, pi.shape[-1])
 
-    def class_system(self, params: dict):
+    def class_system(self, params: dict, fold_rates: bool = True):
         """params -> (lam, V, Vinv, pi, w, pinv), float64 tensors with
-        the parameters' batch shape leading (see the module notes)."""
+        the parameters' batch shape leading (see the module notes).
+
+        fold_rates=False returns the unit-mean-rate eigenvalues, with
+        neither the class rates nor the 1/(1-pinv) fold (the ML
+        pairwise distances, which the reference computes with the
+        discrete-gamma distribution disabled, lk.c:1817-1824)."""
         C, ns = self.n_classes, self.obs_ns
         lead = batch_shape(params)
 
@@ -219,8 +224,9 @@ class SubstModel:
         # --- eigensystem (batched over classes and the batch shape) ---
         lam, V, Vinv = reversible_eigen(S, pi)
         pinv = _t(params.get("pinv", 0.0))
-        lam = lam * rates[..., :, None]  # fold class rate into lam
-        if self.invar:
+        if fold_rates:
+            lam = lam * rates[..., :, None]  # fold class rate into lam
+        if fold_rates and self.invar:
             # Branch lengths follow the reference's FILE convention
             # (expected substitutions per site INCLUDING the never-
             # changing invariant fraction): internally the variable-

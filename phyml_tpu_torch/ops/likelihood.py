@@ -23,9 +23,13 @@ kernels avx.c/sse.c).  Design:
     P-matrices of one class no longer fit a warp's share of an SM.
     On CUDA tensors these launch the hand-written kernels; on CPU
     tensors the kernels' plain PyTorch versions run.
-  * The unmasked scan path (`_up_pass` / `_down_pass`, divide-by-max
-    rescaling) is kept as the independent reference
-    (`site_logliks_scan`, `edge_dotprods_scan`).
+  * The scan path (`_up_pass` / `_down_pass`, divide-by-max
+    rescaling, a Python loop of a few tensor ops per node) is the
+    independent reference unmasked (`site_logliks_scan`,
+    `edge_dotprods_scan`) and, with prune masks and a leading
+    candidate axis, the passes of the NNI and SPR scorers
+    (search/nni.py, search/spr.py), which phyml_tpu also runs outside
+    its kernels.
   * Class mixing (Gamma / FreeRate) is a leading axis; the +I
     invariant fraction mixes at the root exactly as lk.c:820-837.  All
     per-site logs accumulate in float64.
@@ -330,32 +334,79 @@ class LikelihoodEngine(nn.Module):
     loglik_batch = _loglik_sys
 
     # ------------------------------------------------------------------
-    # scan path (independent reference; divide-by-max rescaling)
+    # scan path (independent reference; divide-by-max rescaling), and
+    # the masked passes of the NNI/SPR scorers
     # ------------------------------------------------------------------
-    def _up_pass(self, pmats, child):
+    def _scan_mask(self, mask):
+        """(lead shape, device mask [..., n_internal, 2], host [n_int,
+        2] bool: any candidate masks that child) of an optional mask.
+        Rows no candidate masks skip the masking arithmetic, which is
+        exact there (x * 1 + 0 = x)."""
+        if mask is None:
+            return (), None, None
+        host = torch.as_tensor(mask).detach().cpu()
+        rows = (host.reshape(-1, self.n_internal, 2) != 0).any(0).tolist()
+        return tuple(host.shape[:-2]), host.to(self.device, self.dtype), \
+            rows
+
+    @staticmethod
+    def _unit(p, s, m, lead):
+        """A masked child's (partial, scale): m = 1 makes it a unit
+        factor, m = 0 leaves it as it is (m [*lead])."""
+        mb = m.reshape(lead + (1, 1, 1))
+        return p * (1.0 - mb) + mb, s * (1.0 - m.reshape(lead + (1, 1)))
+
+    def _up_pass(self, pmats, child, mask=None):
+        """Inside partials: (pup, clv, sc) [*lead, n_nodes, C, ns, P] /
+        [*lead, n_nodes, C, P].
+
+        mask (optional) [*lead, n_internal, 2] in {0., 1.}: a 1 makes
+        the corresponding child contribute a unit factor, i.e. the node
+        behaves as if that child subtree were pruned.  Because P
+        matrices of the same Q compose (P(a)P(b) = P(a+b)), the
+        resulting partials are exactly those of the healed tree with
+        the two link edges merged (the reference's Prune_Subtree,
+        utilities.c:6152).  A leading candidate axis of the mask scores
+        a block of prune candidates on one child table and one set of
+        P-matrices; the node axis is stored first and moved behind the
+        candidate axis in the views returned."""
         n, C, ns, P = self.n_otu, self.C, self.ns, self.P
-        pup = self.tips.new_zeros((self.n_nodes, C, ns, P))
+        lead, md, rows = self._scan_mask(mask)
+        one = (1,) * len(lead)
+        pup = self.tips.new_zeros((self.n_nodes,) + lead + (C, ns, P))
         clv = torch.zeros_like(pup)
-        sc = self.tips.new_zeros((self.n_nodes, C, P))
+        sc = self.tips.new_zeros((self.n_nodes,) + lead + (C, P))
         tip_clv = self.tips[:, None].expand(n, C, ns, P)
-        pup[:n] = torch.einsum("ncxy,ncyp->ncxp", pmats[:n], tip_clv)
-        clv[:n] = tip_clv
+        pup[:n] = torch.einsum("ncxy,ncyp->ncxp", pmats[:n],
+                               tip_clv).reshape((n,) + one + (C, ns, P))
+        clv[:n] = tip_clv.reshape((n,) + one + (C, ns, P))
         for i, (c0, c1) in enumerate(child.tolist()):
             u = n + i
-            x = pup[c0] * pup[c1]                            # [C, ns, P]
-            m = torch.clamp(torch.amax(x, dim=1, keepdim=True),
+            p0, p1, s0, s1 = pup[c0], pup[c1], sc[c0], sc[c1]
+            if md is not None and rows[i][0]:
+                p0, s0 = self._unit(p0, s0, md[..., i, 0], lead)
+            if md is not None and rows[i][1]:
+                p1, s1 = self._unit(p1, s1, md[..., i, 1], lead)
+            x = p0 * p1                                  # [.., C, ns, P]
+            m = torch.clamp(torch.amax(x, dim=-2, keepdim=True),
                             min=self._tiny)
             x = x / m
-            sc[u] = sc[c0] + sc[c1] + torch.log(m[:, 0, :])
-            pup[u] = torch.einsum("cxy,cyp->cxp", pmats[u], x)
+            sc[u] = s0 + s1 + torch.log(m[..., 0, :])
+            pup[u] = torch.einsum("cxy,...cyp->...cxp", pmats[u], x)
             clv[u] = x
-        return pup, clv, sc
+        k = len(lead)
+        return pup.movedim(0, k), clv.movedim(0, k), sc.movedim(0, k)
 
-    def _down_pass(self, pmats, child, pup, sc, pi):
+    def _down_pass(self, pmats, child, pup, sc, pi, mask=None):
         """Outside partials O[u]: the likelihood of all data outside
-        subtree(u), conditional on the state at u's parent."""
+        subtree(u), conditional on the state at u's parent.  `mask` as
+        in _up_pass (a masked child's sibling sees a unit factor in
+        place of the masked subtree); pup and sc are _up_pass's."""
         n = self.n_otu
         rows = child.tolist()
+        lead, md, mrows = self._scan_mask(mask)
+        k = len(lead)
+        pup, sc = pup.movedim(k, 0), sc.movedim(k, 0)
         out = torch.zeros_like(pup)
         sc_out = torch.zeros_like(sc)
         r0, r1 = rows[-1]
@@ -368,18 +419,23 @@ class LikelihoodEngine(nn.Module):
         for i in range(self.n_internal - 2, -1, -1):
             u = n + i
             c0, c1 = rows[i]
-            grand = torch.einsum("cwz,cwp->czp", pmats[u], out[u])
-            o0 = grand * pup[c1]
-            o1 = grand * pup[c0]
-            m0 = torch.clamp(torch.amax(o0, dim=1, keepdim=True),
+            p0, p1, s0, s1 = pup[c0], pup[c1], sc[c0], sc[c1]
+            if md is not None and mrows[i][0]:
+                p0, s0 = self._unit(p0, s0, md[..., i, 0], lead)
+            if md is not None and mrows[i][1]:
+                p1, s1 = self._unit(p1, s1, md[..., i, 1], lead)
+            grand = torch.einsum("cwz,...cwp->...czp", pmats[u], out[u])
+            o0 = grand * p1
+            o1 = grand * p0
+            m0 = torch.clamp(torch.amax(o0, dim=-2, keepdim=True),
                              min=self._tiny)
-            m1 = torch.clamp(torch.amax(o1, dim=1, keepdim=True),
+            m1 = torch.clamp(torch.amax(o1, dim=-2, keepdim=True),
                              min=self._tiny)
             out[c0] = o0 / m0
             out[c1] = o1 / m1
-            sc_out[c0] = sc_out[u] + sc[c1] + torch.log(m0[:, 0, :])
-            sc_out[c1] = sc_out[u] + sc[c0] + torch.log(m1[:, 0, :])
-        return out, sc_out
+            sc_out[c0] = sc_out[u] + s1 + torch.log(m0[..., 0, :])
+            sc_out[c1] = sc_out[u] + s0 + torch.log(m1[..., 0, :])
+        return out.movedim(0, k), sc_out.movedim(0, k)
 
     def _root_site_loglik(self, pup, sc, pi, w, pinv):
         """log L per pattern [P], mixing classes and +I exactly as the

@@ -14,7 +14,9 @@ each round is:
   3. a global backtracking line search toward the previous lengths if
      the joint update overshot (the reference instead error-exits on
      non-monotonicity, optimiz.c:656-661; Jacobi coupling makes a
-     safeguard mandatory here); each probe is one K3 likelihood.
+     safeguard mandatory here); each probe is one single-parameter-set
+     pass (K1, or K4 when streamed; K3 at B = 1 where K4's block does
+     not fit, `likelihood.single_pass_kernel`).
 
 Rounds repeat until the gain is below tol.  The backtracking and the
 round loop run on the host, reading one lnL per evaluation.

@@ -1,0 +1,268 @@
+"""Simultaneous NNI hill-climbing, all edges scored in one pass.
+
+PyTorch port of phyml_tpu/search/nni.py.  The reference's NNI
+machinery (Simu simu.c:30, Check_NNI_Five_Branches alrt.c:32) walks
+edges one at a time, each evaluation touching the tree in place.  Here
+every internal edge's three configurations are scored from ONE up+down
+likelihood pass (the engine's scan path): for the edge (u, v) with
+children a, b of v and sibling s, using the cached inside partials
+(pup) and outside partials (out),
+
+    L_cfg(t) = sum_i (Vinv x_cfg)_i (V^T y_cfg)_i e^{lam_i t}
+
+with (x, y) = (A.B, G.S) | (A.S, G.B) | (B.S, G.A) - the eigen-LR
+dot-product trick applied to all three NNI configurations of all
+edges at once, as tensors [E, 3, C, ns, P], followed by vectorized
+Newton on every configuration's four local branch lengths (the
+reference optimizes the central edge per NNI too: NNI_Neigh_BL
+alrt.c:338).
+
+Swap application follows the reference's "simultaneous NNI" strategy
+(Make_N_Swap simu.c:229): sort positive-gain swaps, greedily apply a
+node-disjoint subset, re-optimize branch lengths, and fall back to
+the single best swap if the joint application hurt the likelihood.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from phyml_tpu_torch.models.eigen import pmat
+from phyml_tpu_torch.ops.likelihood import TreeArrays, tree_arrays
+from phyml_tpu_torch.optim.blen import BL_MAX, BL_MIN, optimize_branch_lengths
+
+
+def candidate_arrays(rv):
+    """Host-side: for each internal unrooted edge, the rooted ids
+    (v, u, a, b, s).  Shape is always [n_otu - 3, 5]."""
+    n = rv.n_otu
+    rows = []
+    for v in range(n, rv.n_nodes - 1):
+        u = int(rv.parent[v])
+        if u == rv.root:
+            continue
+        i_v = v - n
+        a, b = (int(x) for x in rv.child[i_v])
+        i_u = u - n
+        c0, c1 = (int(x) for x in rv.child[i_u])
+        s = c1 if c0 == v else c0
+        rows.append((v, u, a, b, s))
+    out = np.asarray(rows, dtype=np.int32)
+    assert out.shape == (n - 3, 5)
+    return out
+
+
+def _newton(engine, d, sc_d, aux, t, iters=5):
+    """Safeguarded Newton on every configuration's length t [E, 3]."""
+    for _ in range(iters):
+        _, d1, d2 = engine.edge_lnl_terms(d, sc_d, aux, t)
+        nt = t - d1 / torch.where(d2 < 0, d2, -1.0)
+        probe = torch.where(d1 > 0, t * 3.0, t / 3.0)
+        tn = torch.where(d2 < -1e-12, nt, probe)
+        tn = torch.minimum(torch.maximum(tn, t / 3.0), t * 3.0)
+        t = torch.clamp(tn, BL_MIN, BL_MAX).to(t.dtype)
+    return t
+
+
+def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
+    """Scores every internal edge's 3 configurations with the FOUR
+    local branch lengths (central + the three adjacent pendants)
+    jointly optimized by coordinate Newton - the batched equivalent
+    of the reference's 5-branch NNI evaluation (alrt.c:32
+    Check_NNI_Five_Branches; only the grandparent edge u stays
+    fixed).  Returns (lnl [E, 3] float64, (t1, t2, t3, tc), site
+    [E, 3, P])."""
+    lam, V, Vinv, pi, w, pinv = sys
+    blen = tree.blen.to(engine.dtype)
+    pmats = engine._pmats(lam, V, Vinv, blen)
+    pup, clv, sc = engine._up_pass(pmats, tree.child)
+    out, sc_out = engine._down_pass(pmats, tree.child, pup, sc, pi)
+    del pup
+
+    cand = torch.as_tensor(np.asarray(cand), dtype=torch.long,
+                           device=engine.device)
+    v, u, a, b, s = (cand[:, k] for k in range(5))
+    # out[v] = (P_u^T out[u]) . pup[s]: the config-independent
+    # outside factor above the central edge
+    G = torch.einsum("ecwz,ecwp->eczp", pmats[u], out[u])
+    sc_tot = sc[a] + sc[b] + sc[s] + sc_out[u]           # [E, C, P]
+    aux = engine._aux(sys, weights)
+    C, ns = engine.C, engine.ns
+    E = cand.shape[0]
+
+    def newton(d, t):
+        sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
+        return _newton(engine, d, sc_d, aux, t)
+
+    def dots(x, y):
+        bx = torch.einsum("ciy,ekcyp->ekcip", Vinv, x)
+        ay = torch.einsum("czi,ekczp->ekcip", V, y)
+        return ay * bx
+
+    def P_of(t):
+        """t [E, 3] -> P [E, 3, C, ns, ns]."""
+        p = pmat(lam, V, Vinv, t.reshape(-1)[:, None].expand(-1, C))
+        return p.reshape(E, 3, C, ns, ns)
+
+    def push(P, x):
+        return torch.einsum("ekcxy,ekcyp->ekcxp", P, x)
+
+    def pushT(P, x):
+        return torch.einsum("ekcyx,ekcyp->ekcxp", P, x)
+
+    # per-config subtree roles: children (x1, x2) and sibling x3
+    C1 = torch.stack([clv[a], clv[a], clv[b]], 1)        # [E, 3, C, ns, P]
+    C2 = torch.stack([clv[b], clv[s], clv[s]], 1)
+    C3 = torch.stack([clv[s], clv[b], clv[a]], 1)
+    del clv, out
+    t1 = torch.stack([blen[a], blen[a], blen[b]], 1)
+    t2 = torch.stack([blen[b], blen[s], blen[s]], 1)
+    t3 = torch.stack([blen[s], blen[b], blen[a]], 1)
+    tc = blen[v][:, None].expand(E, 3)
+    t1, t2, t3, tc = (torch.clamp(t, BL_MIN, BL_MAX)
+                      for t in (t1, t2, t3, tc))
+    Gb = G[:, None]                                      # [E, 1, C, ns, P]
+
+    for _ in range(2):
+        Q1 = push(P_of(t1), C1)
+        Q2 = push(P_of(t2), C2)
+        Q3 = push(P_of(t3), C3)
+        # central edge
+        tc = newton(dots(Q1 * Q2, Gb * Q3), tc)
+        Pc = P_of(tc)
+        # pendant 1: W = Pc^T (G.Q3)
+        W = pushT(Pc, Gb * Q3)
+        t1 = newton(dots(C1, W * Q2), t1)
+        Q1 = push(P_of(t1), C1)
+        # pendant 2
+        t2 = newton(dots(C2, W * Q1), t2)
+        Q2 = push(P_of(t2), C2)
+        # pendant 3 (sibling)
+        t3 = newton(dots(C3, Gb * push(Pc, Q1 * Q2)), t3)
+        del W, Q3
+    Q1 = push(P_of(t1), C1)
+    Q2 = push(P_of(t2), C2)
+    Q3 = push(P_of(t3), C3)
+    d = dots(Q1 * Q2, Gb * Q3)
+    sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
+    site, _, _ = engine.edge_site_terms(d, sc_d, aux, tc)
+    lnl = torch.sum(site.double() * aux["weights"], dim=-1)  # [E, 3]
+    return lnl, (t1, t2, t3, tc), site
+
+
+def nni_scores(engine, params, tree: TreeArrays, cand: np.ndarray,
+               weights=None, return_site=False):
+    """(lnl [E, 3], (t1, t2, t3, tc) each [E, 3][, site [E, 3, P]]):
+    likelihood of the current config (col 0) and both NNI alternatives
+    (cols 1, 2) of every internal edge, the four local branch lengths
+    optimized, as numpy.  return_site=True adds the per-site
+    log-likelihoods (the reference's log_lks_aLRT)."""
+    lnl, ts, site = _nni_scorer(engine, engine.system_of(params), tree,
+                                cand, engine._w(weights))
+    out = (lnl.cpu().numpy(), tuple(t.cpu().numpy() for t in ts))
+    if return_site:
+        out = out + (site.cpu().numpy(),)
+    return out
+
+
+def _apply_swaps(topo, rv, cand, chosen, t_opt):
+    """Apply the chosen (edge_index, cfg) swaps on the host topology.
+    cfg 1 swaps b<->s, cfg 2 swaps a<->s.  t_opt = (t1, t2, t3, tc)
+    arrays from nni_scores; all four local branch lengths are written
+    (per-config role order: cfg1 -> (a, s | b), cfg2 -> (b, s | a),
+    cfg0 -> (a, b | s))."""
+    t1, t2, t3, tc = t_opt
+    uid = rv.unrooted_id
+    roles = {0: ("a", "b", "s"), 1: ("a", "s", "b"), 2: ("b", "s", "a")}
+    for ei, cfg in chosen:
+        v, u, a, b, s = (int(x) for x in cand[ei])
+        mover = b if cfg == 1 else a
+        topo = topo.swap_across(
+            int(rv.node_to_edge[mover]), int(uid[mover]),
+            int(rv.node_to_edge[s]), int(uid[s]),
+        )
+        # post-swap, each moved subtree hangs on the OTHER's edge id
+        e_a, e_b, e_s = (int(rv.node_to_edge[x]) for x in (a, b, s))
+        if cfg == 1:        # b <-> s
+            edge_of = {"a": e_a, "b": e_s, "s": e_b}
+        else:               # a <-> s
+            edge_of = {"a": e_s, "b": e_b, "s": e_a}
+        r1, r2, r3 = roles[cfg]
+        topo.blen[int(rv.node_to_edge[v])] = float(tc[ei, cfg])
+        topo.blen[edge_of[r1]] = float(t1[ei, cfg])
+        topo.blen[edge_of[r2]] = float(t2[ei, cfg])
+        topo.blen[edge_of[r3]] = float(t3[ei, cfg])
+    return topo
+
+
+def _select_disjoint(cand, gains, min_gain):
+    """Greedy best-first selection of node-disjoint positive swaps.
+    Returns list of (edge_index, cfg)."""
+    order = np.dstack(np.unravel_index(
+        np.argsort(-gains, axis=None), gains.shape
+    ))[0]
+    used: set[int] = set()
+    chosen = []
+    for ei, k in order:
+        cfg = k + 1
+        if gains[ei, k] <= min_gain:
+            break
+        nodes = set(int(x) for x in cand[ei])
+        if nodes & used:
+            continue
+        used |= nodes
+        chosen.append((int(ei), int(cfg)))
+    return chosen
+
+
+def _host_blen(tree: TreeArrays) -> np.ndarray:
+    return tree.blen.double().cpu().numpy()
+
+
+def nni_round(engine, params, topo, lnl0=None, min_gain: float = 1e-4,
+              blen_tol: float = 1e-4, weights=None, accept_topo=None):
+    """One simultaneous-NNI round: optimize branch lengths, score all
+    edges, apply the best node-disjoint set of improving swaps (with
+    single-swap fallback).  Returns (topo, lnL, n_applied).
+
+    accept_topo (optional): predicate on the post-swap Topology;
+    swaps whose application would violate it are dropped."""
+    dev = dict(dtype=engine.dtype, device=engine.device)
+    rv = topo.rooted()
+    ta = tree_arrays(rv, **dev)
+    ta, lnl = optimize_branch_lengths(engine, params, ta, tol=blen_tol,
+                                      weights=weights)
+    topo.set_blen_from_rooted(rv, _host_blen(ta))
+
+    cand = candidate_arrays(rv)
+    lnl_cfg, t_opt = nni_scores(engine, params, ta, cand,
+                                weights=weights)
+    gains = lnl_cfg[:, 1:] - lnl_cfg[:, [0]]
+    chosen = _select_disjoint(cand, gains, min_gain)
+    if accept_topo is not None:
+        chosen = [
+            mv for mv in chosen
+            if accept_topo(_apply_swaps(topo.copy(), rv, cand, [mv],
+                                        t_opt))
+        ]
+    if not chosen:
+        return topo, lnl, 0
+
+    new_topo = _apply_swaps(topo.copy(), rv, cand, chosen, t_opt)
+    ta2 = tree_arrays(new_topo.rooted(), **dev)
+    ta2, lnl2 = optimize_branch_lengths(engine, params, ta2,
+                                        tol=blen_tol, weights=weights)
+    if lnl2 <= lnl and len(chosen) > 1:
+        # joint application hurt: fall back to the best single swap
+        # (reference: Mov_Backward_Topo_Bl simu.c:395)
+        chosen = chosen[:1]
+        new_topo = _apply_swaps(topo.copy(), rv, cand, chosen, t_opt)
+        ta2 = tree_arrays(new_topo.rooted(), **dev)
+        ta2, lnl2 = optimize_branch_lengths(engine, params, ta2,
+                                            tol=blen_tol,
+                                            weights=weights)
+    if lnl2 <= lnl:
+        return topo, lnl, 0
+    new_topo.set_blen_from_rooted(new_topo.rooted(), _host_blen(ta2))
+    return new_topo, lnl2, len(chosen)

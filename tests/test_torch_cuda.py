@@ -748,3 +748,107 @@ def test_slot_kernels_trap_on_a_schedule_that_does_not_fit(cuda, kernel, ns,
                          text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "raised:" in run.stdout
+
+
+# ----------------------------------------------------------------------
+# the search's tensor code (no kernel of its own): the card in float32
+# against the CPU in float64 on the same simulated alignment
+# ----------------------------------------------------------------------
+SEARCH_LNL_TOL = 0.05    # lnL of a 40 x 400 problem, float32 vs float64
+D_TOL = 1e-3             # ML distances (chip_smoke.py's bound)
+
+
+def _search_setup(cuda, datatype, n=40, sites=400, seed=3):
+    """(card float32 engine, CPU float64 engine, params, tree of each)
+    on sequences simulated down a random tree."""
+    from phyml_tpu_torch.ops.likelihood import tree_arrays as ta_of
+
+    rng = np.random.default_rng(seed)
+    topo = Topology.random(n, rng, mean_blen=0.1)
+    eng, tree, _, _ = _simulated_setup(cuda, 4, n, sites, seed, datatype,
+                                       topo)
+    params = eng.model.init_params(np.full(eng.ns, 1.0 / eng.ns))
+    params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
+    eng64 = LikelihoodEngine(eng.aln, eng.model, dtype=torch.float64,
+                             device="cpu")
+    rv = Topology.random(n, rng, mean_blen=0.1).rooted()
+    return (eng, eng64, params, rv, ta_of(rv, device=cuda),
+            ta_of(rv, dtype=torch.float64, device="cpu"))
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_distances_on_the_card(cuda, datatype):
+    from phyml_tpu_torch.search.distances import ml_pairwise_distances
+
+    eng, eng64, params, *_ = _search_setup(cuda, datatype)
+    D = ml_pairwise_distances(eng, params)
+    D64 = ml_pairwise_distances(eng64, params)
+    assert np.abs(D - D64).max() <= D_TOL
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_masked_passes_on_the_card(cuda, datatype):
+    """The masked up and down passes with a candidate axis, through what
+    the scorers read from them: each candidate's per-site lnL at the
+    root (the pruned tree's) within 5e-3 and at every edge (outside .
+    inside) within 2e-2, totals within SEARCH_LNL_TOL.  Single
+    partials are no measure: a float32 P(t) of 20 states holds its rare
+    transitions to a few per cent, so a partial forced through one moves
+    by as much (CPU float32 against float64 on this problem: 1.2e-3 and
+    8.7e-3 per site at 20 states)."""
+    eng, eng64, params, rv, tree, tree64 = _search_setup(cuda, datatype)
+    mask = (np.random.default_rng(1).random((3, rv.n_internal, 2))
+            < 0.2).astype(np.float32)
+    res = []
+    for e, t in ((eng, tree), (eng64, tree64)):
+        s = e.system_of(params)
+        pm = e._pmats(s[0], s[1], s[2], t.blen)
+        pup, clv, sc = e._up_pass(pm, t.child, mask)
+        out, sc_out = e._down_pass(pm, t.child, pup, sc, s[3], mask)
+        root = torch.stack([e._root_site_loglik(pup[k], sc[k], *s[3:])
+                            for k in range(3)])
+        edge = torch.log(torch.einsum("kncxp,kncxp->kncp", out, pup)) + \
+            sc_out + sc
+        edge = torch.logsumexp(edge + torch.log(s[4])[:, None], dim=-2)
+        res.append((root.double().cpu(), edge[:, :-1].double().cpu()))
+    (root, edge), (root64, edge64) = res
+    torch.testing.assert_close(root, root64, rtol=0, atol=5e-3)
+    torch.testing.assert_close(edge, edge64, rtol=0, atol=2e-2)
+    w = eng64.weights
+    torch.testing.assert_close((root * w).sum(-1), (root64 * w).sum(-1),
+                               rtol=0, atol=SEARCH_LNL_TOL)
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_nni_scores_on_the_card(cuda, datatype):
+    """Every edge's three configurations: lnL within SEARCH_LNL_TOL and
+    the four optimized lengths within 1e-2 relative + 1e-3."""
+    from phyml_tpu_torch.search.nni import candidate_arrays, nni_scores
+
+    eng, eng64, params, rv, tree, tree64 = _search_setup(cuda, datatype)
+    cand = candidate_arrays(rv)
+    lnl, ts = nni_scores(eng, params, tree, cand)
+    lnl64, ts64 = nni_scores(eng64, params, tree64, cand)
+    np.testing.assert_allclose(lnl, lnl64, rtol=0, atol=SEARCH_LNL_TOL)
+    for t, t64 in zip(ts, ts64):
+        np.testing.assert_allclose(t, t64, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_spr_scores_on_the_card(cuda, datatype):
+    from phyml_tpu_torch.search.spr import (
+        prune_candidates, spr_move_arrays, spr_scores_batched,
+    )
+
+    eng, eng64, params, rv, tree, tree64 = _search_setup(cuda, datatype)
+    block = [v for v in prune_candidates(rv)
+             if int(rv.parent[v]) != rv.n_nodes - 1][:6]
+    mv = [spr_move_arrays(rv, v) for v in block]
+    args = (np.stack([m for m, _ in mv]), np.asarray(block),
+            np.stack([va for _, va in mv]))
+    lnl = spr_scores_batched(eng, params, tree, *args)[0]
+    lnl64 = spr_scores_batched(eng64, params, tree64, *args)[0]
+    valid = args[2]
+    assert np.array_equal(np.isneginf(lnl), ~valid)
+    np.testing.assert_allclose(lnl[valid], lnl64[valid], rtol=0,
+                               atol=SEARCH_LNL_TOL)

@@ -109,7 +109,7 @@ def test_unported_flags_stop_the_run(tmp_path, capsys):
     ROADMAP item that ports them."""
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
-    assert tcli.main(["-i", str(aln), "-o", "tlr", "--platform",
+    assert tcli.main(["-i", str(aln), "-b", "100", "--platform",
                       "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "-o with 't'" in err
+    assert "ROADMAP.md" in err and "-b other than 0" in err
