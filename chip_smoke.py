@@ -38,12 +38,24 @@
    wall-clock, NNI rounds, SPR sweeps, scorer calls and ms per call,
    the SPR block size, start and final lnL, RF distance to the
    simulating tree; every kernel of the route must launch, none off it,
-   and K3 never at B = 1.
+   and K3 never at B = 1;
+9. the supports path: on a 16 x 500 DNA problem `-b 2` and `-b -5` on
+   the card and on the CPU (the same final and replicate trees and
+   counts, aBayes within ABAYES_TOL); on each default run's final tree
+   (`-u final -o lr`) `-b -5` (aBayes) and `-b -4` (SH-aLRT), timed,
+   supports in [0, 1], then the rapid bootstrap `-b R --rapid_boot` (R =
+   REPLICATES) with the launch counters reset just before and read just
+   after: wall, rounds, launches by stack size, peak memory, the NNI
+   scorer's share; K3 and the edge kernel must run on stacks.  Step 4
+   adds the stacked forms: K3 with a schedule per tree and the route's
+   K2/K5 with a tree axis on R random trees, one launch each, against
+   the plain version and beside R single launches.
 
-It prints a JSON line of the default runs' numbers, a JSON line of
-per-kernel results (`launches` from the default run,
-`launches_fixed_fit` from step 6), the card line, and as the last line
-{"ok": true, "device": {...}}.  Any failure exits nonzero
+It prints a JSON line of the default runs' numbers, a JSON line of the
+supports' numbers, a JSON line of per-kernel results (`launches` from
+the default run, `launches_fixed_fit` from step 6; the stacked forms'
+from the rapid bootstrap, by stack size), the card line, and as the
+last line {"ok": true, "device": {...}}.  Any failure exits nonzero
 before that line; so does a machine without CUDA, or a directory
 without the phyml_tpu_torch package.
 """
@@ -79,6 +91,11 @@ E2E_TOL = 0.1     # final lnL of the small fit, card f32 vs CPU f64:
 #                   points of a flat optimum
 D_TOL = 1e-3      # ML distances, card f32 vs CPU f64 (clipped to
 #                   [1e-8, 2])
+ABAYES_TOL = 5e-4  # aBayes supports of the 16 x 500 run, card f32 vs CPU
+#                   f64 (measured 3.1e-4 on an H100, PERF.md)
+# replicates of the rapid bootstrap on the final 128 x 4096 tree, and the
+# stack of trees the tree-axis kernels are timed on
+REPLICATES = {"nt": 8, "aa": 4}
 REPS = 5          # timing windows per measurement
 LAUNCHES = 20     # kernel calls per window (plain versions: 1)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): FP32 outside the
@@ -110,6 +127,15 @@ def wrappers():
             "K3": clv.uppass_site_lse,
             "K4": clv_slots.uppass_site_lse_slots_stream,
             "K5": edotp.edge_dotprods_stream}
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counters to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_trees"):
+            fn.launches_by_trees = {}
+    wrappers()["K3"].launches_by_batch = {}
 
 
 def simulate(topo, model, params, n_sites, rng):
@@ -485,7 +511,107 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
             EDGE_TOL, edotp_flops(n, C, ns, k), edge_bytes,
             on_path=kname == edge_k, registers=e_regs, spill_bytes=spill,
             blocks_per_sm=blocks, warps_per_sm=blocks, peak_mib=peak)
+    del site_p
+    torch.cuda.empty_cache()
+    tree_axis_phases(dt, eng, sys_, row)
     return rows
+
+
+def tree_axis_phases(dt, eng, sys_, row):
+    """The rapid bootstrap's forms on a stack of REPLICATES[dt] random
+    trees of the problem's taxa: K3 with a slot schedule per tree and
+    the route's edge-dot-product kernel (K2 or K5) with a tree axis, each
+    one launch, against its plain version and timed beside one launch
+    per tree on the same tensors (CUDA events, as `timed`); each adds
+    its row through kernel_phases's `row`."""
+    import torch
+    from phyml_tpu_torch.ops import clv, edotp
+    from phyml_tpu_torch.ops.likelihood import TreeArrays, tree_arrays
+    from phyml_tpu_torch.topology import Topology
+
+    R, cuda = REPLICATES[dt], eng.device
+    n, C, ns, k = eng.n_otu, eng.C, eng.ns, eng.P
+    lam, V, Vinv, pi, w, pinv = sys_
+    rng = np.random.default_rng(SEED + 7)
+    trees = [tree_arrays(Topology.random(n, rng, mean_blen=0.08).rooted(),
+                         device=cuda) for _ in range(R)]
+    stack = TreeArrays(torch.stack([t.child for t in trees]),
+                       torch.stack([t.blen for t in trees]))
+    pm = eng._pmats(lam, V, Vinv, stack.blen)
+    logw = eng._logw(w)
+    child, sched, n_slots = eng._topology(stack.child)
+    singles = [eng._topology(t.child) for t in trees]
+    W = wrappers()
+    print(f". [{dt}] tree axis: {R} random trees of {n} taxa in one stack, "
+          f"{n_slots} slots at most (theirs: "
+          f"{[s[2] for s in singles]})")
+
+    # K3, a schedule per tree, one system broadcast
+    k3 = lambda: clv.uppass_site_lse(child, eng.tips, pm, pi, logw,
+                                     sched=sched, n_slots=n_slots)
+    peak = peak_mib(k3)
+    got, ms = timed(k3)
+    _, single_ms = timed(lambda: [clv.uppass_site_lse(
+        c, eng.tips, pm[r:r + 1], pi[None], logw[None], sched=sc,
+        n_slots=ns_) for r, (c, sc, ns_) in enumerate(singles)])
+    ref, pms = timed(lambda: clv.uppass_site_lse_plain(child, eng.tips, pm,
+                                                       pi, logw), 1)
+    b1 = bound(pruning_flops(n, C, ns, k), nbytes(sched[0], eng.tips, pm[0],
+                                                  pi, logw) + k * 4)[0]
+    print(f". [{dt}] K3 tree axis R={R}: one launch {ms:.4f} ms, {R} single "
+          f"launches {single_ms:.4f} ms; peak {peak:.2f} MiB beyond its "
+          f"inputs (output {R * k * 4 / 2 ** 20:.2f} MiB); R x the single "
+          f"bound {R * b1:.4f} ms")
+    row("K3", f"uppass_site_lse (tree axis, R={R})",
+        float((got - ref).abs().max()), ms, pms, SITE_TOL[dt],
+        pruning_flops(n, C, ns, k, R),
+        nbytes(sched, eng.tips, pm, pi, logw) + R * k * 4, R=R,
+        tree_axis=True, single_launches_ms=single_ms, r_single_bound_ms=R * b1,
+        peak_mib=peak)
+    del got, ref
+
+    # the route's edge-dot-product kernel with a tree axis, compared
+    # through each tree's per-edge site terms on its free edges
+    kname = eng.edotp_route
+    fn = W[kname]
+    aux = eng._aux(sys_, None)
+    peak = peak_mib(lambda: fn(child, eng.tips, pm, V, Vinv, pi))
+    (dk, sk), ms = timed(lambda: fn(child, eng.tips, pm, V, Vinv, pi))
+    _, single_ms = timed(lambda: [fn(c, eng.tips, pm[r], V, Vinv, pi)
+                                  for r, (c, _, _) in enumerate(singles)])
+    err, pms = 0.0, 0.0
+    for r, t in enumerate(trees):
+        (dp, sp), p_ms = timed(lambda: edotp.edge_dotprods_plain(
+            singles[r][0], eng.tips, pm[r], V, Vinv, pi), 1)
+        pms += p_ms
+        free = torch.ones(eng.n_nodes, dtype=torch.bool)
+        free[-1] = False
+        free[int(t.child[-1, 1])] = False
+        site_p = eng.edge_site_terms(dp, sp, aux, t.blen)[0][free]
+        site_k = eng.edge_site_terms(dk[r], sk[r], aux, t.blen)[0][free]
+        err = max(err, float((site_k - site_p).abs().max()))
+        del dp, sp, site_p, site_k
+    out_bytes = R * eng.n_nodes * C * (ns + 1) * k * 4
+    geo = edotp.geometry(ns, C, k)
+    ws_bytes = 2 * R * (n - 1) * geo["workspace_floats_per_node"] * 4
+    b1 = bound(edotp_flops(n, C, ns, k),
+               nbytes(child[0], eng.tips, pm[0], V, Vinv, pi)
+               + out_bytes // R)[0]
+    print(f". [{dt}] {kname} tree axis R={R}: one launch {ms:.4f} ms, {R} "
+          f"single launches {single_ms:.4f} ms; peak {peak:.2f} MiB beyond "
+          f"its inputs (outputs {out_bytes / 2 ** 20:.2f} + workspace "
+          f"{ws_bytes / 2 ** 20:.2f} MiB); R x the single bound "
+          f"{R * b1:.4f} ms")
+    # d, sc_d and the two workspace tensors, each rounded up by the
+    # caching allocator to its 2 MiB segments
+    if peak > (out_bytes + ws_bytes) / 2 ** 20 + 4 * 2.0:
+        fail(f"[{dt}] {kname} on a stack allocates more than its outputs "
+             "and workspace")
+    row(kname, f"{fn.__name__} (tree axis, R={R})", err, ms, pms, EDGE_TOL,
+        R * edotp_flops(n, C, ns, k),
+        nbytes(child, eng.tips, pm, V, Vinv, pi) + out_bytes, R=R,
+        tree_axis=True, single_launches_ms=single_ms, r_single_bound_ms=R * b1,
+        peak_mib=peak)
 
 
 def small_fit_check(dt, tmp):
@@ -533,9 +659,7 @@ def main_path(dt, aln_path, tree_path, cuda):
     W = wrappers()
     walls = []
     for run in range(2):
-        for fn in W.values():
-            fn.launches = 0
-        W["K3"].launches_by_batch = {}
+        reset_counts()
         out = io.StringIO()
         torch.cuda.synchronize()
         t1 = time.time()
@@ -586,17 +710,28 @@ SEARCH_PROBES = [
 ]
 
 
+# the supports path's functions the supports phase counts and times
+SUPPORT_PROBES = [
+    ("phyml_tpu_torch.search.support", "alrt_supports", "aLRT supports"),
+    ("phyml_tpu_torch.search.support", "bootstrap_supports_batched",
+     "rapid bootstrap"),
+    ("phyml_tpu_torch.optim.blen", "optimize_branch_lengths_batched",
+     "batched branch lengths"),
+    ("phyml_tpu_torch.search.nni", "nni_scores_batched", "NNI scorer"),
+]
+
+
 @contextlib.contextmanager
-def search_probes():
-    """Wrap SEARCH_PROBES: label -> {calls, s (wall, the card
-    synchronized before and after each call), sizes (the SPR scorer's
-    candidates per call), last (the last result)}."""
+def search_probes(probes=SEARCH_PROBES):
+    """Wrap `probes`: label -> {calls, s (wall, the card synchronized
+    before and after each call), sizes (the SPR scorer's candidates per
+    call), last (the last result)}."""
     import importlib
 
     import torch
 
     stats, saved = {}, []
-    for mod_name, attr, label in SEARCH_PROBES:
+    for mod_name, attr, label in probes:
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, attr)
         rec = stats[label] = {"calls": 0, "s": 0.0, "sizes": []}
@@ -749,9 +884,7 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k):
     argv = default_argv(dt, aln_path, "gpu")
     path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
     W = wrappers()
-    for fn in W.values():
-        fn.launches = 0
-    W["K3"].launches_by_batch = {}
+    reset_counts()
     out = io.StringIO()
     with search_probes() as st, utilization_sampler() as util:
         torch.cuda.synchronize()
@@ -839,6 +972,218 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k):
     return counts, res
 
 
+def tree_labels(path, names):
+    """{bipartition: support label} of a tree file's internal edges."""
+    from phyml_tpu_torch.io.newick import parse_newick
+
+    root = parse_newick(open(path).read())
+    ids = {nm: i for i, nm in enumerate(names)}
+    out = {}
+
+    def leaves(node):
+        if node.is_leaf:
+            return {ids[node.name]}
+        below = set().union(*(leaves(c) for c in node.children))
+        if node is not root:
+            side = below if 0 not in below else set(ids.values()) - below
+            out[frozenset(side)] = node.support or node.name
+        return below
+
+    leaves(root)
+    return out
+
+
+def by_bipartition(support, tree_path, names):
+    """An edge-id-keyed support dict of the tree in tree_path, keyed by
+    bipartition (the side without taxon 0)."""
+    from phyml_tpu_torch.topology import Topology
+
+    with open(tree_path) as fh:
+        bips = Topology.from_newick(fh.read(), names).bipartitions()
+    return {bip: support[eid] for bip, eid in bips.items()}
+
+
+def support_argv(dt, aln_path, tree_path, platform, b, *extra):
+    """A supports run on a given tree: -u tree -o lr (the fit), -b b."""
+    argv = cli_argv(dt, aln_path, tree_path, platform)
+    argv[argv.index("-b") + 1] = str(b)
+    return argv + list(extra)
+
+
+def supports_phase(dt, aln_path, cuda):
+    """The supports path on the default run's final 128 x 4096 tree,
+    through the CLI a user runs (-u final tree -o lr, then the supports):
+    `-b -5` (aBayes) and `-b -4` (SH-aLRT), timed, every support in
+    [0, 1]; then the rapid bootstrap (`-b R --rapid_boot`, R =
+    REPLICATES[dt]) with every launch counter set to 0 just before and
+    read just after: wall, rounds, launches by stack size, peak memory,
+    the NNI scorer's share.  Returns (launch counts, stacked launches by
+    kernel, the phase's numbers)."""
+    import shutil
+
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+
+    names = read_alignment(aln_path, datatype=dt).names
+    final = os.path.join(os.path.dirname(aln_path), "final_tree.nwk")
+    shutil.copy(f"{aln_path}_phyml_tree.txt", final)
+    res = {}
+    for b, label in ((-5, "abayes"), (-4, "sh_alrt")):
+        with search_probes(SUPPORT_PROBES) as st, \
+                contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t = time.time()
+            rc = cli.main(support_argv(dt, aln_path, final, "gpu", b,
+                                       "--quiet"))
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        if rc != 0:
+            fail(f"[{dt}] -b {b} returned {rc}")
+        vals = np.asarray(list(st["aLRT supports"]["last"].values()))
+        res[label] = dict(wall_s=wall, supports_s=st["aLRT supports"]["s"],
+                          edges=len(vals), min=float(vals.min()),
+                          median=float(np.median(vals)),
+                          max=float(vals.max()))
+        print(f". [{dt}] -b {b} ({label}) on the final tree: wall "
+              f"{wall:.2f} s (fit + supports), supports {res[label]['supports_s']:.3f} s, "
+              f"{len(vals)} edges, min / median / max {vals.min():.4f} / "
+              f"{np.median(vals):.4f} / {vals.max():.4f}")
+        if len(vals) != N_TAXA - 3 or not np.all((vals >= 0) & (vals <= 1)):
+            fail(f"[{dt}] -b {b}: supports outside [0, 1] or edges missing")
+
+    R = REPLICATES[dt]
+    W = wrappers()
+    reset_counts()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with search_probes(SUPPORT_PROBES) as st, \
+            contextlib.redirect_stdout(out):
+        t = time.time()
+        rc = cli.main(support_argv(dt, aln_path, final, "gpu", R,
+                                   "--rapid_boot"))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    counts = {name: fn.launches for name, fn in W.items()}
+    stacked = {name: dict(fn.launches_by_trees) for name, fn in W.items()
+               if hasattr(fn, "launches_by_trees")}
+    k3_by_b = dict(W["K3"].launches_by_batch)
+    if rc != 0:
+        fail(f"[{dt}] the rapid bootstrap returned {rc}")
+    text = out.getvalue()
+    with open(os.path.join(os.path.dirname(aln_path), "rapid_boot.log"),
+              "w") as fh:
+        fh.write(text)
+    boot = st["rapid bootstrap"]
+    rounds = text.count("  boot round ")
+    nni_s = st["NNI scorer"]["s"]
+    labels = tree_labels(f"{aln_path}_phyml_tree.txt", names)
+    vals = np.asarray([int(v) for v in labels.values()])
+    res["rapid_boot"] = dict(
+        replicates=R, wall_s=wall, bootstrap_s=boot["s"], rounds=rounds,
+        blen_calls=st["batched branch lengths"]["calls"],
+        blen_s=st["batched branch lengths"]["s"],
+        nni_scorer_calls=st["NNI scorer"]["calls"], nni_scorer_s=nni_s,
+        nni_scorer_share=nni_s / boot["s"], peak_gib=peak,
+        launches=counts, stacked_launches=stacked, k3_by_batch=k3_by_b,
+        supports_min=int(vals.min()), supports_max=int(vals.max()))
+    print("\n".join(ln for ln in text.splitlines() if "boot round" in ln))
+    print(f". [{dt}] rapid bootstrap R={R} on the final tree: wall "
+          f"{wall:.2f} s (fit + bootstrap), bootstrap {boot['s']:.2f} s, "
+          f"{rounds} rounds; batched branch lengths "
+          f"{st['batched branch lengths']['calls']} calls "
+          f"{st['batched branch lengths']['s']:.2f} s; NNI scorer "
+          f"{st['NNI scorer']['calls']} calls {nni_s:.2f} s "
+          f"({100 * nni_s / boot['s']:.1f} % of the bootstrap); peak "
+          f"{peak:.2f} GiB; launches {counts}, stacked by R {stacked}, K3 "
+          f"by batch size {k3_by_b}; supports {int(vals.min())}..."
+          f"{int(vals.max())} of {R}")
+    if len(vals) != N_TAXA - 3 or vals.min() < 0 or vals.max() > R:
+        fail(f"[{dt}] rapid bootstrap: supports outside [0, {R}]")
+    slot_k, edge_k = ("K1", "K2") if dt == "nt" else ("K4", "K5")
+    if not sum(stacked["K3"].values()) or not sum(stacked[edge_k].values()):
+        fail(f"[{dt}] the rapid bootstrap did not run K3 and {edge_k} on "
+             f"stacks: {stacked}")
+    if k3_by_b.get(1, 0):
+        fail(f"[{dt}] rapid bootstrap run: K3 ran single-system passes")
+    for name, count in counts.items():
+        on = name in ("K3", slot_k, edge_k)
+        if on != (count > 0):
+            fail(f"[{dt}] rapid bootstrap run: {name} launched {count} "
+                 "times")
+    return counts, stacked, res
+
+
+def small_support_check(tmp):
+    """`-b 2` and `-b -5` after the default run on a 16 x 500 DNA
+    problem, card float32 against CPU float64: the same final tree, the
+    same two replicate trees and bootstrap counts, aBayes within
+    ABAYES_TOL.  Returns the measured aBayes gap."""
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.search import support
+    from phyml_tpu_torch.topology import Topology
+
+    names = [f"T{i:04d}" for i in range(16)]
+    got = {}
+    real = support.bootstrap_supports
+
+    def keep(*a, **kw):
+        sup, trees = real(*a, **{**kw, "keep_trees": True})
+        got[platform]["replicates"] = trees
+        return sup
+
+    for platform in ("cpu", "gpu"):
+        got[platform] = {}
+        d = os.path.join(tmp, f"small_support_{platform}")
+        aln_path, _ = write_problem(d, "nt", 16, 500, SEED + 1)
+        t = time.time()
+        support.bootstrap_supports = keep
+        try:
+            argv = default_argv("nt", aln_path, platform) + ["--quiet"]
+            argv[argv.index("-b") + 1] = "2"
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv)
+        finally:
+            support.bootstrap_supports = real
+        if rc != 0:
+            fail(f"small -b 2 run on {platform} returned {rc}")
+        tree_path = f"{aln_path}_phyml_tree.txt"
+        got[platform]["final"] = Topology.from_newick(open(tree_path).read(),
+                                                      names)
+        got[platform]["boot"] = tree_labels(tree_path, names)
+        final = os.path.join(d, "final_tree.nwk")
+        with open(final, "w") as fh:
+            fh.write(got[platform]["final"].to_newick(names) + "\n")
+        with search_probes(SUPPORT_PROBES) as st, \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(support_argv("nt", aln_path, final, platform, -5,
+                                       "--quiet"))
+        if rc != 0:
+            fail(f"small -b -5 run on {platform} returned {rc}")
+        got[platform]["abayes"] = by_bipartition(
+            st["aLRT supports"]["last"], final, names)
+        got[platform]["s"] = time.time() - t
+    g, c = got["gpu"], got["cpu"]
+    rf = [a.rf_distance(b) for a, b in zip(g["replicates"],
+                                            c["replicates"])]
+    gap = max(abs(g["abayes"][k] - c["abayes"][k]) for k in c["abayes"])
+    print(f". [nt] small supports (16 x 500, default run then -b 2, then "
+          f"-u final -o lr -b -5): gpu {g['s']:.1f} s, cpu {c['s']:.1f} s; "
+          f"final trees RF {g['final'].rf_distance(c['final'])}, replicate "
+          f"trees RF {rf}, bootstrap counts equal "
+          f"{g['boot'] == c['boot']}; aBayes max gap {gap:.3e} (tol "
+          f"{ABAYES_TOL:g})")
+    if g["final"].rf_distance(c["final"]) != 0 or any(rf) or \
+            g["boot"] != c["boot"] or set(g["abayes"]) != set(c["abayes"]):
+        fail("the small supports run disagrees between the card and the CPU")
+    if not gap <= ABAYES_TOL:
+        fail(f"aBayes of the small run off the CPU's by {gap}")
+    return gap
+
+
 def main() -> int:
     import torch
 
@@ -886,7 +1231,7 @@ def main() -> int:
             if regs[kname][ns][1] != 0:
                 fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
 
-    rows, runs = [], {}
+    rows, runs, supports = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
@@ -898,15 +1243,26 @@ def main() -> int:
             torch.cuda.empty_cache()
             batch_k = distance_check(dt, aln_path, cuda)
             small_default_check(dt, tmp)
+            if dt == "nt":
+                supports["small_abayes_gap"] = small_support_check(tmp)
             counts, res = default_run(dt, aln_path, tree_path, cuda,
                                       batch_k)
             runs[dt] = res
-            # `launches`: the default run's (the main path); the
-            # fixed-topology fit's beside them
+            torch.cuda.empty_cache()
+            s_counts, stacked, supports[dt] = supports_phase(dt, aln_path,
+                                                             cuda)
+            # `launches`: the default run's (the main path), the
+            # fixed-topology fit's beside them; the tree-axis rows',
+            # the rapid bootstrap's (the supports path), by stack size
             for r in dt_rows:
                 kname = r.pop("kernel")
+                if r.pop("tree_axis", False):
+                    r["launches"] = sum(stacked[kname].values())
+                    r["launches_by_stack"] = stacked[kname]
+                    continue
                 r["launches"] = counts[kname]
                 r["launches_fixed_fit"] = fit_counts[kname]
+                r["launches_rapid_boot"] = s_counts[kname]
                 if "B" in r:
                     r["launches_at_B"] = res["k3_by_batch"].get(r["B"], 0)
                     r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
@@ -916,6 +1272,7 @@ def main() -> int:
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
     print(json.dumps({"default_runs": runs}))
+    print(json.dumps({"supports": supports}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,21 @@ Reference: Read_Command_Line (cl.c:19) and the per-dataset
 loop (main.c:108-434).  The parser takes the same flags as
 phyml_tpu's; this port runs the `phyml` ML run on DNA and on amino
 acids (LG, WAG, JTT and the other empirical matrices): the start tree
-(`-u` tree, `--rand_start`, else ML distances and BioNJ), the
-topology search (`-o` with `t`, `-s NNI|SPR|BEST`, `--n_rand_starts`,
-`--min_diff_lk_global`, `--no_five_branch`) or the fixed-topology fit
-(`-o` in {l, r, lr, n/''}), `-b 0`, the model and data flags, and
-`--print_site_lnl`.  Every other analysis flag stops the run with a
-message naming the ROADMAP.md item that ports it.
+(`-u` tree, `--rand_start`, `--pars_start`, a resolution of
+`--constraint_file`, else ML distances and BioNJ), the topology search
+(`-o` with `t`, `-s NNI|SPR|BEST`, `--n_rand_starts`,
+`--min_diff_lk_global`, `--no_five_branch`, `--constraint_file`,
+`--print_trace`, `--json_trace`) or the fixed-topology fit (`-o` in
+{l, r, lr, n/''}), branch supports (`-b N` bootstrap with `--tbe`,
+`--bayesian_bootstrap`, `--rapid_boot`; `-b -1/-2/-3/-4/-5` aLRT,
+SH-aLRT and aBayes), the model and data flags, and `--print_site_lnl`.
+Every other analysis flag stops the run with a message naming the
+ROADMAP.md item that ports it.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
+    python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b -5 \\
+        --platform gpu                       # ... then aBayes supports
     python -m phyml_tpu_torch.cli -i prot.phy -u tree.nwk -d aa -m LG \\
         -c 4 -a e -o lr -b 0 --platform gpu
 """
@@ -125,8 +131,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # ROADMAP.md Queue 1 items that port what this CLI does not run yet
-_BIONJ = "Queue 1, 'BioNJ start tree'"
-_SEARCH = "Queue 1, 'Topology search'"
 _CLI = "Queue 1, 'Remaining CLI flags and the checkpoint'"
 _MODELS = "Queue 1, 'Covarion, mixtures and partitions'"
 _SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
@@ -137,13 +141,6 @@ def _unported(args) -> list[tuple[str, str]]:
     """(flag, ROADMAP item) for every requested feature this port does
     not run yet."""
     checks = [
-        (args.pars_start, "--pars_start", _BIONJ),
-        (args.constraint_file is not None, "--constraint_file", _SEARCH),
-        (args.print_trace or args.json_trace,
-         "--print_trace/--json_trace", _SEARCH),
-        (args.bootstrap != 0, "-b other than 0", _SUPPORT),
-        (args.tbe or args.bayesian_bootstrap or args.rapid_boot,
-         "--tbe/--bayesian_bootstrap/--rapid_boot", _SUPPORT),
         (args.distributed, "--distributed", _SUPPORT),
         (args.cov or args.cov_free or args.cov_delta is not None
          or args.cov_alpha is not None, "--cov*", _MODELS),
@@ -256,19 +253,23 @@ def run_analysis(args) -> int:
     return _run_dataset(args, aln, rng, seed, device, dtype)
 
 
-def _search(args, engine, model, params, topo, rng, seed, opt_rates):
+def _search(args, engine, model, params, topo, rng, seed, opt_rates,
+            constraint=None, trace=None):
     """The topology search of `-o` with `t` (reference
     phyml_tpu/cli.py:463-503): `-s BEST` runs both strategies and keeps
     the better tree (cl.c: "BEST: best of NNI and SPR search");
     --rand_start repeats the search from --n_rand_starts random
-    starting trees and keeps the best final lnL (main.c:126-139,
-    308-312).  Returns (topo, params, lnL)."""
+    starting trees (random resolutions of the constraint tree, if any)
+    and keeps the best final lnL (main.c:126-139, 308-312).  The
+    constraint's predicate and the trace writer go to every search.
+    Returns (topo, params, lnL)."""
     from phyml_tpu_torch.search.driver import ml_search
     from phyml_tpu_torch.topology import Topology
 
     kinds = ["NNI", "SPR"] if args.search == "BEST" else [args.search]
     if args.rand_start:
-        starts = [Topology.random(engine.n_otu, rng)
+        starts = [constraint.random_resolution(rng) if constraint is not None
+                  else Topology.random(engine.n_otu, rng)
                   for _ in range(max(1, args.n_rand_starts))]
     else:
         starts = [topo]
@@ -280,12 +281,46 @@ def _search(args, engine, model, params, topo, rng, seed, opt_rates):
             cand = ml_search(
                 engine, model, dict(params), topo0.copy(),
                 kind=kind.lower(), retries=2, opt_params=opt_rates,
-                seed=seed, verbose=not args.quiet,
+                seed=seed, verbose=not args.quiet, trace=trace,
+                accept_topo=None if constraint is None
+                else constraint.is_compatible,
                 tol=args.min_diff_lk_global,
                 five_branch=not args.no_five_branch)
             if best is None or cand[2] > best[2]:
                 best = cand
     return best
+
+
+def _supports(args, engine, model, params, topo, seed):
+    """Branch supports of the final tree (reference phyml_tpu/cli.py:
+    518-556): `-b N` bootstraps N replicates (serial, each re-running
+    the search, SPR for `-s SPR|BEST`; or `--rapid_boot`, all
+    replicates batched with the parameters frozen), reported as
+    replicate counts; `-b -1/-2/-3/-4/-5` the aLRT statistic, its chi2
+    support, SH-aLRT and aBayes.  Returns (support or None, format)."""
+    from phyml_tpu_torch.search import support as sup
+
+    b = args.bootstrap
+    if b > 0:
+        kw = dict(n_replicates=b, seed=seed,
+                  bayesian=args.bayesian_bootstrap, tbe=args.tbe,
+                  verbose=not args.quiet)
+        if args.rapid_boot:
+            support = sup.bootstrap_supports_batched(
+                engine, model, params, topo, **kw)
+        else:
+            support = sup.bootstrap_supports(
+                engine, model, params, topo,
+                search="spr" if args.search in ("SPR", "BEST") else "nni",
+                **kw)
+        return {eid: v * b for eid, v in support.items()}, "%.0f"
+    if b < 0:
+        method = {-1: "alrt-stat", -2: "alrt-chi2", -3: "alrt-chi2",
+                  -4: "sh", -5: "abayes"}[b]
+        support = sup.alrt_supports(engine, model, params, topo,
+                                    method=method, seed=seed)
+        return support, "%.6f" if b == -1 else "%.4f"
+    return None, "%.2f"
 
 
 def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
@@ -326,6 +361,12 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
     params = _init_params(args, model, aln)
     engine = LikelihoodEngine(aln, model, dtype=dtype, device=device)
 
+    # ---- topological constraint (reference --constraint_file) ---------
+    constraint = None
+    if args.constraint_file:
+        from phyml_tpu_torch.search.constraint import Constraint
+        constraint = Constraint.from_file(args.constraint_file, aln.names)
+
     # ---- starting tree ------------------------------------------------
     if args.user_tree:
         with open(args.user_tree) as fh:
@@ -335,10 +376,21 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
                 .without_leaves(set(dup_indices))
         else:
             topo = Topology.from_newick(user_nwk, aln.names)
+        if constraint is not None and not constraint.is_compatible(topo):
+            print("!! the user tree violates the constraint tree",
+                  file=sys.stderr)
+            return 1
         start_desc = f"user tree ({args.user_tree})"
+    elif constraint is not None:
+        topo = constraint.random_resolution(rng)
+        start_desc = f"constraint resolution ({args.constraint_file})"
     elif args.rand_start:
         topo = Topology.random(aln.n_otu, rng)
         start_desc = "random"
+    elif args.pars_start:
+        from phyml_tpu_torch.search.stepwise import stepwise_addition_tree
+        topo = stepwise_addition_tree(aln, rng)
+        start_desc = "stepwise-addition parsimony"
     else:
         from phyml_tpu_torch.search.bionj import bionj_start
         topo = bionj_start(engine, params)
@@ -348,9 +400,20 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
     opt_topo = "t" in args.optimize
     opt_len = "l" in args.optimize or opt_topo
     opt_rates = "r" in args.optimize
+    run_id = f"_{args.run_id}" if args.run_id else ""
+    prefix = f"{args.input}{run_id}"
+    trace = None
+    if args.print_trace or args.json_trace:
+        from phyml_tpu_torch.io.output import TraceWriter
+        trace = TraceWriter(
+            aln.names,
+            newick_path=(f"{prefix}_phyml_trace.txt"
+                         if args.print_trace else None),
+            json_path=(f"{prefix}_phyml_trace.json"
+                       if args.json_trace else None))
     if opt_topo:
         topo, params, lnl = _search(args, engine, model, params, topo, rng,
-                                    seed, opt_rates)
+                                    seed, opt_rates, constraint, trace)
         search_desc = args.search
     else:
         search_desc = "none"
@@ -366,6 +429,9 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
         rv = topo.rooted()
         topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
 
+    support, support_fmt = _supports(args, engine, model, params, topo,
+                                     seed)
+
     # ---- outputs ------------------------------------------------------
     stats = format_stats(
         input_name=args.input, aln=aln, model=model, params=params,
@@ -373,11 +439,9 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
         start_tree_desc=start_desc, runtime_s=time.time() - t_start,
         seed=seed, n_parsimony=parsimony_score(engine, topo),
     )
-    run_id = f"_{args.run_id}" if args.run_id else ""
-    prefix = f"{args.input}{run_id}"
     tree_path, stats_path = write_results(
-        prefix, topo, aln.names, stats, support_fmt="%.2f",
-        append=args.append,
+        prefix, topo, aln.names, stats, support=support,
+        support_fmt=support_fmt, append=args.append,
     )
     if dup_name_pairs:
         from phyml_tpu_torch.io.newick import insert_duplicate_leaves

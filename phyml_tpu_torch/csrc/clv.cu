@@ -5,7 +5,12 @@
 // uppass_site_lse), and with its leading batch dimension the vmap of
 // that kernel in the parameter line search (B = 13 per free scalar),
 // the line search's pair probe (B = 2) and the branch-length probes
-// (B = 1).  Per pattern p and parameter set b it computes
+// (B = 1).  With one schedule per batch entry it also serves the rapid
+// bootstrap's backtracking probes: entry b is replicate tree b (its own
+// schedule and P-matrices, one system broadcast), which phyml_tpu runs
+// as the same kernel under jax.vmap over stacked trees
+// (phyml_tpu/optim/blen.py:139-159).  Per pattern p and entry b it
+// computes
 //
 //   lse[b, p] = logsumexp_c( logw[b, c] + ln2 * sc_root[b, c, p]
 //                 + log max(FLT_MIN, sum_x pi[b, c, x] clv_root[b, c, x, p]) )
@@ -57,6 +62,11 @@
 //   [0, n_slots) or a node outside the tree traps (a device-side
 //   assert, as PyTorch's own index checks), since the slots index
 //   shared memory.
+// * Batch entries: `sched_stride` is 0 (one schedule for every entry,
+//   the line search) or n_int * 7 (entry b walks schedule b, the stacked
+//   replicate trees; n_slots is then the largest of their slot counts);
+//   `param_stride` is 1 (a system per entry) or 0 (one system for all,
+//   the replicates' frozen estimates: pi and logw read at b = 0).
 // * Grid (B, pattern tiles): blockIdx.x = b runs fastest, so the blocks
 //   that share a tile's tip rows are dispatched together and meet them
 //   in L2.  Block = one warp per class, all on one tile of
@@ -102,7 +112,8 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
                                       const float* __restrict__ pi,
                                       const float* __restrict__ logw,
                                       float* __restrict__ out, int n_nodes,
-                                      int n_int, int n_slots, int P) {
+                                      int n_int, int n_slots, int P,
+                                      int sched_stride, int param_stride) {
   constexpr int R = kRows<NS>, G = NS / R, Q = kCols<NS>;
   constexpr int T = kTile<NS>;           // the block's pattern tile
   constexpr int kSlot = (NS + 1) * T;    // floats of one slot, class
@@ -115,6 +126,8 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
   const int b = blockIdx.x, p0 = blockIdx.y * T;
   const int mat = C * NS * NS;  // floats of one node's P-matrices
   const float* pm_b = pmats + static_cast<size_t>(b) * n_nodes * mat;
+  const int bp = b * param_stride;  // my system's pi and logw
+  sched += static_cast<size_t>(b) * sched_stride;
   // ring: pm_ring[stage][child][C][NS][NS], tip_ring[stage][child][NS][T]
   float* pm_ring = smem;
   float* tip_ring = pm_ring + 4 * mat;
@@ -227,7 +240,7 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
   // root: sum_x pi * clv (each lane reads back the states it wrote),
   // then log-sum-exp over classes
   const float* x = slot(cur[6]);
-  const float* pi_c = pi + (static_cast<size_t>(b) * C + c) * NS + g * R;
+  const float* pi_c = pi + (static_cast<size_t>(bp) * C + c) * NS + g * R;
   float l[Q];
 #pragma unroll
   for (int j = 0; j < Q; ++j) l[j] = 0.0f;
@@ -240,7 +253,7 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
   }
   float sc[Q];
   load_q<Q>(x + NS * T, sc);
-  const float lw = logw[b * C + c];
+  const float lw = logw[bp * C + c];
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
     l[j] = column_sum<G>(l[j]);
@@ -265,7 +278,7 @@ template <int NS>
 int launch_batched(const int* sched, const float* tips, const float* pmats,
                    const float* pi, const float* logw, float* out,
                    int n_otu, int n_int, int n_slots, int C, int P, int B,
-                   cudaStream_t stream) {
+                   int sched_stride, int param_stride, cudaStream_t stream) {
   constexpr int T = kTile<NS>;
   const int tiles = (P + T - 1) / T;
   const size_t smem = batched_smem<NS>(C, n_slots);
@@ -274,7 +287,8 @@ int launch_batched(const int* sched, const float* tips, const float* pmats,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(32, C), grid(B, tiles);
   batched_uppass_kernel<NS><<<grid, block, smem, stream>>>(
-      sched, tips, pmats, pi, logw, out, n_otu + n_int, n_int, n_slots, P);
+      sched, tips, pmats, pi, logw, out, n_otu + n_int, n_int, n_slots, P,
+      sched_stride, param_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -294,17 +308,23 @@ extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
                                     const float* pmats, const float* pi,
                                     const float* logw, float* out, int n_otu,
                                     int n_int, int n_slots, int ns, int C,
-                                    int P, int B, void* stream) {
+                                    int P, int B, int per_entry_sched,
+                                    int shared_params, void* stream) {
   if (C < 1 || C > 32 || B < 1 || B > 65535 || n_slots < 1)
     return phyml::kUnsupported;
+  // ints between two entries' schedules; systems between two entries'
+  const int sched_stride = per_entry_sched ? 7 * n_int : 0;
+  const int param_stride = shared_params ? 0 : 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
     case 4:
       return phyml::launch_batched<4>(sched, tips, pmats, pi, logw, out,
-                                      n_otu, n_int, n_slots, C, P, B, st);
+                                      n_otu, n_int, n_slots, C, P, B,
+                                      sched_stride, param_stride, st);
     case 20:
       return phyml::launch_batched<20>(sched, tips, pmats, pi, logw, out,
-                                       n_otu, n_int, n_slots, C, P, B, st);
+                                       n_otu, n_int, n_slots, C, P, B,
+                                       sched_stride, param_stride, st);
     default:
       return phyml::kUnsupported;
   }

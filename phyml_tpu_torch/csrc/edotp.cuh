@@ -58,6 +58,14 @@
 // * Each block checks the child table once, a row per lane, and traps
 //   on a child outside [0, n_otu + i) for row i (the postorder the
 //   sweeps rely on): the workspace is indexed by node.
+// * A tree axis: grid.z = R stacked trees of one taxon set (the rapid
+//   bootstrap's replicates, which phyml_tpu runs as this kernel under
+//   jax.vmap, phyml_tpu/optim/blen.py:139-159).  Block z walks tree z:
+//   its own child table [n_int, 2], P-matrices, d, sc_d and workspace,
+//   each at a base offset computed in 64 bits (d alone passes 2^31
+//   floats at protein R = 32), and checks its own child table; the tips,
+//   V, V^-1 and pi are shared.  Blocks of one tree share nothing with
+//   another's, so the one launch of R trees is R independent sweeps.
 //
 // Static shared memory per block (kEdotpSmem): ns = 20 20.2 KB, ns = 4
 // 5.1 KB.  Registers from ptxas (chip_smoke.py prints them and the
@@ -99,6 +107,17 @@ __device__ __forceinline__ void edge_dotprods_body(
     float* __restrict__ d, float* __restrict__ scd,
     float* __restrict__ ws_clv, float* __restrict__ ws_out, int n_otu,
     int n_int, int P, int Pw) {
+  {
+    // my tree (grid.z) of a stack: its operands at 64-bit base offsets
+    const size_t z = blockIdx.z, n_nodes = n_otu + n_int;
+    const size_t C = gridDim.y;
+    child += z * 2 * n_int;
+    pmats += z * n_nodes * C * NS * NS;
+    d += z * n_nodes * C * NS * P;
+    scd += z * n_nodes * C * P;
+    ws_clv += z * n_int * C * (NS + 1) * Pw;
+    ws_out += z * n_int * C * (NS + 1) * Pw;
+  }
   constexpr int R = kEdotpRows<NS>, G = NS / R, Q = kEdotpCols<NS>;
   constexpr int T = kEdotpTile<NS>;
   constexpr int D = kEdotpAhead, S = D + 1;
@@ -418,10 +437,10 @@ int launch_edotp(K* kernel, const int* child, const float* tips,
                  const float* pmats, const float* V, const float* Vinv,
                  const float* pi, float* d, float* scd, float* ws_clv,
                  float* ws_out, int n_otu, int n_int, int C, int P, int Pw,
-                 cudaStream_t stream) {
+                 int R, cudaStream_t stream) {
   constexpr int T = kEdotpTile<NS>;
   if (Pw % T != 0 || Pw < P || Pw - P >= T) return kUnsupported;
-  const dim3 block(32), grid(Pw / T, C);
+  const dim3 block(32), grid(Pw / T, C, R);
   kernel<<<grid, block, 0, stream>>>(child, tips, pmats, V, Vinv, pi, d, scd,
                                      ws_clv, ws_out, n_otu, n_int, P, Pw);
   return static_cast<int>(cudaGetLastError());
@@ -437,24 +456,26 @@ int edotp_occupancy(K* kernel, int* blocks_per_sm) {
 
 // One extern "C" launcher and one occupancy query per kernel, for ns in
 // {4, 20} (-1 for another ns, or a pattern width Pw that is not P
-// rounded up to the tile).
+// rounded up to the tile); R stacked trees (1 for one tree), each with
+// its own child table, P-matrices, outputs and workspace.
 #define PHYML_EDOTP_ENTRY(FN, KERNEL)                                         \
   extern "C" int FN(const int* child, const float* tips, const float* pmats, \
                     const float* V, const float* Vinv, const float* pi,       \
                     float* d, float* scd, float* ws_clv, float* ws_out,       \
                     int n_otu, int n_int, int ns, int C, int P, int Pw,       \
-                    void* stream) {                                           \
-    if (C < 1 || C > 65535 || n_int < 1) return phyml::kUnsupported;         \
+                    int R, void* stream) {                                    \
+    if (C < 1 || C > 65535 || n_int < 1 || R < 1 || R > 65535)               \
+      return phyml::kUnsupported;                                             \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
     switch (ns) {                                                             \
       case 4:                                                                 \
         return phyml::launch_edotp<4>(KERNEL<4>, child, tips, pmats, V, Vinv, \
                                       pi, d, scd, ws_clv, ws_out, n_otu,      \
-                                      n_int, C, P, Pw, st);                   \
+                                      n_int, C, P, Pw, R, st);                \
       case 20:                                                                \
         return phyml::launch_edotp<20>(KERNEL<20>, child, tips, pmats, V,     \
                                        Vinv, pi, d, scd, ws_clv, ws_out,      \
-                                       n_otu, n_int, C, P, Pw, st);           \
+                                       n_otu, n_int, C, P, Pw, R, st);        \
       default:                                                                \
         return phyml::kUnsupported;                                           \
     }                                                                         \

@@ -8,6 +8,8 @@ tooling pointed at PhyML output keeps working.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from phyml_tpu_torch import __version__
@@ -165,3 +167,46 @@ def write_site_lnl(path: str, aln, site_logliks) -> None:
         fh.write("Site\tlogLK\n")
         for i, v in enumerate(s):
             fh.write(f"{i + 1}\t{v:.6f}\n")
+
+
+class TraceWriter:
+    """Search-progress traces (≙ the reference's --print_trace newick
+    stream, io.c fp_out_trace, and --json_trace JSON snapshots,
+    JSON_Tree_Io io.c:6737, hooked at every improvement: main.c:256,
+    spr.c:781, optimiz.c:989).
+
+    newick_path: one newick line per improvement.
+    json_path:   a JSON array of {"state": {"state_num", "time",
+                 "tree", "lnL"}} objects, valid JSON after every
+                 snapshot (the reference patches the closing ']' in
+                 place; here the array is rewritten — snapshots are
+                 rare relative to their cost)."""
+
+    def __init__(self, names, newick_path=None, json_path=None):
+        self.names = list(names)
+        self.newick_path = newick_path
+        self.json_path = json_path
+        self._states = []
+        self._t0 = time.time()
+        if newick_path:
+            open(newick_path, "w").close()
+
+    @property
+    def active(self) -> bool:
+        return bool(self.newick_path or self.json_path)
+
+    def snapshot(self, topo, lnl: float) -> None:
+        nwk = topo.to_newick(self.names)
+        if self.newick_path:
+            with open(self.newick_path, "a") as fh:
+                fh.write(nwk + "\n")
+        if self.json_path:
+            import json
+            self._states.append({"state": {
+                "state_num": len(self._states),
+                "time": int(time.time() - self._t0),
+                "tree": nwk,
+                "lnL": round(float(lnl), 5),
+            }})
+            with open(self.json_path, "w") as fh:
+                json.dump(self._states, fh, indent=1)

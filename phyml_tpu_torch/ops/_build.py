@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # C signatures: name -> argtypes (every function returns an int error
 # code: 0, a cudaError_t, or -1 for an unsupported (ns, C) shape)
 _SLOT_ARGS = [_P] * 6 + [_I] * 7 + [_P]
-_EDOTP_ARGS = [_P] * 10 + [_I] * 6 + [_P]
+_EDOTP_ARGS = [_P] * 10 + [_I] * 7 + [_P]
 _SIGNATURES = {
     # sched tips pmats pi logw out | n_otu n_int n_slots ns C P ldt
     # | stream
@@ -47,12 +47,13 @@ _SIGNATURES = {
     # ns C n_otu n_slots | blocks per SM (int*)
     "phyml_slot_site_lse_occupancy": [_I] * 4 + [_P],
     "phyml_slot_site_lse_stream_occupancy": [_I] * 4 + [_P],
-    # sched tips pmats pi logw out | n_otu n_int n_slots ns C P B | stream
-    "phyml_batched_uppass": [_P] * 6 + [_I] * 7 + [_P],   # K3
+    # sched tips pmats pi logw out | n_otu n_int n_slots ns C P B
+    # per_entry_sched shared_params | stream
+    "phyml_batched_uppass": [_P] * 6 + [_I] * 9 + [_P],   # K3
     # ns C n_slots | blocks per SM (int*)
     "phyml_batched_uppass_occupancy": [_I] * 3 + [_P],
     # child tips pmats V Vinv pi d scd ws_clv ws_out
-    # | n_otu n_int ns C P Pw | stream
+    # | n_otu n_int ns C P Pw R | stream
     "phyml_edge_dotprods": _EDOTP_ARGS,         # K2
     "phyml_edge_dotprods_stream": _EDOTP_ARGS,  # K5
     # ns | blocks per SM (int*)

@@ -54,7 +54,15 @@ def uppass_site_lse_plain(child, tips, pmats, pi, logw):
 
     child int [n_int, 2]; tips [n_otu, ns, P]; pmats
     [B, n_nodes, C, ns, ns]; pi [B, C, ns]; logw [B, C] -> [B, P].
+    With a child table per entry, child [B, n_int, 2], each entry walks
+    its own tree, and pi [C, ns] / logw [C] may be one system for all.
     """
+    if child.dim() == 3:
+        B = pmats.shape[0]
+        pi, logw = pi.expand(B, *pi.shape[-2:]), logw.expand(B, logw.shape[-1])
+        return torch.cat([uppass_site_lse_plain(
+            child[b], tips, pmats[b:b + 1], pi[b:b + 1], logw[b:b + 1])
+            for b in range(B)])
     n_otu = tips.shape[0]
     tiny = torch.finfo(tips.dtype).tiny
     rows = child.tolist()
@@ -83,18 +91,22 @@ def uppass_site_lse_plain(child, tips, pmats, pi, logw):
 
 def _check_shapes(name, child, sched, tips, pmats, pi, logw, n_slots):
     """Raise ValueError unless the operands of uppass_site_lse (with a
-    leading batch axis) agree with each other and with a slot schedule
-    of n_slots slots."""
+    leading batch axis, and a child table and schedule per entry or one
+    for all) agree with each other and with n_slots slots."""
     n_otu, ns, _ = tips.shape
     B, n_nodes, C = pmats.shape[:3]
     n_int = n_nodes - n_otu
-    if child.shape != (n_int, 2) or pmats.shape[3:] != (ns, ns) \
-            or pi.shape != (B, C, ns) or logw.shape != (B, C):
+    lead = (B,) if child.dim() == 3 else ()
+    if child.shape != lead + (n_int, 2) or pmats.shape[3:] != (ns, ns) \
+            or pi.shape[-2:] != (C, ns) or logw.shape[-1:] != (C,) \
+            or pi.shape[:-2] != logw.shape[:-1] \
+            or pi.shape[:-2] not in ((B,), () if lead else (B,)):
         raise ValueError(f"{name}: inconsistent operand shapes")
-    if sched.shape != (n_int, 7):
+    if sched.shape != lead + (n_int, 7):
         raise ValueError(f"{name}: the schedule has shape "
-                         f"{tuple(sched.shape)}, expected ({n_int}, 7)")
-    check_schedule(name, sched, n_otu, n_nodes, n_slots)
+                         f"{tuple(sched.shape)}, expected "
+                         f"{lead + (n_int, 7)}")
+    check_schedule(name, sched.reshape(-1, 7), n_otu, n_nodes, n_slots)
 
 
 def check_schedule(name, sched, n_otu, n_nodes, n_slots):
@@ -126,12 +138,18 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
     postorder child table [n_int, 2], which the plain version walks;
     sched int32 [n_int, 7] and n_slots are its slot schedule
     (ops/clv_slots.py:build_slot_schedule), which the kernel walks.
+
+    A stack of trees, one per entry (the rapid bootstrap's replicates):
+    child [B, n_int, 2] and sched [B, n_int, 7], each entry's own, with
+    n_slots the largest of their slot counts; pi [C, ns] and logw [C]
+    may then be one system for every entry.  Still one launch.
     """
     name = "uppass_site_lse"
     batched = pmats.dim() == 5
     if not batched:
         pmats, pi, logw = pmats[None], pi[None], logw[None]
     _check_shapes(name, child, sched, tips, pmats, pi, logw, n_slots)
+    per_entry, shared = child.dim() == 3, pi.dim() == 2
     if tips.device.type == "cpu":
         out = uppass_site_lse_plain(child, tips, pmats, pi, logw)
         return out if batched else out[0]
@@ -147,10 +165,11 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
         rc = _build.library().phyml_batched_uppass(
             ptr(sched), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
             ptr(out), n_otu, n_nodes - n_otu, n_slots, ns, C, P, B,
-            _build.stream_of(tips))
+            int(per_entry), int(shared), _build.stream_of(tips))
     _build.check(rc, name, ns)
     uppass_site_lse.launches += 1
-    by_b = uppass_site_lse.launches_by_batch
+    by_b = uppass_site_lse.launches_by_trees if per_entry \
+        else uppass_site_lse.launches_by_batch
     by_b[B] = by_b.get(B, 0) + 1
     return out if batched else out[0]
 
@@ -165,7 +184,10 @@ def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
     return blocks.value
 
 
-# launches in all, and by batch size B (the optimizer's probes are B = 1
-# and 2, its line-search grid 13 per free scalar)
+# launches in all; by batch size B of one schedule (the optimizer's
+# probes are B = 1 and 2, its line-search grid 13 per free scalar), and
+# by the number of stacked trees with a schedule each (the rapid
+# bootstrap's replicates)
 uppass_site_lse.launches = 0
 uppass_site_lse.launches_by_batch = {}
+uppass_site_lse.launches_by_trees = {}

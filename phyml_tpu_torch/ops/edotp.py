@@ -43,8 +43,14 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
 
     child int [n_int, 2]; tips [n_otu, ns, P]; pmats
     [n_nodes, C, ns, ns]; V, Vinv [C, ns, ns]; pi [C, ns]
-    -> (d [n_nodes, C, ns, P], sc_d [n_nodes, C, P]).
+    -> (d [n_nodes, C, ns, P], sc_d [n_nodes, C, P]).  A stack of R
+    trees, child [R, n_int, 2] and pmats [R, n_nodes, C, ns, ns], gives
+    d [R, n_nodes, C, ns, P] and sc_d [R, n_nodes, C, P], tree by tree.
     """
+    if child.dim() == 3:
+        outs = [edge_dotprods_plain(c, tips, pm, V, Vinv, pi)
+                for c, pm in zip(child, pmats)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     n_otu, ns, P = tips.shape
     n_nodes, C = pmats.shape[:2]
     n_int = n_nodes - n_otu
@@ -111,9 +117,9 @@ def geometry(ns: int, C: int, P: int) -> dict:
 def check_child_table(name: str, child, n_otu: int) -> None:
     """The kernels' contract on the child table (each block checks it
     and traps): row i's children lie in [0, n_otu + i), the postorder
-    both sweeps walk.  Checked here for CPU tables."""
+    both sweeps walk.  Checked here for CPU tables (each of a stack)."""
     rows = torch.as_tensor(child).to(torch.int64)
-    limit = n_otu + torch.arange(rows.shape[0])[:, None]
+    limit = n_otu + torch.arange(rows.shape[-2])[:, None]
     if bool(((rows < 0) | (rows >= limit)).any()):
         raise ValueError(f"{name}: the child table is not a postorder of "
                          f"{n_otu} tips (a child outside [0, n_otu + i) "
@@ -122,67 +128,75 @@ def check_child_table(name: str, child, n_otu: int) -> None:
 
 def _check_shapes(name, child, tips, pmats, V, Vinv, pi):
     n_otu, ns, P = tips.shape
-    n_nodes, C = pmats.shape[:2]
+    lead = tuple(child.shape[:-2])  # (R,) for a stack of trees
+    n_nodes, C = pmats.shape[len(lead):len(lead) + 2]
     n_int = n_nodes - n_otu
-    if n_int < 1 or child.shape != (n_int, 2) or \
-            pmats.shape[2:] != (ns, ns) or V.shape != (C, ns, ns) or \
-            Vinv.shape != (C, ns, ns) or pi.shape != (C, ns):
+    if n_int < 1 or len(lead) > 1 or child.shape != lead + (n_int, 2) or \
+            pmats.shape != lead + (n_nodes, C, ns, ns) or \
+            V.shape != (C, ns, ns) or Vinv.shape != (C, ns, ns) or \
+            pi.shape != (C, ns):
         raise ValueError(f"{name}: inconsistent operand shapes")
     if child.device.type == "cpu":
         check_child_table(name, child, n_otu)
 
 
-def _launch_edotp(fn_name, name, child, tips, pmats, V, Vinv, pi):
+def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
     """Check the operands and launch one of the edge-dot-product
-    kernels (K2, K5), which share a C signature; returns (d, sc_d)."""
+    kernels (K2, K5), which share a C signature, once for one tree or
+    a stack of R trees (grid.z); count the launch on `wrapper`, by R for
+    a stack.  Returns (d, sc_d)."""
+    name = wrapper.__name__
     _build.check_operands(name, ints=(child,),
                           floats=(tips, pmats, V, Vinv, pi))
     # the tile products read the P-matrices in 16-byte pieces
     _build.check_aligned(name, pmats)
     n_otu, ns, P = tips.shape
-    n_nodes, C = pmats.shape[:2]
+    lead = tuple(child.shape[:-2])
+    n_nodes, C = pmats.shape[len(lead):len(lead) + 2]
     n_int = n_nodes - n_otu
     Pw = geometry(ns, C, P)["Pw"]
     dev = tips.device
     f32 = dict(dtype=torch.float32, device=dev)
-    d = torch.empty((n_nodes, C, ns, P), **f32)
-    sc_d = torch.empty((n_nodes, C, P), **f32)
+    d = torch.empty(lead + (n_nodes, C, ns, P), **f32)
+    sc_d = torch.empty(lead + (n_nodes, C, P), **f32)
     # partials and pushed outside partials, row ns their log2 scales
-    ws = [torch.empty((n_int, C, ns + 1, Pw), **f32) for _ in range(2)]
+    ws = [torch.empty(lead + (n_int, C, ns + 1, Pw), **f32)
+          for _ in range(2)]
+    R = lead[0] if lead else 1
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
         rc = getattr(_build.library(), fn_name)(
             ptr(child), ptr(tips), ptr(pmats), ptr(V), ptr(Vinv),
             ptr(pi), ptr(d), ptr(sc_d), *map(ptr, ws), n_otu, n_int, ns,
-            C, P, Pw, _build.stream_of(tips))
+            C, P, Pw, R, _build.stream_of(tips))
     _build.check(rc, name, ns)
+    wrapper.launches += 1
+    if lead:
+        wrapper.launches_by_trees[R] = wrapper.launches_by_trees.get(R, 0) + 1
     return d, sc_d
 
 
 def edge_dotprods(child, tips, pmats, V, Vinv, pi):
-    """(d, sc_d) via K2 (same contract as edge_dotprods_plain)."""
+    """(d, sc_d) via K2 (same contract as edge_dotprods_plain, one
+    launch for a stack of trees)."""
     _check_shapes("edge_dotprods", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    out = _launch_edotp("phyml_edge_dotprods", "edge_dotprods", child,
-                        tips, pmats, V, Vinv, pi)
-    edge_dotprods.launches += 1
-    return out
+    return _launch_edotp(edge_dotprods, "phyml_edge_dotprods", child,
+                         tips, pmats, V, Vinv, pi)
 
 
 def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
     """(d, sc_d) via K5, the streamed edge-dot-product kernel.  It
     computes K2's function, so its plain version is K2's,
-    edge_dotprods_plain (same contract), which runs for CPU
-    tensors."""
+    edge_dotprods_plain (same contract, one launch for a stack of
+    trees), which runs for CPU tensors."""
     _check_shapes("edge_dotprods_stream", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    out = _launch_edotp("phyml_edge_dotprods_stream",
-                        "edge_dotprods_stream", child, tips, pmats, V,
-                        Vinv, pi)
-    edge_dotprods_stream.launches += 1
-    return out
+    return _launch_edotp(edge_dotprods_stream,
+                         "phyml_edge_dotprods_stream", child, tips, pmats,
+                         V, Vinv, pi)
 
 
 def blocks_per_sm(ns: int, stream: bool) -> int:
@@ -196,5 +210,8 @@ def blocks_per_sm(ns: int, stream: bool) -> int:
     return blocks.value
 
 
+# launches in all, and those of a stack of trees by the stack's size R
 edge_dotprods.launches = 0
+edge_dotprods.launches_by_trees = {}
 edge_dotprods_stream.launches = 0
+edge_dotprods_stream.launches_by_trees = {}

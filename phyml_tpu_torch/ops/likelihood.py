@@ -19,6 +19,10 @@ kernels avx.c/sse.c).  Design:
         for the line search
       - `edge_dotprods_sys`                 -> K2, or K5 when streamed
         (ops/edotp.py)
+      - `_loglik_sys` / `edge_dotprods_sys` on a stack of trees (child
+        [R, n_int, 2], blen [R, n_nodes]; the rapid bootstrap's
+        replicates under one system) -> one launch of K3 with a slot
+        schedule per tree, and of K2 or K5 with a tree axis
     One rule picks the streamed pair (`kernel_route`): the tree's
     P-matrices of one class no longer fit a warp's share of an SM.
     On CUDA tensors these launch the hand-written kernels; on CPU
@@ -110,7 +114,8 @@ def default_device(device=None) -> torch.device:
 
 
 class TreeArrays(NamedTuple):
-    """Topology + branch lengths (see topology.RootedView)."""
+    """Topology + branch lengths (see topology.RootedView); a stack of
+    R trees of one taxon set carries a leading axis on both."""
     child: torch.Tensor  # int32 [n_internal, 2] on the host, postorder,
     #                      last row = root
     blen: torch.Tensor   # [n_nodes] edge length to parent, on device
@@ -232,8 +237,9 @@ class LikelihoodEngine(nn.Module):
 
     def _pmats(self, lam, V, Vinv, blen):
         """P [..., n_nodes, C, ns, ns]; class rates are folded into
-        lam, whose leading batch shape (if any) leads the result."""
-        t = blen.to(self.dtype)[:, None].expand(self.n_nodes, self.C)
+        lam, whose leading batch shape (if any) leads the result, or
+        that of blen [R, n_nodes] for a stack of trees."""
+        t = blen.to(self.dtype)[..., None].expand(*blen.shape, self.C)
         return pmat(lam, V, Vinv, t).contiguous()
 
     def _pmats_cached(self, sys, tree):
@@ -255,17 +261,25 @@ class LikelihoodEngine(nn.Module):
 
     def _topology(self, child):
         """(device child table, device slot schedule, the schedule's
-        slot count) for a host child table, cached by its bytes."""
+        slot count) for a host child table, cached by its bytes.  A
+        stack of tables [R, n_int, 2] gives the stacked tables and
+        schedules [R, n_int, 7] and the largest of their slot counts."""
         host = np.ascontiguousarray(np.asarray(child, dtype=np.int32))
-        key = host.tobytes()
+        key = (host.shape, host.tobytes())
         hit = self._topo_cache.get(key)
         if hit is not None:
             self._topo_cache.move_to_end(key)
             return hit
-        sched, n_slots = build_slot_schedule(self.n_otu, host)
-        assert n_slots <= self.slot_count, (n_slots, self.slot_count)
-        hit = (torch.as_tensor(host, device=self.device),
-               torch.as_tensor(sched, device=self.device), n_slots)
+        if host.ndim == 3:
+            per = [self._topology(c) for c in host]
+            hit = (torch.stack([h[0] for h in per]),
+                   torch.stack([h[1] for h in per]),
+                   max(h[2] for h in per))
+        else:
+            sched, n_slots = build_slot_schedule(self.n_otu, host)
+            assert n_slots <= self.slot_count, (n_slots, self.slot_count)
+            hit = (torch.as_tensor(host, device=self.device),
+                   torch.as_tensor(sched, device=self.device), n_slots)
         self._topo_cache[key] = hit
         while len(self._topo_cache) > 1024:
             self._topo_cache.popitem(last=False)
@@ -313,8 +327,12 @@ class LikelihoodEngine(nn.Module):
     def _site_logliks_sys(self, sys, tree: TreeArrays):
         """Site log-likelihoods [..., P] for a system whose leading
         batch shape (none, or [B]) is carried through one launch: one
-        system through the route's slot kernel, a batch through K3."""
+        system through the route's slot kernel, a batch through K3.  A
+        stack of R trees under one system gives [R, P], through one K3
+        launch with a slot schedule per tree."""
         lam, V, Vinv, pi, w, pinv = sys
+        if tree.child.dim() == 3 and lam.dim() != 2:
+            raise ValueError("a stack of trees takes one system")
         pm = self._pmats(lam, V, Vinv, tree.blen)
         if pm.dim() == 4:
             lse = self._slot_site_lse(tree, pm, pi, w)
@@ -325,6 +343,9 @@ class LikelihoodEngine(nn.Module):
         return self._mix_invar(lse.to(self.dtype), pi, w, pinv)
 
     def _loglik_sys(self, sys, tree: TreeArrays, weights=None):
+        """Weighted lnL: 0-d for one system and tree, [B] for a batch
+        of systems, [R] for a stack of trees (weights [R, P], each
+        tree's own pattern weights applied after the kernel)."""
         site = self._site_logliks_sys(sys, tree)
         return torch.sum(site.double() * self._w(weights), dim=-1)
 
@@ -369,7 +390,13 @@ class LikelihoodEngine(nn.Module):
         utilities.c:6152).  A leading candidate axis of the mask scores
         a block of prune candidates on one child table and one set of
         P-matrices; the node axis is stored first and moved behind the
-        candidate axis in the views returned."""
+        candidate axis in the views returned.
+
+        A stack of trees (child [R, n_internal, 2], pmats [R, n_nodes,
+        C, ns, ns]; no mask) gives [R, n_nodes, ...]: each step gathers
+        every tree's own children (the rapid bootstrap's NNI scorer)."""
+        if child.dim() == 3:
+            return self._up_pass_stacked(pmats, child, mask)
         n, C, ns, P = self.n_otu, self.C, self.ns, self.P
         lead, md, rows = self._scan_mask(mask)
         one = (1,) * len(lead)
@@ -397,11 +424,78 @@ class LikelihoodEngine(nn.Module):
         k = len(lead)
         return pup.movedim(0, k), clv.movedim(0, k), sc.movedim(0, k)
 
+    def _stack_rows(self, child, mask):
+        """(device long child table [R, n_internal, 2], arange(R)) of a
+        stack of trees for the stacked passes, which take no mask."""
+        if mask is not None:
+            raise ValueError("the stacked passes take no prune mask")
+        table = self._topology(child)[0].long()
+        return table, torch.arange(table.shape[0], device=self.device)
+
+    def _up_pass_stacked(self, pmats, child, mask):
+        """_up_pass of a stack of trees: node axis stored first, each
+        step's children gathered per tree (row i of every tree makes
+        node n_otu + i)."""
+        n, C, ns, P = self.n_otu, self.C, self.ns, self.P
+        table, ar = self._stack_rows(child, mask)
+        R = table.shape[0]
+        pup = self.tips.new_zeros((self.n_nodes, R, C, ns, P))
+        clv = torch.zeros_like(pup)
+        sc = self.tips.new_zeros((self.n_nodes, R, C, P))
+        tip_clv = self.tips[:, None].expand(n, C, ns, P)
+        pup[:n] = torch.einsum("rncxy,ncyp->nrcxp", pmats[:, :n], tip_clv)
+        clv[:n] = tip_clv[:, None]
+        for i in range(self.n_internal):
+            u = n + i
+            c0, c1 = table[:, i, 0], table[:, i, 1]
+            x = pup[c0, ar] * pup[c1, ar]                # [R, C, ns, P]
+            m = torch.clamp(torch.amax(x, dim=-2, keepdim=True),
+                            min=self._tiny)
+            x = x / m
+            sc[u] = sc[c0, ar] + sc[c1, ar] + torch.log(m[..., 0, :])
+            pup[u] = torch.einsum("rcxy,rcyp->rcxp", pmats[:, u], x)
+            clv[u] = x
+        return pup.movedim(0, 1), clv.movedim(0, 1), sc.movedim(0, 1)
+
+    def _down_pass_stacked(self, pmats, child, pup, sc, pi, mask):
+        """_down_pass of a stack of trees (pup and sc _up_pass_stacked's,
+        [R, n_nodes, ...])."""
+        n = self.n_otu
+        table, ar = self._stack_rows(child, mask)
+        pup, sc = pup.movedim(1, 0), sc.movedim(1, 0)
+        out = torch.zeros_like(pup)
+        sc_out = torch.zeros_like(sc)
+        r0, r1 = table[:, -1, 0], table[:, -1, 1]
+        pi_b = pi[:, :, None]
+        out[r0, ar] = pi_b * pup[r1, ar]
+        sc_out[r0, ar] = sc[r1, ar]
+        out[r1, ar] = pi_b * pup[r0, ar]
+        sc_out[r1, ar] = sc[r0, ar]
+        for i in range(self.n_internal - 2, -1, -1):
+            u = n + i
+            c0, c1 = table[:, i, 0], table[:, i, 1]
+            p0, p1, s0, s1 = pup[c0, ar], pup[c1, ar], sc[c0, ar], sc[c1, ar]
+            grand = torch.einsum("rcwz,rcwp->rczp", pmats[:, u], out[u])
+            o0 = grand * p1
+            o1 = grand * p0
+            m0 = torch.clamp(torch.amax(o0, dim=-2, keepdim=True),
+                             min=self._tiny)
+            m1 = torch.clamp(torch.amax(o1, dim=-2, keepdim=True),
+                             min=self._tiny)
+            out[c0, ar] = o0 / m0
+            out[c1, ar] = o1 / m1
+            sc_out[c0, ar] = sc_out[u] + s1 + torch.log(m0[..., 0, :])
+            sc_out[c1, ar] = sc_out[u] + s0 + torch.log(m1[..., 0, :])
+        return out.movedim(0, 1), sc_out.movedim(0, 1)
+
     def _down_pass(self, pmats, child, pup, sc, pi, mask=None):
         """Outside partials O[u]: the likelihood of all data outside
         subtree(u), conditional on the state at u's parent.  `mask` as
         in _up_pass (a masked child's sibling sees a unit factor in
-        place of the masked subtree); pup and sc are _up_pass's."""
+        place of the masked subtree); pup and sc are _up_pass's.  A
+        stack of trees as in _up_pass."""
+        if child.dim() == 3:
+            return self._down_pass_stacked(pmats, child, pup, sc, pi, mask)
         n = self.n_otu
         rows = child.tolist()
         lead, md, mrows = self._scan_mask(mask)
@@ -500,15 +594,22 @@ class LikelihoodEngine(nn.Module):
         length alone is
             L_u(t)[c, p] = exp(sc_d[u, c, p]) * sum_i d[u,c,i,p] e^{lam[c,i] t}.
         The rows for the root and for the zero-length root child are
-        meaningless and must be masked by the caller."""
+        meaningless and must be masked by the caller.  A stack of R
+        trees (one system, weights [R, P]) gives d [R, n_nodes, C, ns,
+        P] and sc_d [R, n_nodes, C, P] from one launch."""
         lam, V, Vinv, pi, w, pinv = sys
+        if tree.child.dim() == 3 and lam.dim() != 2:
+            raise ValueError("a stack of trees takes one system")
         child, _, _ = self._topology(tree.child)
         edotp = edge_dotprods if self.edotp_route == "K2" \
             else edge_dotprods_stream
         d, sc_d = edotp(child, self.tips,
                         self._pmats(lam, V, Vinv, tree.blen), V, Vinv, pi)
-        return d.to(self.dtype), sc_d.to(self.dtype), \
-            self._aux(sys, weights)
+        aux = self._aux(sys, weights)
+        if child.dim() == 3:
+            # each tree's weights [R, 1, P] meet its nodes' site terms
+            aux["weights"] = aux["weights"][:, None, :]
+        return d.to(self.dtype), sc_d.to(self.dtype), aux
 
     def edge_site_terms(self, d_n, sc_n, aux, t):
         """Per-site (log-likelihood, dlnL, d2lnL) as a function of ONE

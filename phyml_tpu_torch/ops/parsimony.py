@@ -13,11 +13,18 @@ import numpy as np
 import torch
 
 
-def _tip_masks(aln) -> np.ndarray:
-    """[n_otu, P] int64 bitmasks of compatible states per pattern."""
-    compat = (aln.partials > 0)                     # [n_otu, P, ns]
-    return (compat.astype(np.int64) <<
-            np.arange(aln.ns, dtype=np.int64)[None, None, :]).sum(-1)
+def _tip_masks(aln, P_pad: int) -> np.ndarray:
+    """[n_otu, P_pad] int32 bitmasks of compatible states per pattern;
+    padding columns (P_pad beyond the alignment's patterns) hold every
+    state (phyml_tpu/ops/parsimony.py:18)."""
+    compat = (aln.partials > 0)                     # [n_otu, P_raw, ns]
+    ns = aln.ns
+    bits = (compat.astype(np.int64) <<
+            np.arange(ns, dtype=np.int64)[None, None, :]).sum(-1)
+    pad = P_pad - bits.shape[1]
+    full = (1 << ns) - 1
+    bits = np.pad(bits, ((0, 0), (0, pad)), constant_values=full)
+    return bits.astype(np.int32)
 
 
 def parsimony_score(engine, topo, weights=None) -> int:
@@ -26,7 +33,7 @@ def parsimony_score(engine, topo, weights=None) -> int:
     masks = getattr(engine, "_pars_masks", None)
     if masks is None:
         masks = engine._pars_masks = torch.as_tensor(
-            _tip_masks(engine.aln), device=engine.device)
+            _tip_masks(engine.aln, engine.P), device=engine.device)
     w = engine.weights if weights is None else weights
     n = engine.n_otu
     state = list(masks)

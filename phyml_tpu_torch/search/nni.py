@@ -72,7 +72,12 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     of the reference's 5-branch NNI evaluation (alrt.c:32
     Check_NNI_Five_Branches; only the grandparent edge u stays
     fixed).  Returns (lnl [E, 3] float64, (t1, t2, t3, tc), site
-    [E, 3, P])."""
+    [E, 3, P]).
+
+    A stack of R trees (the rapid bootstrap's replicates: child
+    [R, n_int, 2], blen [R, n_nodes], cand [R, E, 5], weights [R, P])
+    runs the passes once for all trees (_up_pass's stacked form) and
+    scores the R * E edges as one batch of rows; results [R, E, ...]."""
     lam, V, Vinv, pi, w, pinv = sys
     blen = tree.blen.to(engine.dtype)
     pmats = engine._pmats(lam, V, Vinv, blen)
@@ -82,12 +87,22 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
 
     cand = torch.as_tensor(np.asarray(cand), dtype=torch.long,
                            device=engine.device)
+    lead = cand.shape[:-1]                  # (E,), or (R, E) for a stack
+    cand = cand.reshape(-1, 5)
+    aux = engine._aux(sys, weights)
+    if len(lead) == 2:
+        # row r * E + e is edge e of tree r
+        rows = torch.arange(lead[0], device=engine.device) \
+            .repeat_interleave(lead[1])
+        at = lambda x, k: x[rows, k]
+        aux["weights"] = aux["weights"][rows][:, None, :]
+    else:
+        at = lambda x, k: x[k]
     v, u, a, b, s = (cand[:, k] for k in range(5))
     # out[v] = (P_u^T out[u]) . pup[s]: the config-independent
     # outside factor above the central edge
-    G = torch.einsum("ecwz,ecwp->eczp", pmats[u], out[u])
-    sc_tot = sc[a] + sc[b] + sc[s] + sc_out[u]           # [E, C, P]
-    aux = engine._aux(sys, weights)
+    G = torch.einsum("ecwz,ecwp->eczp", at(pmats, u), at(out, u))
+    sc_tot = at(sc, a) + at(sc, b) + at(sc, s) + at(sc_out, u)  # [E, C, P]
     C, ns = engine.C, engine.ns
     E = cand.shape[0]
 
@@ -112,14 +127,16 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
         return torch.einsum("ekcyx,ekcyp->ekcxp", P, x)
 
     # per-config subtree roles: children (x1, x2) and sibling x3
-    C1 = torch.stack([clv[a], clv[a], clv[b]], 1)        # [E, 3, C, ns, P]
-    C2 = torch.stack([clv[b], clv[s], clv[s]], 1)
-    C3 = torch.stack([clv[s], clv[b], clv[a]], 1)
-    del clv, out
-    t1 = torch.stack([blen[a], blen[a], blen[b]], 1)
-    t2 = torch.stack([blen[b], blen[s], blen[s]], 1)
-    t3 = torch.stack([blen[s], blen[b], blen[a]], 1)
-    tc = blen[v][:, None].expand(E, 3)
+    ca, cb, cs = at(clv, a), at(clv, b), at(clv, s)
+    C1 = torch.stack([ca, ca, cb], 1)                    # [E, 3, C, ns, P]
+    C2 = torch.stack([cb, cs, cs], 1)
+    C3 = torch.stack([cs, cb, ca], 1)
+    del clv, out, ca, cb, cs
+    la, lb, ls = at(blen, a), at(blen, b), at(blen, s)
+    t1 = torch.stack([la, la, lb], 1)
+    t2 = torch.stack([lb, ls, ls], 1)
+    t3 = torch.stack([ls, lb, la], 1)
+    tc = at(blen, v)[:, None].expand(E, 3)
     t1, t2, t3, tc = (torch.clamp(t, BL_MIN, BL_MAX)
                       for t in (t1, t2, t3, tc))
     Gb = G[:, None]                                      # [E, 1, C, ns, P]
@@ -148,7 +165,9 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
     site, _, _ = engine.edge_site_terms(d, sc_d, aux, tc)
     lnl = torch.sum(site.double() * aux["weights"], dim=-1)  # [E, 3]
-    return lnl, (t1, t2, t3, tc), site
+    return lnl.reshape(lead + (3,)), \
+        tuple(t.reshape(lead + (3,)) for t in (t1, t2, t3, tc)), \
+        site.reshape(lead + (3, -1))
 
 
 def nni_scores(engine, params, tree: TreeArrays, cand: np.ndarray,
@@ -164,6 +183,20 @@ def nni_scores(engine, params, tree: TreeArrays, cand: np.ndarray,
     if return_site:
         out = out + (site.cpu().numpy(),)
     return out
+
+
+def nni_scores_batched(engine, params, trees: TreeArrays, cands, weights):
+    """NNI scoring for a stack of R replicates: trees stacked TreeArrays
+    (child [R, n_int, 2], blen [R, n_nodes]), cands [R, E, 5], weights
+    [R, P].  Returns (lnl [R, E, 3], t_opt tuple of [R, E, 3]) as numpy.
+
+    phyml_tpu vmaps its scorer over the replicates; here one call of
+    the scorer takes the stack (its scan passes gather each tree's
+    children step by step, and the R * E edges are scored as one
+    batch)."""
+    lnl, ts, _ = _nni_scorer(engine, engine.system_of(params), trees,
+                             cands, weights)
+    return lnl.cpu().numpy(), tuple(t.cpu().numpy() for t in ts)
 
 
 def _apply_swaps(topo, rv, cand, chosen, t_opt):

@@ -852,3 +852,283 @@ def test_spr_scores_on_the_card(cuda, datatype):
     assert np.array_equal(np.isneginf(lnl), ~valid)
     np.testing.assert_allclose(lnl[valid], lnl64[valid], rtol=0,
                                atol=SEARCH_LNL_TOL)
+
+
+# ----------------------------------------------------------------------
+# the rapid bootstrap's forms: K3 with a slot schedule per batch entry,
+# K2/K5 with a tree axis (one launch for a stack of replicate trees)
+# ----------------------------------------------------------------------
+
+SHAPES = ["caterpillar", "balanced", "random"]
+
+
+def _stack_setup(cuda, datatype, n=32, sites=400, seed=9):
+    """One simulated alignment and a stack of three trees of different
+    shapes on its taxa: (engine, stacked TreeArrays, the trees' own
+    TreeArrays, system, stacked P-matrices)."""
+    from phyml_tpu_torch.ops.likelihood import TreeArrays
+
+    rng = np.random.default_rng(seed)
+    topos = [_tree_of(s, n, rng) for s in SHAPES]
+    eng, _, sys_, _ = _simulated_setup(cuda, 4, n, sites, seed, datatype,
+                                       topos[2])
+    trees = [tree_arrays(t.rooted(), device=cuda) for t in topos]
+    stack = TreeArrays(torch.stack([t.child for t in trees]),
+                       torch.stack([t.blen for t in trees]))
+    pm = eng._pmats(sys_[0], sys_[1], sys_[2], stack.blen)
+    return eng, stack, trees, sys_, pm
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["one-system",
+                                                       "system-each"])
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_k3_schedule_per_entry_matches_plain_and_single_launches(
+        cuda, datatype, shared):
+    """A caterpillar, a balanced and a random tree in one K3 launch,
+    each entry walking its own schedule (n_slots the largest of theirs):
+    against the plain version walking each entry's child table, and
+    equal, entry by entry, to one launch per tree on its own schedule
+    (the per-entry form moves only base pointers)."""
+    eng, stack, trees, sys_, pm = _stack_setup(cuda, datatype)
+    child, sched, n_slots = eng._topology(stack.child)
+    assert sched.shape == (3, eng.n_internal, 7)
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    if not shared:
+        pi = torch.stack([pi, pi.flip(-1), pi])
+        logw = logw.expand(3, eng.C).contiguous()
+    n0 = clv.uppass_site_lse.launches_by_trees.get(3, 0)
+    got = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
+                              n_slots=n_slots)
+    torch.cuda.synchronize()
+    assert clv.uppass_site_lse.launches_by_trees[3] == n0 + 1
+    ref = clv.uppass_site_lse_plain(child, eng.tips, pm, pi, logw)
+    tol = K13_TOL if datatype == "nt" else AA_TOL
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+    for r, t in enumerate(trees):
+        c1, s1, k1 = eng._topology(t.child)
+        one = clv.uppass_site_lse(
+            c1, eng.tips, pm[r:r + 1], pi[r:r + 1] if not shared
+            else pi[None], logw[r:r + 1] if not shared else logw[None],
+            sched=s1, n_slots=k1)
+        torch.testing.assert_close(got[r], one[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+@pytest.mark.parametrize("kernel", ["K2", "K5"])
+def test_edotp_tree_axis_matches_plain_and_single_launches(cuda, kernel,
+                                                           datatype):
+    """Three trees of different shapes in one K2/K5 launch (grid.z):
+    each tree's per-edge site terms within K2_TOL of the plain version
+    (beyond the float32 plain version's own gap, _site_terms_gaps), and
+    d and sc_d equal to one launch per tree."""
+    eng, stack, trees, sys_, pm = _stack_setup(cuda, datatype)
+    lam, V, Vinv, pi, w, _ = sys_
+    f = _edotp_kernel(kernel)
+    child, _, _ = eng._topology(stack.child)
+    n0, b0 = f.launches, f.launches_by_trees.get(3, 0)
+    d, sc = f(child, eng.tips, pm, V, Vinv, pi)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_by_trees[3]) == (n0 + 1, b0 + 1)
+    assert d.shape == (3, eng.n_nodes, eng.C, eng.ns, eng.P)
+    for r, t in enumerate(trees):
+        c1, _, _ = eng._topology(t.child)
+        d1, sc1 = f(c1, eng.tips, pm[r].contiguous(), V, Vinv, pi)
+        torch.testing.assert_close(d[r], d1, rtol=0, atol=0)
+        torch.testing.assert_close(sc[r], sc1, rtol=0, atol=0)
+        k_err, plain_err = _site_terms_gaps(
+            eng, t, sys_, pm[r].contiguous(),
+            lambda *a, _d=d[r], _s=sc[r]: (_d, _s))
+        assert k_err < plain_err + K2_TOL
+
+
+def test_stacks_take_one_launch_in_the_engine(cuda):
+    """The engine's stacked _loglik_sys (K3, a schedule per tree) and
+    edge_dotprods_sys (K2 at this shape, a tree axis): one launch each,
+    lnL per tree as the tree's own host lnL (K1) under its weights."""
+    eng, stack, trees, sys_, _ = _stack_setup(cuda, "nt")
+    rng = np.random.default_rng(4)
+    W = torch.as_tensor(rng.integers(0, 3, (3, eng.P)), dtype=torch.float64,
+                        device=cuda)
+    k3 = clv.uppass_site_lse.launches
+    lnl = eng._loglik_sys(sys_, stack, W)
+    assert clv.uppass_site_lse.launches == k3 + 1
+    for r, t in enumerate(trees):
+        one = float(torch.sum(eng._site_logliks_sys(sys_, t).double() * W[r]))
+        assert abs(float(lnl[r]) - one) <= K13_TOL * float(W[r].sum())
+    k2 = edotp.edge_dotprods.launches
+    d, sc_d, aux = eng.edge_dotprods_sys(sys_, stack, W)
+    assert edotp.edge_dotprods.launches == k2 + 1
+    assert aux["weights"].shape == (3, 1, eng.P)
+
+
+_BAD_STACK = """
+import sys
+import numpy as np
+import torch
+from phyml_tpu_torch.ops import clv, edotp
+from phyml_tpu_torch.ops.clv_slots import build_slot_schedule
+from phyml_tpu_torch.topology import Topology
+
+rng = np.random.default_rng(0)
+n, ns, P, C, R = 20, int(sys.argv[1]), 300, 4, 3
+child = np.stack([np.asarray(Topology.random(n, rng).rooted().child,
+                             dtype=np.int32) for _ in range(R)])
+cuda = torch.device("cuda")
+f = lambda *shape: torch.rand(*shape, device=cuda)
+pm = f(R, 2 * n - 1, C, ns, ns).contiguous()
+try:
+    if sys.argv[2] == "K3":
+        built = [build_slot_schedule(n, c) for c in child]
+        sched = np.stack([s for s, _ in built])
+        sched[1, -1, 0] = 2 * n          # tree 1: a node past the tree
+        clv.uppass_site_lse(torch.as_tensor(child, device=cuda),
+                            f(n, ns, P), pm, f(C, ns), f(C),
+                            sched=torch.as_tensor(sched, device=cuda),
+                            n_slots=max(k for _, k in built))
+    else:
+        child[2, 0, 0] = n + 5           # tree 2: out of postorder
+        fn = edotp.edge_dotprods if sys.argv[2] == "K2" \\
+            else edotp.edge_dotprods_stream
+        fn(torch.as_tensor(child, device=cuda), f(n, ns, P), pm,
+           f(C, ns, ns), f(C, ns, ns), f(C, ns))
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("raised:", exc)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K2", "K5"])
+@pytest.mark.parametrize("ns", [4, 20])
+def test_stacked_forms_trap_on_a_bad_tree_in_the_stack(cuda, ns, kernel):
+    """Each block checks its own tree's schedule (K3) or child table
+    (K2/K5): a bad one in any tree of the stack traps."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_STACK, str(ns), kernel],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "raised:" in run.stdout
+
+
+BATCHED_LNL_TOL = 0.1    # lnL of a fit at 40 x 400, card f32 vs CPU f64
+#                          (chip_smoke.py's E2E_TOL: the two stop at
+#                          slightly different points of a flat optimum)
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_batched_branch_lengths_on_the_card(cuda, datatype):
+    """optimize_branch_lengths_batched on three replicate trees with
+    their bootstrap weights: card float32 against CPU float64, lnL per
+    replicate within BATCHED_LNL_TOL; the card's evaluations go through
+    the stacked forms only."""
+    from phyml_tpu_torch.ops.likelihood import TreeArrays
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths_batched
+    from phyml_tpu_torch.search.support import replicate_weights
+
+    eng, eng64, params, *_ = _search_setup(cuda, datatype)
+    rng = np.random.default_rng(5)
+    rvs = [Topology.random(eng.n_otu, rng, mean_blen=0.1).rooted()
+           for _ in range(3)]
+    W = np.stack([replicate_weights(eng, 7, r, False) for r in range(3)])
+    out = {}
+    edge = edotp.edge_dotprods if eng.edotp_route == "K2" \
+        else edotp.edge_dotprods_stream
+    for e, dt, dev in ((eng, torch.float32, cuda),
+                       (eng64, torch.float64, "cpu")):
+        tas = [tree_arrays(rv, dtype=dt, device=dev) for rv in rvs]
+        stack = TreeArrays(torch.stack([t.child for t in tas]),
+                           torch.stack([t.blen for t in tas]))
+        n3, ne = dict(clv.uppass_site_lse.launches_by_trees), edge.launches
+        k3b = dict(clv.uppass_site_lse.launches_by_batch)
+        out[dev if dev == "cpu" else "gpu"] = optimize_branch_lengths_batched(
+            e, params, stack, torch.as_tensor(W, device=dev))
+        if dev != "cpu":
+            assert edge.launches_by_trees and edge.launches > ne
+            assert sum(clv.uppass_site_lse.launches_by_trees.values()) > \
+                sum(n3.values())
+            assert clv.uppass_site_lse.launches_by_batch == k3b
+    (tg, lg), (tc, lc) = out["gpu"], out["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=0, atol=BATCHED_LNL_TOL)
+    assert np.all(np.isfinite(tg.blen.cpu().numpy()))
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_nni_scores_batched_on_the_card(cuda, datatype):
+    """The NNI scorer on a stack of three replicate trees with their
+    weights (one pass over the stack): each replicate's lnL within
+    SEARCH_LNL_TOL of the CPU's float64 and of the card's single-tree
+    scorer."""
+    from phyml_tpu_torch.ops.likelihood import TreeArrays
+    from phyml_tpu_torch.search.nni import (
+        candidate_arrays, nni_scores, nni_scores_batched,
+    )
+    from phyml_tpu_torch.search.support import replicate_weights
+
+    eng, eng64, params, *_ = _search_setup(cuda, datatype)
+    rng = np.random.default_rng(6)
+    rvs = [Topology.random(eng.n_otu, rng, mean_blen=0.1).rooted()
+           for _ in range(3)]
+    W = np.stack([replicate_weights(eng, 8, r, False) for r in range(3)])
+    cands = np.stack([candidate_arrays(rv) for rv in rvs])
+    lnl = {}
+    for tag, e, dt, dev in (("gpu", eng, torch.float32, cuda),
+                            ("cpu", eng64, torch.float64, "cpu")):
+        tas = [tree_arrays(rv, dtype=dt, device=dev) for rv in rvs]
+        stack = TreeArrays(torch.stack([t.child for t in tas]),
+                           torch.stack([t.blen for t in tas]))
+        w = torch.as_tensor(W, device=dev)
+        lnl[tag] = nni_scores_batched(e, params, stack, cands, w)[0]
+        if tag == "gpu":
+            one = np.stack([nni_scores(e, params, t, c, weights=w_r)[0]
+                            for t, c, w_r in zip(tas, cands, w)])
+    assert lnl["gpu"].shape == (3, eng.n_otu - 3, 3)
+    np.testing.assert_allclose(lnl["gpu"], lnl["cpu"], rtol=0,
+                               atol=SEARCH_LNL_TOL)
+    np.testing.assert_allclose(lnl["gpu"], one, rtol=0, atol=SEARCH_LNL_TOL)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pars_start", "--print_trace", "--json_trace", "-b", "-5"],
+    ["--constraint_file", "CONSTRAINT", "-b", "3", "--rapid_boot"],
+    ["-b", "2", "--tbe", "--bayesian_bootstrap"]],
+    ids=["pars-trace-abayes", "constraint-rapid", "boot-tbe-bayes"])
+def test_cli_support_and_start_flags_on_the_card(cuda, flags, tmp_path):
+    """The CLI's start-tree, trace and support flags run on the card by
+    default (no --platform): a 12 x 300 DNA problem, the tree file with
+    a support on every internal edge, the trace files written."""
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.newick import parse_newick
+
+    rng = np.random.default_rng(3)
+    names = [f"t{i}" for i in range(12)]
+    aln = tmp_path / "aln.phy"
+    aln.write_text(f" 12 300\n" + "".join(
+        f"{nm:<10s}  {''.join(rng.choice(list('ACGT'), 300))}\n"
+        for nm in names))
+    constraint = tmp_path / "c.nwk"
+    constraint.write_text("((t0,t1,t2),(t3,t4),t5,t6,t7,t8,t9,t10,t11);\n")
+    argv = ["-i", str(aln), "-m", "GTR", "-c", "4", "--r_seed", "2",
+            "--quiet"] + [str(constraint) if f == "CONSTRAINT" else f
+                          for f in flags]
+    assert cli.main(argv) == 0
+    root = parse_newick((tmp_path / "aln.phy_phyml_tree.txt").read_text())
+    labels = []
+
+    def walk(node):
+        for c in node.children:
+            if c.children:
+                labels.append(c.support or c.name)
+                walk(c)
+
+    walk(root)
+    assert len(labels) == 9 and all(labels)
+    if "--print_trace" in flags:
+        # one newick line and one JSON snapshot per improvement
+        lines = (tmp_path / "aln.phy_phyml_trace.txt").read_text().split()
+        if lines:
+            import json
+            snaps = json.loads(
+                (tmp_path / "aln.phy_phyml_trace.json").read_text())
+            assert len(snaps) == len(lines)

@@ -46,9 +46,10 @@ def test_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", res.stdout
     assert len(mods) >= 20
-    # the search modules are among them
+    # the search and support modules are among them
     assert {f"phyml_tpu_torch.search.{m}" for m in
-            ("distances", "bionj", "nni", "spr", "driver")} <= set(mods)
+            ("distances", "bionj", "nni", "spr", "driver", "support",
+             "stepwise", "constraint")} <= set(mods)
 
 
 def test_no_source_imports_jax():

@@ -15,8 +15,8 @@ in float64:
   SPR escapes and probes) and `-s SPR`, against phyml_tpu.cli on the
   same files (protein at 8 taxa x 150 sites): the same tree and the
   final lnL within 1e-6;
-* the flags this slice leaves unported stop the run naming their
-  ROADMAP item, and the SPR block size follows the reference's rule.
+* the flags still unported stop the run naming their ROADMAP item, and
+  the SPR block size follows the reference's rule.
 """
 
 import importlib
@@ -153,18 +153,18 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
     assert "BioNJ" in stats and (flags[-1] if flags else "NNI") in stats
 
 
-@pytest.mark.parametrize("flag", [
-    ["--pars_start"], ["--constraint_file", "c.nwk"], ["--print_trace"],
-    ["--json_trace"], ["-b", "100"]])
-def test_flags_left_unported_stop_the_run(flag, tmp_path, capsys):
+@pytest.mark.parametrize("flag, item", [
+    (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
+    (["--cov"], "'Covarion, mixtures and partitions'"),
+    (["-m", "LG4X"], "'Covarion, mixtures and partitions'"),
+    (["--checkpoint", "ck.pkl"], "'Remaining CLI flags and the checkpoint'"),
+    (["--cv", "tip"], "'Auxiliary tools'")])
+def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
     assert tcli.main(["-i", str(aln), "--platform", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and flag[0] in err
-    item = {"--pars_start": "'BioNJ start tree'",
-            "-b": "'Supports, bootstrap and multi-GPU'"}.get(
-                flag[0], "'Topology search'")
     assert item in err
 
 
