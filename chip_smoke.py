@@ -49,13 +49,32 @@
    scorer's share; K3 and the edge kernel must run on stacks.  Step 4
    adds the stacked forms: K3 with a schedule per tree and the route's
    K2/K5 with a tree axis on R random trees, one launch each, against
-   the plain version and beside R single launches.
+   the plain version and beside R single launches.  The protein default
+   run and its supports run on a 64-taxon problem (DEFAULT_RUN_TAXA);
+10. the partitioned, mixture and flag paths: the two-partition XML run
+   (`--xml`, the DNA problem split at site 2048, GTR+G4 and HKY85+G4,
+   BioNJ and the NNI search) at full width; a two-matrix DNA mixture
+   (HKY85 and GTR classes, each its own pi) fitted through the
+   library, with K1, K2 and K3 against their plain versions at its
+   system; LG4X at 128 x 4096 protein (`-m LG4X`: the fixed fit and the
+   default run, K4, K5 and K3 at the LG4X system, K3 at the batch sizes
+   those runs launched, on the line search's extreme grid points), each
+   run with the launch counters reset just before and read just after;
+   then 16 x 500 card-against-CPU runs of the LG4X fit, a one-partition
+   XML mixture, the two-partition XML run with the SPR search, `--il`,
+   `--aa_rate_file`, `-n 2` and a checkpoint resume;
+11. the 16 x 500 card-against-CPU checks of steps 5, 7, 9 and 10 run
+   last, after every full-width path: the CPU float64 side of each in a
+   worker process (spawned, one torch thread each, all started
+   together, stopped before the script ends), the card's side in this
+   process meanwhile.
 
 It prints a JSON line of the default runs' numbers, a JSON line of the
-supports' numbers, a JSON line of per-kernel results (`launches` from
-the default run, `launches_fixed_fit` from step 6; the stacked forms'
-from the rapid bootstrap, by stack size), the card line, and as the
-last line {"ok": true, "device": {...}}.  Any failure exits nonzero
+supports' numbers, a JSON line of step 10's numbers, a JSON line of
+per-kernel results (`launches` from the default run, `launches_fixed_fit`
+from step 6; the stacked forms' from the rapid bootstrap, by stack
+size; a cell's rows, named "[cell]", from that cell's runs), the card
+line, and as the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
 before that line; so does a machine without CUDA, or a directory
 without the phyml_tpu_torch package.
 """
@@ -77,6 +96,10 @@ import numpy as np
 
 SEED = 20260817
 N_TAXA, N_SITES = 128, 4096
+# taxa of the default run's and the supports' problem: the protein run
+# at 64 taxa keeps the script inside half its time limit since the LG4X
+# default run joined it at 128 (PERF.md section 4)
+DEFAULT_RUN_TAXA = {"nt": 128, "aa": 64}
 # the bench problems of tools/gen_bench_problem.py:38-51
 FREQS = np.array([0.3, 0.2, 0.3, 0.2])           # DNA: GTR+G4
 RATES = np.array([1.2, 3.0, 0.8, 1.1, 4.0, 1.0])
@@ -318,10 +341,32 @@ def stats_lnl(aln_path) -> float:
     fail("no Log-likelihood line in the stats file")
 
 
-def kernel_phases(dt, aln_path, tree_path, cuda, regs):
+def grid_rows(slots, params, B):
+    """B parameter vectors of optimize_scalars's first zoom level (every
+    slot swept over its whole bracket, 12 points and the current value,
+    one slot at a time), cycled to B rows: the line search's extreme
+    grid points."""
+    from phyml_tpu_torch.optim.round import _get, _x0_of
+
+    cur = [_x0_of(tf, _get(params, nm, i)) for nm, i, tf, _, _ in slots]
+    rows = []
+    for j, (_, _, _, lo, hi) in enumerate(slots):
+        for x in list(np.linspace(lo, hi, 12)) + [cur[j]]:
+            r = list(cur)
+            r[j] = x
+            rows.append(r)
+    return np.asarray([rows[b % len(rows)] for b in range(B)])
+
+
+def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
+                  params=None, cell=None, k3_batches=None):
     """Each kernel of the path against its plain version on the same
     card tensors at the main path's shapes; returns the kernels' JSON
-    entries (launches filled in later)."""
+    entries (launches filled in later).  `model` and `params` replace
+    the CLI's model and the simulation's parameters for a cell of its
+    own (`cell` names it in each row; no tree-axis rows), and
+    `k3_batches` the K3 batch sizes, then filled from the line search's
+    first zoom level (grid_rows)."""
     import torch
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.io.alignment import read_alignment
@@ -331,10 +376,12 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     from phyml_tpu_torch.topology import Topology
 
     aln = read_alignment(aln_path, datatype=dt)
-    args = cli.build_parser().parse_args(cli_argv(dt, aln_path, tree_path,
-                                                  "gpu"))
-    model = cli._build_model(args, aln)
-    params = true_params(dt, cli._init_params(args, model, aln))
+    if model is None:
+        args = cli.build_parser().parse_args(cli_argv(dt, aln_path,
+                                                      tree_path, "gpu"))
+        model = cli._build_model(args, aln)
+        params = true_params(dt, cli._init_params(args, model, aln))
+    tag = dt if cell is None else f"{dt} {cell}"
     with open(tree_path) as fh:
         rv = Topology.from_newick(fh.read(), aln.names).rooted()
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
@@ -347,24 +394,26 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     lnl_k, edge_k = eng.lnl_route, eng.edotp_route
     child, sched, n_slots = eng._topology(tree.child)
     want = ("K1", "K2") if dt == "nt" else ("K4", "K5")
-    print(f". [{dt}] problem: {n} taxa, {aln.n_sites} sites, {k} "
+    print(f". [{tag}] problem: {n} taxa, {aln.n_sites} sites, {k} "
           f"patterns, C={C}, ns={ns}; route {lnl_k}/{edge_k}")
     if (lnl_k, edge_k) != want:
-        fail(f"[{dt}] route {lnl_k}/{edge_k}, expected {want}")
+        fail(f"[{tag}] route {lnl_k}/{edge_k}, expected {want}")
     W = wrappers()
     rows = []
 
     def row(kname, label, err, ms, plain_ms, tol, flops, nb, on_path=True,
             **extra):
         b_ms, b_by = bound(flops, nb)
-        print(f". [{dt}] {kname} {label}: max|d|={err:.3e} (tol {tol:g})  "
+        print(f". [{tag}] {kname} {label}: max|d|={err:.3e} (tol {tol:g})  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})"
               + ("" if on_path else "  [not on this path]"))
         if not (err <= tol):
-            fail(f"[{dt}] {kname} disagrees with its plain version: "
+            fail(f"[{tag}] {kname} disagrees with its plain version: "
                  f"{err} > {tol}")
         if on_path:
+            if cell is not None:
+                label, extra["cell"] = f"{label} [{cell}]", cell
             rows.append(dict(
                 name=f"{kname} {label}", route="cuda",
                 source=f"phyml_tpu_torch/csrc/{SOURCE[kname]}",
@@ -388,17 +437,17 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
         resident = kname == "K1"
         geo = clv_slots.geometry(ns, C, k, n, n_slots, resident)
         if geo["block_smem_bytes"] > clv_slots.MAX_BLOCK_SMEM:
-            print(f". [{dt}] {kname}: refused at this shape (each class's "
+            print(f". [{tag}] {kname}: refused at this shape (each class's "
                   f"P-matrices of the whole tree: a block would need "
                   f"{geo['block_smem_bytes'] / 1024:.1f} KB of shared "
                   "memory)  [not on this path]")
             if kname == lnl_k:
-                fail(f"[{dt}] the route's {kname} refuses its shape")
+                fail(f"[{tag}] the route's {kname} refuses its shape")
             continue
         s_regs, spill = regs[kname][ns]
         blocks = clv_slots.blocks_per_sm(ns, C, n, n_slots, not resident)
         peak = peak_mib(lambda: W[kname](*args1, n_slots=n_slots))
-        print(f". [{dt}] {kname}: {s_regs} registers, {spill} B spilled, "
+        print(f". [{tag}] {kname}: {s_regs} registers, {spill} B spilled, "
               f"{geo['blocks']} blocks of {C} warps ({geo['tile']} "
               f"patterns, a warp per class, "
               f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
@@ -406,9 +455,9 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
               f"{peak:.3f} MiB beyond its inputs (out "
               f"{k * 4 / 2 ** 20:.3f} MiB)")
         if peak > k * 4 / 2 ** 20 + 1.0:
-            fail(f"[{dt}] {kname} allocates more than its outputs")
+            fail(f"[{tag}] {kname} allocates more than its outputs")
         out, ms = timed(lambda: W[kname](*args1, n_slots=n_slots))
-        print(f". [{dt}] {kname} {ms:.4f} ms beside K3 at B=1 {k3_ms:.4f} "
+        print(f". [{tag}] {kname} {ms:.4f} ms beside K3 at B=1 {k3_ms:.4f} "
               "ms on the same tensors")
         row(kname, W[kname].__name__, float((out - ref).abs().max()), ms,
             pms, SITE_TOL[dt], slot_flops, slot_bytes,
@@ -422,9 +471,9 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     tree64 = tree_arrays(rv, dtype=torch.float64, device=cuda)
     lnl64 = float(torch.sum(eng64.site_logliks_scan(
         eng64.system_of(params), tree64) * eng64.weights))
-    print(f". [{dt}] {lnl_k} lnL {lnl32:.6f} vs float64 scan {lnl64:.6f}")
+    print(f". [{tag}] {lnl_k} lnL {lnl32:.6f} vs float64 scan {lnl64:.6f}")
     if not abs(lnl32 - lnl64) <= F64_TOL:
-        fail(f"[{dt}] {lnl_k} lnL off the float64 evaluation by "
+        fail(f"[{tag}] {lnl_k} lnL off the float64 evaluation by "
              f"{lnl32 - lnl64}")
     del eng64, tree64
 
@@ -435,16 +484,17 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
     slots = free_scalar_slots(model, params)
     rng = np.random.default_rng(SEED)
     tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
-    for B in (1, 2, 13 * len(slots)):
+    for B in k3_batches or (1, 2, 13 * len(slots)):
         blocks = clv.blocks_per_sm(ns, C, n_slots)
         k3_regs, spill = regs["K3"][ns]
-        print(f". [{dt}] K3 B={B}: {n_slots} slots, {k3_regs} registers, "
+        print(f". [{tag}] K3 B={B}: {n_slots} slots, {k3_regs} registers, "
               f"{spill} B spilled, {blocks} blocks of {32 * C} threads "
               f"per SM ({blocks * C} warps)")
         if B == 1:
             argsb = (child, eng.tips, pm, pi, logw)
         else:
-            S = np.asarray([[rng.uniform(max(lo, -3.0), min(hi, 3.0))
+            S = grid_rows(slots, params, B) if k3_batches else \
+                np.asarray([[rng.uniform(max(lo, -3.0), min(hi, 3.0))
                              for _, _, _, lo, hi in slots]
                             for _ in range(B)])
             sysb = eng._system(_batched_params(params, slots, S))
@@ -454,7 +504,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
                                          n_slots=n_slots)
         peak = peak_mib(k3)
         old_ws = B * (n - 1) * C * (ns + 1) * (-(-k // tp) * tp) * 4
-        print(f". [{dt}] K3 B={B}: peak {peak:.2f} MiB beyond its "
+        print(f". [{tag}] K3 B={B}: peak {peak:.2f} MiB beyond its "
               f"inputs (output {B * k * 4 / 2 ** 20:.2f} MiB; a device-"
               f"memory workspace of every internal node's partial would "
               f"take {old_ws / 2 ** 20:.1f} MiB, computed)")
@@ -493,7 +543,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
         blocks = edotp.blocks_per_sm(ns, kname == "K5")
         e_regs, spill = regs[kname][ns]
         peak = peak_mib(lambda: W[kname](*args2))
-        print(f". [{dt}] {kname}: {e_regs} registers, {spill} B spilled, "
+        print(f". [{tag}] {kname}: {e_regs} registers, {spill} B spilled, "
               f"{geo['blocks']} blocks of one warp ({geo['tile']} patterns "
               f"x 1 class), {blocks} per SM granted ({blocks} warps), "
               f"{geo['blocks'] / sms:.1f} per SM on {sms} SMs; peak "
@@ -501,7 +551,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
               f"{out_bytes / 2 ** 20:.2f} + workspace "
               f"{ws_bytes / 2 ** 20:.2f} MiB)")
         if peak > (out_bytes + ws_bytes) / 2 ** 20 + 1.0:
-            fail(f"[{dt}] {kname} allocates more than its outputs and "
+            fail(f"[{tag}] {kname} allocates more than its outputs and "
                  "workspace")
         (dk, sk), ms = timed(lambda: W[kname](*args2))
         site_k = eng.edge_site_terms(dk, sk, aux, tree.blen)[0]
@@ -513,7 +563,8 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs):
             blocks_per_sm=blocks, warps_per_sm=blocks, peak_mib=peak)
     del site_p
     torch.cuda.empty_cache()
-    tree_axis_phases(dt, eng, sys_, row)
+    if cell is None:
+        tree_axis_phases(dt, eng, sys_, row)
     return rows
 
 
@@ -614,39 +665,42 @@ def tree_axis_phases(dt, eng, sys_, row):
         peak_mib=peak)
 
 
-def small_fit_check(dt, tmp):
-    """The whole fixed-topology fit on a small problem: card float32
-    against CPU float64 (the port's reference dtype)."""
+def fit_side(dt, d, platform):
+    """The whole fixed-topology fit on a 16 x 500 problem: its final
+    lnL."""
     from phyml_tpu_torch import cli
 
-    finals = {}
-    for platform in ("cpu", "gpu"):
-        d = os.path.join(tmp, f"small_{dt}_{platform}")
-        aln_path, tree_path = write_problem(d, dt, 16, 500, SEED + 1)
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(cli_argv(dt, aln_path, tree_path, platform)
-                          + ["--quiet"])
-        if rc != 0:
-            fail(f"[{dt}] small fit on {platform} returned {rc}")
-        finals[platform] = stats_lnl(aln_path)
-    gap = finals["gpu"] - finals["cpu"]
-    print(f". [{dt}] small fit (16 x 500): gpu f32 {finals['gpu']:.5f}  "
-          f"cpu f64 {finals['cpu']:.5f}  diff {gap:.2e} (tol {E2E_TOL})")
+    aln_path, tree_path = write_problem(d, dt, 16, 500, SEED + 1)
+    rc = cli.main(cli_argv(dt, aln_path, tree_path, platform) + ["--quiet"])
+    if rc != 0:
+        fail(f"[{dt}] small fit on {platform} returned {rc}")
+    return stats_lnl(aln_path)
+
+
+def report_fit(dt, gpu, cpu):
+    """The small fit: card float32 against CPU float64 (the port's
+    reference dtype)."""
+    gap = gpu[0] - cpu[0]
+    print(f". [{dt}] small fit (16 x 500): gpu f32 {gpu[0]:.5f}  "
+          f"cpu f64 {cpu[0]:.5f}  diff {gap:.2e} (tol {E2E_TOL})")
     if not abs(gap) <= E2E_TOL:
         fail(f"[{dt}] small fit disagrees between the card and the CPU")
 
 
-def main_path(dt, aln_path, tree_path, cuda):
-    """The CLI a user runs, with every launch counter set to 0 just
-    before and read just after; then a second (warm) run, timed only.
-    Returns the counts of the first run."""
+def main_path(dt, aln_path, tree_path, cuda, extra=(), runs=2, tag=None):
+    """The CLI a user runs (the fixed-topology fit, `extra` flags
+    appended), with every launch counter set to 0 just before and read
+    just after, its peak device memory and the card's idle share; then
+    (runs=2) a second, warm run, timed only.  Returns the counts of the
+    first run, its K3 launches by batch size and its numbers."""
     import torch
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.io.alignment import read_alignment
     from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
     from phyml_tpu_torch.topology import Topology
 
-    argv = cli_argv(dt, aln_path, tree_path, "gpu")
+    tag = tag or dt
+    argv = cli_argv(dt, aln_path, tree_path, "gpu") + list(extra)
     args = cli.build_parser().parse_args(argv)
     aln = read_alignment(aln_path, datatype=dt)
     with open(tree_path) as fh:
@@ -655,46 +709,70 @@ def main_path(dt, aln_path, tree_path, cuda):
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
     lnl_start = float(eng.loglik(cli._init_params(args, model, aln),
                                  tree_arrays(rv, device=cuda)))
+    del eng
     path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
     W = wrappers()
     walls = []
-    for run in range(2):
+    for run in range(runs):
         reset_counts()
         out = io.StringIO()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t1 = time.time()
-        with contextlib.redirect_stdout(out):
+        with utilization_sampler() as util, contextlib.redirect_stdout(out):
             rc = cli.main(argv)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         walls.append(time.time() - t1)
         if run == 0:
             counts = {name: fn.launches for name, fn in W.items()}
             k3_by_b = dict(W["K3"].launches_by_batch)
             text = out.getvalue()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            busy = statistics.mean(util) if util else None
         if rc != 0:
-            fail(f"[{dt}] main path returned {rc}")
+            fail(f"[{tag}] main path returned {rc}")
     print(text.rstrip())
     rounds = text.count("  round ")
     lnl_final = stats_lnl(aln_path)
-    print(f". [{dt}] main path: start lnL {lnl_start:.5f}  final lnL "
-          f"{lnl_final:.5f}  rounds {rounds}  wall {walls[0]:.2f} s "
-          f"(first run in the process), {walls[1]:.2f} s (second)  "
-          f"launches {counts}, K3 by batch size {k3_by_b}")
+    res = dict(wall_s=walls[0], warm_wall_s=walls[1:], rounds=rounds,
+               lnl_start=lnl_start, lnl_final=lnl_final, peak_gib=peak,
+               idle_share=None if busy is None else 1 - busy,
+               launches=counts, k3_by_batch=k3_by_b,
+               **class_rates(aln_path))
+    print(f". [{tag}] main path: start lnL {lnl_start:.5f}  final lnL "
+          f"{lnl_final:.5f}  rounds {rounds}  wall "
+          + ", ".join(f"{w:.2f}" for w in walls) + " s (the first run in "
+          f"the process first)  peak {peak:.2f} GiB  idle share "
+          + ("not measured" if busy is None else f"{1 - busy:.3f}")
+          + f"  launches {counts}, K3 by batch size {k3_by_b}"
+          + (f"  classes {res['classes']}" if res["classes"] else ""))
     if not (math.isfinite(lnl_final) and lnl_final >= lnl_start):
-        fail(f"[{dt}] final lnL is not finite or below the start lnL")
+        fail(f"[{tag}] final lnL is not finite or below the start lnL")
     with open(f"{aln_path}_phyml_tree.txt") as fh:
         topo = Topology.from_newick(fh.read(), aln.names)
-    if topo.n_otu != N_TAXA or not np.all(np.isfinite(topo.blen)):
-        fail(f"[{dt}] the output tree does not parse to a finite tree")
+    if topo.n_otu != aln.n_otu or not np.all(np.isfinite(topo.blen)):
+        fail(f"[{tag}] the output tree does not parse to a finite tree")
     if k3_by_b.get(1, 0):
-        fail(f"[{dt}] K3 ran {k3_by_b[1]} single-system passes; those "
+        fail(f"[{tag}] K3 ran {k3_by_b[1]} single-system passes; those "
              f"belong to {path[0]}")
     for name, count in counts.items():
         if name in path and count <= 0:
-            fail(f"[{dt}] {name} never launched on the main path")
+            fail(f"[{tag}] {name} never launched on the main path")
         if name not in path and count != 0:
-            fail(f"[{dt}] {name} launched {count} times off its route")
-    return counts, k3_by_b
+            fail(f"[{tag}] {name} launched {count} times off its route")
+    return counts, k3_by_b, res
+
+
+def class_rates(aln_path):
+    """{"classes": [(rate, weight), ...]} of a FreeRate or mixture
+    stats file (empty otherwise)."""
+    import re
+
+    with open(f"{aln_path}_phyml_stats.txt") as fh:
+        text = fh.read()
+    return {"classes": [(float(r), float(w)) for r, w in re.findall(
+        r"Rate class \d+: \s*rate=(\S+) weight=(\S+)", text)]}
 
 
 # the search's own functions whose calls the default-run phase counts
@@ -730,6 +808,12 @@ def search_probes(probes=SEARCH_PROBES):
 
     import torch
 
+    def sync():
+        # a worker process of the CPU float64 runs has no CUDA context
+        # and must not make one
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
     stats, saved = {}, []
     for mod_name, attr, label in probes:
         mod = importlib.import_module(mod_name)
@@ -737,10 +821,10 @@ def search_probes(probes=SEARCH_PROBES):
         rec = stats[label] = {"calls": 0, "s": 0.0, "sizes": []}
 
         def wrapped(*a, _fn=fn, _rec=rec, **kw):
-            torch.cuda.synchronize()
+            sync()
             t = time.time()
             out = _fn(*a, **kw)
-            torch.cuda.synchronize()
+            sync()
             _rec["s"] += time.time() - t
             _rec["calls"] += 1
             _rec["last"] = out
@@ -837,67 +921,71 @@ def distance_check(dt, aln_path, cuda):
     return batch_k
 
 
-def small_default_check(dt, tmp):
-    """The default run (BioNJ, NNI search) on a small problem: card
-    float32 against CPU float64, the same tree and lnL within E2E_TOL."""
+def default_side(dt, d, platform):
+    """The default run (BioNJ, NNI search) on a 16 x 500 problem: (final
+    lnL, the tree file's text)."""
     from phyml_tpu_torch import cli
+
+    aln_path, _ = write_problem(d, dt, 16, 500, SEED + 1)
+    rc = cli.main(default_argv(dt, aln_path, platform) + ["--quiet"])
+    if rc != 0:
+        fail(f"[{dt}] small default run on {platform} returned {rc}")
+    with open(f"{aln_path}_phyml_tree.txt") as fh:
+        return stats_lnl(aln_path), fh.read()
+
+
+def report_default(dt, gpu, cpu):
+    """The small default run: card float32 against CPU float64, the
+    same tree and lnL within E2E_TOL."""
     from phyml_tpu_torch.topology import Topology
 
-    finals, trees = {}, {}
-    for platform in ("cpu", "gpu"):
-        d = os.path.join(tmp, f"small_default_{dt}_{platform}")
-        aln_path, _ = write_problem(d, dt, 16, 500, SEED + 1)
-        t = time.time()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(default_argv(dt, aln_path, platform)
-                          + ["--quiet"])
-        if rc != 0:
-            fail(f"[{dt}] small default run on {platform} returned {rc}")
-        finals[platform] = (stats_lnl(aln_path), time.time() - t)
-        with open(f"{aln_path}_phyml_tree.txt") as fh:
-            trees[platform] = fh.read()
+    (g, g_s), (c, c_s) = gpu, cpu
     names = [f"T{i:04d}" for i in range(16)]
-    rf = Topology.from_newick(trees["gpu"], names).rf_distance(
-        Topology.from_newick(trees["cpu"], names))
-    gap = finals["gpu"][0] - finals["cpu"][0]
+    rf = Topology.from_newick(g[1], names).rf_distance(
+        Topology.from_newick(c[1], names))
+    gap = g[0] - c[0]
     print(f". [{dt}] small default run (16 x 500, BioNJ + NNI): gpu f32 "
-          f"{finals['gpu'][0]:.5f} ({finals['gpu'][1]:.1f} s)  cpu f64 "
-          f"{finals['cpu'][0]:.5f} ({finals['cpu'][1]:.1f} s)  diff "
-          f"{gap:.2e} (tol {E2E_TOL})  RF {rf}")
+          f"{g[0]:.5f} ({g_s:.1f} s)  cpu f64 {c[0]:.5f} ({c_s:.1f} s)  "
+          f"diff {gap:.2e} (tol {E2E_TOL})  RF {rf}")
     if rf != 0 or not abs(gap) <= E2E_TOL:
         fail(f"[{dt}] the small default run disagrees between the card "
              "and the CPU")
 
 
-def default_run(dt, aln_path, tree_path, cuda, batch_k):
+def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
     """The default `phyml` run (BioNJ start tree, NNI search with its
-    SPR escapes and probes) at full width through the CLI, with every
-    launch counter set to 0 just before and read just after, and the
-    search's functions counted and timed (search_probes).  Returns the
-    launch counts and the run's numbers."""
+    SPR escapes and probes; `extra` flags appended) through the CLI,
+    with every launch counter set to 0 just before and read just after,
+    the search's functions counted and timed (search_probes), and its
+    peak device memory.  Returns the launch counts and the run's
+    numbers."""
     import torch
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.io.alignment import read_alignment
     from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
     from phyml_tpu_torch.topology import Topology
 
-    argv = default_argv(dt, aln_path, "gpu")
+    tag = tag or dt
+    argv = default_argv(dt, aln_path, "gpu") + list(extra)
     path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
     W = wrappers()
     reset_counts()
     out = io.StringIO()
     with search_probes() as st, utilization_sampler() as util:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t1 = time.time()
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t1
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
     counts = {name: fn.launches for name, fn in W.items()}
     k3_by_b = dict(W["K3"].launches_by_batch)
     if rc != 0:
-        fail(f"[{dt}] the default run returned {rc}")
+        fail(f"[{tag}] the default run returned {rc}")
     text = out.getvalue()
     with open(os.path.join(os.path.dirname(aln_path),
                            "default_run.log"), "w") as fh:
@@ -936,8 +1024,10 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k):
         lnl_final=lnl_final, rf_true=rf_true, rf_start=rf_start,
         launches=counts, k3_by_batch=k3_by_b, nvml_busy=busy,
         idle_share=None if busy is None else 1 - busy,
-        nvml_samples=len(util))
-    print(f". [{dt}] default run (BioNJ + NNI search): wall {wall:.2f} s; "
+        nvml_samples=len(util), n_taxa=aln.n_otu, peak_gib=peak,
+        **class_rates(aln_path))
+    print(f". [{tag}] default run (BioNJ + NNI search), {aln.n_otu} taxa: "
+          f"wall {wall:.2f} s; peak {peak:.2f} GiB; "
           f"BioNJ {res['bionj_s']:.3f} s (distances "
           f"{res['distances_s']:.3f}, agglomeration "
           f"{res['agglomeration_s']:.3f}); search {res['search_s']:.2f} s; "
@@ -950,24 +1040,25 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k):
           + ("not measured (no nvidia-smi samples)" if busy is None else
              f"{1 - busy:.3f} (nvidia-smi utilization, {len(util)} "
              "samples)"))
-    print(f". [{dt}] default run: start (BioNJ) lnL {lnl_start:.5f}  final "
+    print(f". [{tag}] default run: start (BioNJ) lnL {lnl_start:.5f}  final "
           f"lnL {lnl_final:.5f}  RF to the simulating tree {rf_true} "
           f"(BioNJ tree {rf_start})  launches {counts}, K3 by batch size "
-          f"{k3_by_b}")
+          f"{k3_by_b}"
+          + (f"  classes {res['classes']}" if res["classes"] else ""))
     if not (math.isfinite(lnl_final) and lnl_final >= lnl_start):
-        fail(f"[{dt}] default run: final lnL is not finite or below the "
+        fail(f"[{tag}] default run: final lnL is not finite or below the "
              "start lnL")
-    if topo.n_otu != N_TAXA or not np.all(np.isfinite(topo.blen)):
-        fail(f"[{dt}] default run: the output tree does not parse to a "
+    if topo.n_otu != aln.n_otu or not np.all(np.isfinite(topo.blen)):
+        fail(f"[{tag}] default run: the output tree does not parse to a "
              "finite tree")
     if k3_by_b.get(1, 0):
-        fail(f"[{dt}] default run: K3 ran {k3_by_b[1]} single-system "
+        fail(f"[{tag}] default run: K3 ran {k3_by_b[1]} single-system "
              f"passes; those belong to {path[0]}")
     for name, count in counts.items():
         if name in path and count <= 0:
-            fail(f"[{dt}] {name} never launched in the default run")
+            fail(f"[{tag}] {name} never launched in the default run")
         if name not in path and count != 0:
-            fail(f"[{dt}] {name} launched {count} times off its route in "
+            fail(f"[{tag}] {name} launched {count} times off its route in "
                  "the default run")
     return counts, res
 
@@ -1026,6 +1117,7 @@ def supports_phase(dt, aln_path, cuda):
     from phyml_tpu_torch.io.alignment import read_alignment
 
     names = read_alignment(aln_path, datatype=dt).names
+    n_taxa = len(names)
     final = os.path.join(os.path.dirname(aln_path), "final_tree.nwk")
     shutil.copy(f"{aln_path}_phyml_tree.txt", final)
     res = {}
@@ -1049,7 +1141,7 @@ def supports_phase(dt, aln_path, cuda):
               f"{wall:.2f} s (fit + supports), supports {res[label]['supports_s']:.3f} s, "
               f"{len(vals)} edges, min / median / max {vals.min():.4f} / "
               f"{np.median(vals):.4f} / {vals.max():.4f}")
-        if len(vals) != N_TAXA - 3 or not np.all((vals >= 0) & (vals <= 1)):
+        if len(vals) != n_taxa - 3 or not np.all((vals >= 0) & (vals <= 1)):
             fail(f"[{dt}] -b {b}: supports outside [0, 1] or edges missing")
 
     R = REPLICATES[dt]
@@ -1101,7 +1193,7 @@ def supports_phase(dt, aln_path, cuda):
           f"{peak:.2f} GiB; launches {counts}, stacked by R {stacked}, K3 "
           f"by batch size {k3_by_b}; supports {int(vals.min())}..."
           f"{int(vals.max())} of {R}")
-    if len(vals) != N_TAXA - 3 or vals.min() < 0 or vals.max() > R:
+    if len(vals) != n_taxa - 3 or vals.min() < 0 or vals.max() > R:
         fail(f"[{dt}] rapid bootstrap: supports outside [0, {R}]")
     slot_k, edge_k = ("K1", "K2") if dt == "nt" else ("K4", "K5")
     if not sum(stacked["K3"].values()) or not sum(stacked[edge_k].values()):
@@ -1117,11 +1209,10 @@ def supports_phase(dt, aln_path, cuda):
     return counts, stacked, res
 
 
-def small_support_check(tmp):
-    """`-b 2` and `-b -5` after the default run on a 16 x 500 DNA
-    problem, card float32 against CPU float64: the same final tree, the
-    same two replicate trees and bootstrap counts, aBayes within
-    ABAYES_TOL.  Returns the measured aBayes gap."""
+def support_side(d, platform):
+    """`-b 2` and then `-b -5` on its final tree, after the default run
+    on a 16 x 500 DNA problem: {final tree, replicate trees, bootstrap
+    labels by bipartition, aBayes by bipartition}."""
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.search import support
     from phyml_tpu_torch.topology import Topology
@@ -1132,46 +1223,45 @@ def small_support_check(tmp):
 
     def keep(*a, **kw):
         sup, trees = real(*a, **{**kw, "keep_trees": True})
-        got[platform]["replicates"] = trees
+        got["replicates"] = trees
         return sup
 
-    for platform in ("cpu", "gpu"):
-        got[platform] = {}
-        d = os.path.join(tmp, f"small_support_{platform}")
-        aln_path, _ = write_problem(d, "nt", 16, 500, SEED + 1)
-        t = time.time()
-        support.bootstrap_supports = keep
-        try:
-            argv = default_argv("nt", aln_path, platform) + ["--quiet"]
-            argv[argv.index("-b") + 1] = "2"
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = cli.main(argv)
-        finally:
-            support.bootstrap_supports = real
-        if rc != 0:
-            fail(f"small -b 2 run on {platform} returned {rc}")
-        tree_path = f"{aln_path}_phyml_tree.txt"
-        got[platform]["final"] = Topology.from_newick(open(tree_path).read(),
-                                                      names)
-        got[platform]["boot"] = tree_labels(tree_path, names)
-        final = os.path.join(d, "final_tree.nwk")
-        with open(final, "w") as fh:
-            fh.write(got[platform]["final"].to_newick(names) + "\n")
-        with search_probes(SUPPORT_PROBES) as st, \
-                contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(support_argv("nt", aln_path, final, platform, -5,
-                                       "--quiet"))
-        if rc != 0:
-            fail(f"small -b -5 run on {platform} returned {rc}")
-        got[platform]["abayes"] = by_bipartition(
-            st["aLRT supports"]["last"], final, names)
-        got[platform]["s"] = time.time() - t
-    g, c = got["gpu"], got["cpu"]
+    aln_path, _ = write_problem(d, "nt", 16, 500, SEED + 1)
+    support.bootstrap_supports = keep
+    try:
+        argv = default_argv("nt", aln_path, platform) + ["--quiet"]
+        argv[argv.index("-b") + 1] = "2"
+        rc = cli.main(argv)
+    finally:
+        support.bootstrap_supports = real
+    if rc != 0:
+        fail(f"small -b 2 run on {platform} returned {rc}")
+    tree_path = f"{aln_path}_phyml_tree.txt"
+    with open(tree_path) as fh:
+        got["final"] = Topology.from_newick(fh.read(), names)
+    got["boot"] = tree_labels(tree_path, names)
+    final = os.path.join(d, "final_tree.nwk")
+    with open(final, "w") as fh:
+        fh.write(got["final"].to_newick(names) + "\n")
+    with search_probes(SUPPORT_PROBES) as st:
+        rc = cli.main(support_argv("nt", aln_path, final, platform, -5,
+                                   "--quiet"))
+    if rc != 0:
+        fail(f"small -b -5 run on {platform} returned {rc}")
+    got["abayes"] = by_bipartition(st["aLRT supports"]["last"], final, names)
+    return got
+
+
+def report_support(gpu, cpu):
+    """The small supports run, card float32 against CPU float64: the
+    same final tree, the same two replicate trees and bootstrap counts,
+    aBayes within ABAYES_TOL.  Returns the measured aBayes gap."""
+    (g, g_s), (c, c_s) = gpu, cpu
     rf = [a.rf_distance(b) for a, b in zip(g["replicates"],
                                             c["replicates"])]
     gap = max(abs(g["abayes"][k] - c["abayes"][k]) for k in c["abayes"])
     print(f". [nt] small supports (16 x 500, default run then -b 2, then "
-          f"-u final -o lr -b -5): gpu {g['s']:.1f} s, cpu {c['s']:.1f} s; "
+          f"-u final -o lr -b -5): gpu {g_s:.1f} s, cpu {c_s:.1f} s; "
           f"final trees RF {g['final'].rf_distance(c['final'])}, replicate "
           f"trees RF {rf}, bootstrap counts equal "
           f"{g['boot'] == c['boot']}; aBayes max gap {gap:.3e} (tol "
@@ -1182,6 +1272,552 @@ def small_support_check(tmp):
     if not gap <= ABAYES_TOL:
         fail(f"aBayes of the small run off the CPU's by {gap}")
     return gap
+
+
+# ---------------------------------------------------------------------------
+# LG4X and matrix mixtures, partitioned --xml runs, the remaining flags
+# ---------------------------------------------------------------------------
+
+# the DNA mixture's classes (an XML <mixtureelem> list of two matrices):
+# HKY85 (kappa 4) and the bench problem's GTR, each with its own pi
+MIX_PI = np.array([[0.3, 0.2, 0.3, 0.2], [0.2, 0.3, 0.25, 0.25]])
+
+
+def dna_mixture():
+    """The two-matrix DNA mixture, FreeRate rates and weights."""
+    from phyml_tpu_torch.models.substitution import SubstModel
+
+    hky = np.ones((4, 4)) - np.eye(4)
+    hky[0, 2] = hky[2, 0] = hky[1, 3] = hky[3, 1] = 4.0
+    gtr = np.zeros((4, 4))
+    gtr[np.triu_indices(4, k=1)] = RATES
+    return SubstModel(datatype="nt", name="XMLMIX", n_classes=2,
+                      freerate=True, freqs_mode="model",
+                      components=[(hky, MIX_PI[0]), (gtr + gtr.T, MIX_PI[1])])
+
+
+def mixture_params(model):
+    """Starting parameters with the classes' rates spread (0.4, 1.6)."""
+    import torch
+
+    params = model.init_params()
+    params["class_rates_raw"] = torch.log(torch.tensor(
+        [0.4, 1.6][:model.n_classes], dtype=torch.float64))
+    return params
+
+
+def copy_problem(src_aln, src_tree, dirname):
+    """The alignment and tree files copied into a directory of their own
+    (a run writes its outputs next to its alignment)."""
+    import shutil
+
+    os.makedirs(dirname, exist_ok=True)
+    dst = os.path.join(dirname, "aln.phy")
+    shutil.copy(src_aln, dst)
+    return dst, src_tree
+
+
+def scorer_block(dt, aln_path, extra, cuda):
+    """spr.default_batch_k of the run's model on the problem's
+    simulating-size tree (the SPR scorer's block)."""
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine
+    from phyml_tpu_torch.search import spr
+    from phyml_tpu_torch.topology import Topology
+
+    args = cli.build_parser().parse_args(default_argv(dt, aln_path, "gpu")
+                                         + list(extra))
+    aln = read_alignment(aln_path, datatype=dt)
+    eng = LikelihoodEngine(aln, cli._build_model(args, aln),
+                           dtype=torch.float32, device=cuda)
+    rv = Topology.random(aln.n_otu, np.random.default_rng(0)).rooted()
+    return spr.default_batch_k(eng, rv)
+
+
+def mixture_fit(aln_path, tree_path, cuda):
+    """The fixed-topology fit of the DNA mixture (dna_mixture) on the
+    DNA problem through the library's entry points (LikelihoodEngine,
+    round_optimize: the XML front end builds such a model but phyml_tpu's
+    XML reads built-in matrices for amino acids only), with every launch
+    counter set to 0 just before and read just after.  Returns (counts,
+    K3 by batch size, numbers)."""
+    import torch
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.optim.round import round_optimize
+    from phyml_tpu_torch.topology import Topology
+
+    aln = read_alignment(aln_path, datatype="nt")
+    model = dna_mixture()
+    params = mixture_params(model)
+    with open(tree_path) as fh:
+        rv = Topology.from_newick(fh.read(), aln.names).rooted()
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    tree = tree_arrays(rv, device=cuda)
+    W = wrappers()
+    reset_counts()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    lnl0 = float(eng.loglik(params, tree))
+    with contextlib.redirect_stdout(out):
+        params, tree, lnl = round_optimize(eng, model, params, tree,
+                                           verbose=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = {name: fn.launches for name, fn in W.items()}
+    k3_by_b = dict(W["K3"].launches_by_batch)
+    from phyml_tpu_torch.models.rates import freerate_normalize
+    r, w = freerate_normalize(params["class_rates_raw"],
+                              params["class_weights_raw"])
+    res = dict(wall_s=wall, rounds=out.getvalue().count("  round "),
+               lnl_start=lnl0, lnl_final=lnl, launches=counts,
+               k3_by_batch=k3_by_b,
+               classes=[(float(a), float(b)) for a, b in zip(r, w)])
+    print(f". [nt mixture] fit of the HKY85 + GTR mixture (library entry "
+          f"points): wall {wall:.2f} s, {res['rounds']} rounds, lnL "
+          f"{lnl0:.5f} -> {lnl:.5f}, classes (rate, weight) "
+          f"{res['classes']}; launches {counts}, K3 by batch size {k3_by_b}")
+    if not (math.isfinite(lnl) and lnl >= lnl0):
+        fail("[nt mixture] the fit's lnL is not finite or below its start")
+    for name, count in counts.items():
+        if (name in ("K1", "K2", "K3")) != (count > 0):
+            fail(f"[nt mixture] {name} launched {count} times")
+    if k3_by_b.get(1, 0):
+        fail("[nt mixture] K3 ran single-system passes")
+    return counts, k3_by_b, res
+
+
+def write_columns(path, names, seqs, lo, hi):
+    with open(path, "w") as fh:
+        fh.write(f" {len(names)} {hi - lo}\n")
+        for nm, sq in zip(names, seqs):
+            fh.write(f"{nm:<10s}  {sq[lo:hi]}\n")
+
+
+def read_phylip_rows(aln_path):
+    with open(aln_path) as fh:
+        rows = [ln.split() for ln in fh.read().splitlines()[1:] if ln.strip()]
+    return [r[0] for r in rows], [r[1] for r in rows]
+
+
+def partition_xml(path, files, search):
+    """A two-<partitionelem> XML: GTR+G4 on the first file, HKY85+G4 on
+    the second, BioNJ start, `search`; outputs joint_part{1,2}_*."""
+    rates = ",".join(f"R{i}" for i in range(1, 5))
+    elems = "".join(
+        f'''
+  <partitionelem file.name="{f}" data.type="nt" interleaved="no">
+    <mixtureelem list="T1,T1,T1,T1"/>
+    <mixtureelem list="{m},{m},{m},{m}"/>
+    <mixtureelem list="F1,F1,F1,F1"/>
+    <mixtureelem list="{rates}"/>
+    <mixtureelem list="{b},{b},{b},{b}"/>
+  </partitionelem>'''
+        for f, m, b in zip(files, ("M1", "M2"), ("L1", "L2")))
+    sr = "".join(f'<instance id="R{i}" init.value="1.0"/>'
+                 for i in range(1, 5))
+    with open(path, "w") as fh:
+        fh.write(f'''<phyml run.id="x" output.file="joint">
+  <topology><instance id="T1" init.tree="bionj" search="{search}"
+            optimise.tree="yes"/></topology>
+  <ratematrices><instance id="M1" model="GTR"/>
+                <instance id="M2" model="HKY85"/></ratematrices>
+  <siterates>{sr}<weights family="gamma" alpha="1.0"/></siterates>
+  <equfreqs><instance id="F1" freqs="empirical"/></equfreqs>
+  <branchlengths><instance id="L1" optimise.lens="yes"/>
+                 <instance id="L2" optimise.lens="yes"/></branchlengths>{elems}
+</phyml>
+''')
+
+
+def write_paml(path, S, pi):
+    """A PAML rate file: 19 lower-triangular rows, then 20 freqs."""
+    with open(path, "w") as fh:
+        for i in range(1, 20):
+            fh.write(" ".join(f"{S[i, j]:.10f}" for j in range(i)) + "\n")
+        fh.write("\n" + " ".join(f"{p:.10f}" for p in pi) + "\n")
+
+
+def mixture_xml(dirname, aln_name):
+    """A one-<partitionelem> XML of four amino-acid matrices read from
+    PAML files written from LG4X's tables, FreeRate rates and weights,
+    BioNJ start and the NNI search; outputs mix_*."""
+    from phyml_tpu_torch.models.matrices import empirical_aa
+
+    for i in range(1, 5):
+        write_paml(os.path.join(dirname, f"X{i}.mat"),
+                   *empirical_aa(f"lg4x_{i}"))
+    mats = "".join(f'<instance id="M{i}" model="customaa" '
+                   f'ratematrix.file="X{i}.mat"/>' for i in range(1, 5))
+    rates = "".join(f'<instance id="R{i}" init.value="{v}"/>' for i, v in
+                    zip(range(1, 5), (0.197063, 0.750275, 1.951569, 0.42)))
+    wts = "".join(f'<instance appliesto="R{i}" value="{v}"/>' for i, v in
+                  zip(range(1, 5), (0.287, 0.339, 0.195, 0.179)))
+    path = os.path.join(dirname, "mix.xml")
+    with open(path, "w") as fh:
+        fh.write(f'''<phyml run.id="mx" output.file="mix">
+  <topology><instance id="T1" init.tree="bionj" search="nni"
+            optimise.tree="yes"/></topology>
+  <ratematrices>{mats}</ratematrices>
+  <equfreqs><instance id="F1" freqs="model"/></equfreqs>
+  <siterates>{rates}
+    <weights family="freerates" optimise.freerates="yes">{wts}</weights>
+  </siterates>
+  <branchlengths><instance id="L1" optimise.lens="yes"/></branchlengths>
+  <partitionelem file.name="{aln_name}" data.type="aa" interleaved="no">
+    <mixtureelem list="T1,T1,T1,T1"/>
+    <mixtureelem list="M1,M2,M3,M4"/>
+    <mixtureelem list="F1,F1,F1,F1"/>
+    <mixtureelem list="R1,R2,R3,R4"/>
+    <mixtureelem list="L1,L1,L1,L1"/>
+  </partitionelem>
+</phyml>
+''')
+    return path
+
+
+def combined_lnl(stats_path):
+    with open(stats_path) as fh:
+        for line in fh:
+            if line.startswith(". Combined log-likelihood"):
+                return float(line.split(":")[1])
+    fail(f"no combined log-likelihood in {stats_path}")
+
+
+# the partitioned search's functions the XML phase counts and times
+PARTITION_PROBES = [
+    ("phyml_tpu_torch.search.partitioned", "nni_round_partitioned",
+     "NNI rounds"),
+    ("phyml_tpu_torch.search.partitioned", "spr_round_partitioned",
+     "SPR sweeps"),
+    ("phyml_tpu_torch.search.partitioned", "nni_scores", "NNI scorer"),
+    ("phyml_tpu_torch.search.partitioned", "optimize_scalars",
+     "parameters"),
+]
+
+
+def partitioned_phase(aln_path, tree_path, cuda):
+    """The two-partition XML run at full width: the DNA problem split at
+    site N_SITES // 2 into two files, GTR+G4 and HKY85+G4, BioNJ start,
+    search="nni", through `phyml_tpu_torch.cli --xml`, with every launch
+    counter set to 0 just before and read just after.  Returns (counts,
+    K3 by batch size, numbers)."""
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.topology import Topology
+
+    d = os.path.join(os.path.dirname(os.path.dirname(aln_path)), "xml")
+    os.makedirs(d, exist_ok=True)
+    names, seqs = read_phylip_rows(aln_path)
+    half = N_SITES // 2
+    for k, (lo, hi) in enumerate(((0, half), (half, N_SITES))):
+        write_columns(os.path.join(d, f"gene{k + 1}.phy"), names, seqs, lo,
+                      hi)
+    xml = os.path.join(d, "run.xml")
+    partition_xml(xml, ["gene1.phy", "gene2.phy"], "nni")
+    W = wrappers()
+    reset_counts()
+    out = io.StringIO()
+    with search_probes(PARTITION_PROBES) as st, \
+            utilization_sampler() as util:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--xml", xml, "--platform", "gpu"])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    busy = statistics.mean(util) if util else None
+    counts = {name: fn.launches for name, fn in W.items()}
+    k3_by_b = dict(W["K3"].launches_by_batch)
+    if rc != 0:
+        fail(f"the partitioned XML run returned {rc}")
+    with open(os.path.join(d, "xml_run.log"), "w") as fh:
+        fh.write(out.getvalue())
+    lnl = combined_lnl(os.path.join(d, "joint_part1_phyml_stats.txt"))
+    trees = []
+    for k in (1, 2):
+        with open(os.path.join(d, f"joint_part{k}_phyml_tree.txt")) as fh:
+            trees.append(Topology.from_newick(fh.read(), names))
+    with open(tree_path) as fh:
+        truth = Topology.from_newick(fh.read(), names)
+    res = dict(wall_s=wall, combined_lnl=lnl,
+               nni_rounds=st["NNI rounds"]["calls"],
+               nni_rounds_s=st["NNI rounds"]["s"],
+               nni_scorer_calls=st["NNI scorer"]["calls"],
+               nni_scorer_s=st["NNI scorer"]["s"],
+               parameter_searches=st["parameters"]["calls"],
+               parameters_s=st["parameters"]["s"],
+               rf_true=trees[0].rf_distance(truth), peak_gib=peak,
+               idle_share=None if busy is None else 1 - busy,
+               launches=counts, k3_by_batch=k3_by_b)
+    print(f". [nt xml] two partitions ({N_SITES} sites split at {half}, "
+          f"GTR+G4 | HKY85+G4, BioNJ + NNI): wall {wall:.2f} s, combined "
+          f"lnL {lnl:.5f}, {res['nni_rounds']} NNI rounds "
+          f"({res['nni_rounds_s']:.2f} s; NNI scorer "
+          f"{res['nni_scorer_calls']} calls {res['nni_scorer_s']:.2f} s), "
+          f"{res['parameter_searches']} parameter searches "
+          f"({res['parameters_s']:.2f} s); RF to the simulating tree "
+          f"{res['rf_true']}; peak {peak:.2f} GiB; idle share "
+          + ("not measured" if busy is None else f"{1 - busy:.3f}")
+          + f"; launches {counts}, K3 by batch size {k3_by_b}")
+    if not math.isfinite(lnl):
+        fail("the partitioned run's combined lnL is not finite")
+    if trees[0].rf_distance(trees[1]) != 0 or trees[0].n_otu != N_TAXA:
+        fail("the partitions' trees differ or do not parse")
+    if k3_by_b.get(1, 0):
+        fail("the partitioned run: K3 ran single-system passes")
+    for name, count in counts.items():
+        if (name in ("K1", "K2", "K3")) != (count > 0):
+            fail(f"the partitioned run: {name} launched {count} times")
+    return counts, k3_by_b, res
+
+
+def stats_lnls(aln_path):
+    """Every data set's final lnL in a stats file (-n appends)."""
+    with open(f"{aln_path}_phyml_stats.txt") as fh:
+        return [float(ln.split(":")[1]) for ln in fh
+                if ln.startswith(". Log-likelihood:")]
+
+
+def tree_lines(path, names):
+    from phyml_tpu_torch.topology import Topology
+
+    with open(path) as fh:
+        return [Topology.from_newick(ln, names) for ln in fh if ln.strip()]
+
+
+def slice_runs():
+    """{check: run(d, platform)}: the slice's entry points on 16 x 500
+    problems, each run returning (final lnL of every data set, trees)."""
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.xmlcfg import run_xml
+    from phyml_tpu_torch.models.matrices import empirical_aa
+
+    names = [f"T{i:04d}" for i in range(16)]
+
+    def by_cli(extra, dt="nt", default=False, n_sets=1):
+        def run(d, platform):
+            aln, tree = write_problem(d, dt, 16, 500, SEED + 1)
+            if n_sets == 2:
+                aln2, _ = write_problem(os.path.join(d, "b"), dt, 16, 500,
+                                        SEED + 2)
+                with open(aln, "a") as fh, open(aln2) as f2:
+                    fh.write("\n" + f2.read())
+            argv = (default_argv(dt, aln, platform) if default
+                    else cli_argv(dt, aln, tree, platform))
+            argv += [a.replace("DIR", d) for a in extra] + ["--quiet"]
+            if cli.main(argv) != 0:
+                fail(f"small {extra} run on {platform} failed")
+            return (stats_lnls(aln),
+                    tree_lines(f"{aln}_phyml_tree.txt", names))
+        return run
+
+    def by_xml(kind):
+        def run(d, platform):
+            os.makedirs(d, exist_ok=True)
+            if kind == "mixture":
+                aln, _ = write_problem(d, "aa", 16, 500, SEED + 1)
+                xml = mixture_xml(d, os.path.basename(aln))
+                outs = ["mix"]
+            else:
+                aln, _ = write_problem(d, "nt", 16, 500, SEED + 1)
+                nm, seqs = read_phylip_rows(aln)
+                for k, (lo, hi) in enumerate(((0, 250), (250, 500))):
+                    write_columns(os.path.join(d, f"gene{k + 1}.phy"), nm,
+                                  seqs, lo, hi)
+                xml = os.path.join(d, "run.xml")
+                partition_xml(xml, ["gene1.phy", "gene2.phy"], "spr")
+                outs = ["joint_part1", "joint_part2"]
+            device = "cpu" if platform == "cpu" else "cuda"
+            if run_xml(xml, quiet=True, device=device) != 0:
+                fail(f"small {kind} XML run on {platform} failed")
+            if kind == "mixture":
+                lnls = stats_lnls(os.path.join(d, "mix"))
+            else:
+                lnls = [combined_lnl(os.path.join(
+                    d, f"{outs[0]}_phyml_stats.txt"))]
+            trees = [t for o in outs for t in tree_lines(
+                os.path.join(d, f"{o}_phyml_tree.txt"), names)]
+            return lnls, trees
+        return run
+
+    def checkpoint(d, platform):
+        """Two runs on one checkpoint: the first stands for a run
+        interrupted once the search's checkpoint was written, the second
+        resumes from it; returns the second's numbers and checks it ends
+        where the first did."""
+        aln, _ = write_problem(d, "nt", 16, 500, SEED + 1)
+        argv = default_argv("nt", aln, platform) + [
+            "--checkpoint", os.path.join(d, "ck.npz")]
+        first = None
+        for run in range(2):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                if cli.main(argv) != 0:
+                    fail(f"checkpoint run {run} on {platform} failed")
+            got = (stats_lnls(aln), tree_lines(f"{aln}_phyml_tree.txt",
+                                               names))
+            if run == 0:
+                first = got
+        if "Resumed from checkpoint (search_done)" not in out.getvalue():
+            fail(f"the second run on {platform} did not resume")
+        if got[1][0].rf_distance(first[1][0]) or \
+                abs(got[0][0] - first[0][0]) > E2E_TOL:
+            fail(f"the resumed run on {platform} ended elsewhere: {got[0]} "
+                 f"against {first[0]}")
+        return got
+
+    def aa_rate_file(d, platform):
+        os.makedirs(d, exist_ok=True)
+        write_paml(os.path.join(d, "lg4x_1.dat"), *empirical_aa("lg4x_1"))
+        return by_cli(["--aa_rate_file", "DIR/lg4x_1.dat"], "aa")(d,
+                                                                  platform)
+
+    return {
+        "lg4x_fit": by_cli(["-m", "LG4X"], "aa"),
+        "xml_mixture": by_xml("mixture"),
+        "xml_two_partitions_spr": by_xml("partitions"),
+        "il_fit": by_cli(["--il"]),
+        "aa_rate_file_fit": aa_rate_file,
+        "n2_default_run": by_cli(["-n", "2"], default=True, n_sets=2),
+        "checkpoint_resume": checkpoint,
+    }
+
+
+def slice_side(label, d, platform):
+    return slice_runs()[label](d, platform)
+
+
+def report_slice(label, gpu, cpu):
+    """One slice check, card float32 against CPU float64: final lnL
+    within E2E_TOL of each data set and the same trees where a search
+    runs.  Returns its numbers."""
+    ((lg, tg), g_s), ((lc, tc), c_s) = gpu, cpu
+    gaps = [g - c for g, c in zip(lg, lc)]
+    rf = [a.rf_distance(b) for a, b in zip(tg, tc)]
+    print(f". [small] {label}: gpu f32 {lg} ({g_s:.1f} s)  cpu f64 {lc} "
+          f"({c_s:.1f} s)  diff " + ", ".join(f"{g:.2e}" for g in gaps)
+          + f" (tol {E2E_TOL})  RF {rf}")
+    if len(lg) != len(lc) or len(tg) != len(tc) or not lg or \
+            any(not abs(g) <= E2E_TOL for g in gaps) or any(rf):
+        fail(f"small {label} disagrees between the card and the CPU")
+    return dict(lnl_gpu=lg, lnl_cpu=lc, gaps=gaps, rf=rf, gpu_s=g_s,
+                cpu_s=c_s)
+
+
+def run_side(side, args, d, platform):
+    """(side(*args, d, platform), seconds), its standard output
+    swallowed: one side of a small card-against-CPU check."""
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = side(*args, d, platform)
+    return got, time.time() - t
+
+
+def one_torch_thread():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def small_checks(tmp):
+    """Every 16 x 500 card-against-CPU check, after the full-width
+    paths: the CPU float64 side of each in a worker process (spawned,
+    one torch thread each, the longest first), the card's side in this
+    process meanwhile; then each comparison.  Returns (the supports
+    check's aBayes gap, {slice check: numbers})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    slice_labels = list(slice_runs())
+    checks = [(f"small_default_{dt}", default_side, (dt,), report_default)
+              for dt in ("aa", "nt")]
+    checks.append(("small_support", support_side, (), report_support))
+    checks += [(label, slice_side, (label,), report_slice)
+               for label in slice_labels]
+    checks += [(f"small_{dt}", fit_side, (dt,), report_fit)
+               for dt in ("nt", "aa")]
+    workers = max(1, min(6, len(os.sched_getaffinity(0)) - 2))
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=one_torch_thread)
+    try:
+        cpu = [pool.submit(run_side, side, args, os.path.join(
+            tmp, f"{label}_cpu"), "cpu") for label, side, args, _ in checks]
+        gpu = [run_side(side, args, os.path.join(tmp, f"{label}_gpu"), "gpu")
+               for label, side, args, _ in checks]
+        out = {}
+        for (label, _, args, report), g, c in zip(checks, gpu, cpu):
+            out[label] = report(*args, g, c.result())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return out["small_support"], {k: out[k] for k in slice_labels}
+
+
+def mixture_rows(aln_path, tree_path, cuda, regs):
+    """The DNA mixture's cell: its fit on the DNA problem (mixture_fit),
+    then K1, K2 and K3 (at the batch sizes the fit launched, on the line
+    search's first zoom level) against their plain versions at the
+    mixture's system; each row's launches are the fit's."""
+    counts, k3_by_b, res = mixture_fit(aln_path, tree_path, cuda)
+    rows = kernel_phases("nt", aln_path, tree_path, cuda, regs,
+                               model=dna_mixture(),
+                               params=mixture_params(dna_mixture()),
+                               cell="HKY85+GTR mixture",
+                               k3_batches=sorted(k3_by_b))
+    for r in rows:
+        kname = r.pop("kernel")
+        r["launches"] = counts[kname]
+        r["launches_from"] = "the mixture's fixed-topology fit"
+        if "B" in r:
+            r["launches_at_B"] = k3_by_b.get(r["B"], 0)
+    return rows
+
+
+def lg4x_phase(aln_path, tree_path, cuda, regs, out):
+    """LG4X at full width on the protein problem (its own directory):
+    the fixed-topology fit (`-u tree -o lr -m LG4X`) and the default run
+    (BioNJ, then the NNI search), each with every launch counter set to
+    0 just before and read just after (K4, K5 and K3 launch, nothing off
+    the route); then K4, K5 and K3 (at every batch size the two runs
+    launched, on the line search's first zoom level: its extreme grid
+    points) against their plain versions at the LG4X system.  Puts the
+    runs' numbers into out["lg4x_fit"] and out["lg4x_default_run"];
+    returns the kernel rows, launches from the default run."""
+    import torch
+    from phyml_tpu_torch.models.substitution import lg4x_model
+
+    lg_aln, lg_tree = copy_problem(aln_path, tree_path, os.path.join(
+        os.path.dirname(os.path.dirname(aln_path)), "lg4x"))
+    extra = ("-m", "LG4X")
+    fit_counts, fit_k3, out["lg4x_fit"] = main_path(
+        "aa", lg_aln, lg_tree, cuda, extra=extra, runs=1, tag="aa LG4X")
+    batch_k = scorer_block("aa", lg_aln, extra, cuda)
+    counts, res = default_run("aa", lg_aln, lg_tree, cuda, batch_k,
+                              extra=extra, tag="aa LG4X")
+    out["lg4x_default_run"] = res
+    # the kernels at the system the fit found
+    model = lg4x_model()
+    found = torch.as_tensor(out["lg4x_fit"]["classes"], dtype=torch.float64)
+    params = {"class_rates_raw": found[:, 0].log(),
+              "class_weights_raw": found[:, 1].log()}
+    batches = sorted(set(fit_k3) | set(res["k3_by_batch"]))
+    rows = kernel_phases("aa", aln_path, tree_path, cuda, regs, model=model,
+                         params=params, cell="LG4X", k3_batches=batches)
+    for r in rows:
+        kname = r.pop("kernel")
+        r["launches"] = counts[kname]
+        r["launches_fixed_fit"] = fit_counts[kname]
+        if "B" in r:
+            r["launches_at_B"] = res["k3_by_batch"].get(r["B"], 0)
+            r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
+    return rows
 
 
 def main() -> int:
@@ -1231,25 +1867,28 @@ def main() -> int:
             if regs[kname][ns][1] != 0:
                 fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
 
-    rows, runs, supports = [], {}, {}
+    rows, runs, supports, mix = [], {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
                 os.path.join(tmp, dt), dt, N_TAXA, N_SITES, SEED)
             dt_rows = kernel_phases(dt, aln_path, tree_path, cuda, regs)
             torch.cuda.empty_cache()
-            small_fit_check(dt, tmp)
-            fit_counts, fit_k3 = main_path(dt, aln_path, tree_path, cuda)
+            fit_counts, fit_k3, _ = main_path(dt, aln_path, tree_path, cuda)
             torch.cuda.empty_cache()
-            batch_k = distance_check(dt, aln_path, cuda)
-            small_default_check(dt, tmp)
-            if dt == "nt":
-                supports["small_abayes_gap"] = small_support_check(tmp)
-            counts, res = default_run(dt, aln_path, tree_path, cuda,
-                                      batch_k)
+            # the default run and the supports on a problem of their own
+            # depth (DEFAULT_RUN_TAXA)
+            if DEFAULT_RUN_TAXA[dt] != N_TAXA:
+                run_aln, run_tree = write_problem(
+                    os.path.join(tmp, f"{dt}{DEFAULT_RUN_TAXA[dt]}"), dt,
+                    DEFAULT_RUN_TAXA[dt], N_SITES, SEED)
+            else:
+                run_aln, run_tree = aln_path, tree_path
+            batch_k = distance_check(dt, run_aln, cuda)
+            counts, res = default_run(dt, run_aln, run_tree, cuda, batch_k)
             runs[dt] = res
             torch.cuda.empty_cache()
-            s_counts, stacked, supports[dt] = supports_phase(dt, aln_path,
+            s_counts, stacked, supports[dt] = supports_phase(dt, run_aln,
                                                              cuda)
             # `launches`: the default run's (the main path), the
             # fixed-topology fit's beside them; the tree-axis rows',
@@ -1268,11 +1907,21 @@ def main() -> int:
                     r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
             rows += dt_rows
             torch.cuda.empty_cache()
+            if dt == "nt":
+                mix["partitioned"] = partitioned_phase(aln_path, tree_path,
+                                                       cuda)[2]
+                torch.cuda.empty_cache()
+                rows += mixture_rows(aln_path, tree_path, cuda, regs)
+            else:
+                rows += lg4x_phase(aln_path, tree_path, cuda, regs, mix)
+            torch.cuda.empty_cache()
+        supports["small_abayes_gap"], mix["small"] = small_checks(tmp)
 
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
     print(json.dumps({"default_runs": runs}))
     print(json.dumps({"supports": supports}, default=str))
+    print(json.dumps({"mixtures_partitions_flags": mix}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Reference: Read_Command_Line (cl.c:19) and the per-dataset
 loop (main.c:108-434).  The parser takes the same flags as
 phyml_tpu's; this port runs the `phyml` ML run on DNA and on amino
-acids (LG, WAG, JTT and the other empirical matrices): the start tree
+acids (LG, WAG, JTT and the other empirical matrices, LG4X and a
+PAML rate file through `--aa_rate_file`): the start tree
 (`-u` tree, `--rand_start`, `--pars_start`, a resolution of
 `--constraint_file`, else ML distances and BioNJ), the topology search
 (`-o` with `t`, `-s NNI|SPR|BEST`, `--n_rand_starts`,
@@ -11,9 +12,11 @@ acids (LG, WAG, JTT and the other empirical matrices): the start tree
 `--print_trace`, `--json_trace`) or the fixed-topology fit (`-o` in
 {l, r, lr, n/''}), branch supports (`-b N` bootstrap with `--tbe`,
 `--bayesian_bootstrap`, `--rapid_boot`; `-b -1/-2/-3/-4/-5` aLRT,
-SH-aLRT and aBayes), the model and data flags, and `--print_site_lnl`.
-Every other analysis flag stops the run with a message naming the
-ROADMAP.md item that ports it.
+SH-aLRT and aBayes), the model and data flags (`--il`, `--codpos`,
+`--weights`, `--no_gap`, `-n` data sets), `--checkpoint`,
+`--print_site_lnl`, and `--xml` analyses (io/xmlcfg.py: mixtures and
+partitions).  Every other analysis flag stops the run with a message
+naming the ROADMAP.md item that ports it.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
@@ -21,6 +24,9 @@ ROADMAP.md item that ports it.
         --platform gpu                       # ... then aBayes supports
     python -m phyml_tpu_torch.cli -i prot.phy -u tree.nwk -d aa -m LG \\
         -c 4 -a e -o lr -b 0 --platform gpu
+    python -m phyml_tpu_torch.cli -i prot.phy -d aa -m LG4X -b 0 \\
+        --platform gpu                       # the LG4X mixture
+    python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
 """
 
 from __future__ import annotations
@@ -38,8 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="phyml-tpu-torch",
         description="PyTorch/CUDA phylogenetic ML (PhyML-compatible CLI)",
     )
-    p.add_argument("-i", "--input", required=True,
-                   help="PHYLIP/FASTA/NEXUS alignment")
+    p.add_argument("-i", "--input", default=None,
+                   help="PHYLIP/FASTA/NEXUS alignment (required "
+                        "unless --xml)")
     p.add_argument("-d", "--datatype",
                    choices=["nt", "aa", "generic", "gen"],
                    default=None)
@@ -120,19 +127,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_memory_check", action="store_true")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--run_id", default=None)
-    p.add_argument("--xml", default=None)
+    p.add_argument("--xml", default=None,
+                   help="XML analysis description (partitions/mixtures)")
     p.add_argument("--datatype_guess", action="store_true")
     p.add_argument("--float32", action="store_true",
                    help="fp32 likelihood (default on the GPU; fp64 on "
                         "the CPU)")
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--checkpoint_every", type=int, default=300)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file; resumes if it exists")
+    p.add_argument("--checkpoint_every", type=int, default=300,
+                   help="checkpoint interval, seconds")
     return p
 
 
 # ROADMAP.md Queue 1 items that port what this CLI does not run yet
-_CLI = "Queue 1, 'Remaining CLI flags and the checkpoint'"
-_MODELS = "Queue 1, 'Covarion, mixtures and partitions'"
+_STATES = "Queue 1, 'Other state counts and covarion'"
 _SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
 _TOOLS = "Queue 1, 'Auxiliary tools'"
 
@@ -143,17 +152,7 @@ def _unported(args) -> list[tuple[str, str]]:
     checks = [
         (args.distributed, "--distributed", _SUPPORT),
         (args.cov or args.cov_free or args.cov_delta is not None
-         or args.cov_alpha is not None, "--cov*", _MODELS),
-        ((args.model or "").upper() == "LG4X", "-m LG4X", _MODELS),
-        (args.xml is not None, "--xml", _MODELS),
-        (args.il, "--il", _CLI),
-        (args.aa_rate_file is not None, "--aa_rate_file", _CLI),
-        (args.multiple != 1, "-n other than 1", _CLI),
-        (args.codpos is not None, "--codpos", _CLI),
-        (args.weights is not None, "--weights", _CLI),
-        (args.no_gap, "--no_gap", _CLI),
-        (args.checkpoint is not None, "--checkpoint", _CLI),
-        (args.datatype_guess, "--datatype_guess", _CLI),
+         or args.cov_alpha is not None, "--cov*", _STATES),
         (args.cv is not None, "--cv", _TOOLS),
         (args.ancestral, "--ancestral", _TOOLS),
         (args.ps, "--ps", _TOOLS),
@@ -164,7 +163,7 @@ def _unported(args) -> list[tuple[str, str]]:
 
 
 def _build_model(args, aln):
-    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.models.substitution import SubstModel, lg4x_model
 
     if aln.datatype == "generic":
         # custom alphabet: JC over the inferred state count
@@ -180,6 +179,8 @@ def _build_model(args, aln):
     name = args.model
     if name is None:
         name = "HKY85" if aln.datatype == "nt" else "LG"
+    if name.upper() == "LG4X":
+        return lg4x_model()
     freqs_mode = None
     fixed = None
     if args.frequencies:
@@ -194,9 +195,15 @@ def _build_model(args, aln):
             fixed = np.asarray([float(x) for x in f.split(",")])
             freqs_mode = "fixed"
     opt_r = "r" in args.optimize
+    custom_aa = None
+    if args.aa_rate_file:
+        from phyml_tpu_torch.models.matrices import read_paml_matrix
+        custom_aa = read_paml_matrix(args.aa_rate_file)
+        name = "CUSTOMAA"
     return SubstModel(
         datatype=aln.datatype,
         name=name,
+        custom_aa=custom_aa,
         n_classes=args.n_classes,
         invar=(args.pinv == "e" or float(args.pinv or 0) > 0),
         freerate=args.free_rates,
@@ -218,7 +225,25 @@ def _init_params(args, model, aln):
         params["alpha"] = torch.tensor(float(args.alpha), **f64)
     if args.pinv != "e" and model.invar:
         params["pinv"] = torch.tensor(float(args.pinv), **f64)
+    if args.il:
+        # IL branch-length variance sigma, stored in log space and
+        # optimized with the other scalars (reference default 0.1,
+        # init.c:693); the engine substitutes the MGF eigenvalues in
+        # _system, so every search/optimizer path is exact under IL
+        params["il_sigma"] = torch.tensor(float(np.log(0.1)), **f64)
     return params
+
+
+def _device(args):
+    """The device --platform names, or None (with a message) when it
+    names the GPU and there is none."""
+    if args.platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        print("!! --platform gpu: no CUDA device found; run with "
+              "--platform cpu instead", file=sys.stderr)
+        return None
+    return torch.device("cuda")
 
 
 def run_analysis(args) -> int:
@@ -228,29 +253,42 @@ def run_analysis(args) -> int:
             print(f"!! {flag}: not ported to phyml_tpu_torch yet "
                   f"(ROADMAP.md {item})", file=sys.stderr)
         return 2
-    if args.platform == "gpu":
-        if not torch.cuda.is_available():
-            print("!! --platform gpu: no CUDA device found; run with "
-                  "--platform cpu instead", file=sys.stderr)
-            return 1
-        device = torch.device("cuda")
-    else:
-        device = torch.device("cpu")
+    device = _device(args)
+    if device is None:
+        return 1
     # dtype rule: float32 on the card, float64 on the CPU unless
     # --float32
     dtype = torch.float32 if (args.float32 or device.type == "cuda") \
         else torch.float64
 
-    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.io.alignment import (
+        read_alignment, read_alignments_multi, read_site_weights,
+    )
 
     seed = args.r_seed if args.r_seed is not None else int(
         time.time()) % (2 ** 31)
+    rng = np.random.default_rng(seed)
+    site_w = read_site_weights(args.weights) if args.weights else None
     if args.datatype == "gen":
         args.datatype = "generic"
-    rng = np.random.default_rng(seed)
-    aln = read_alignment(args.input, datatype=args.datatype,
-                         interleaved=not args.sequential)
-    return _run_dataset(args, aln, rng, seed, device, dtype)
+    if args.multiple > 1:
+        alns = read_alignments_multi(
+            args.input, args.multiple, datatype=args.datatype,
+            interleaved=not args.sequential, site_weights=site_w)
+    else:
+        alns = [read_alignment(args.input, datatype=args.datatype,
+                               interleaved=not args.sequential,
+                               site_weights=site_w, codpos=args.codpos)]
+    if args.no_gap:
+        from phyml_tpu_torch.io.alignment import remove_ambiguous_patterns
+        alns = [remove_ambiguous_patterns(a) for a in alns]
+    rc = 0
+    for set_idx, aln in enumerate(alns):
+        if len(alns) > 1 and not args.quiet:
+            print(f"\n. Data set #{set_idx + 1} of {len(alns)}.")
+        rc |= _run_dataset(args, aln, rng, seed, device, dtype, set_idx,
+                           len(alns))
+    return rc
 
 
 def _search(args, engine, model, params, topo, rng, seed, opt_rates,
@@ -323,7 +361,8 @@ def _supports(args, engine, model, params, topo, seed):
     return None, "%.2f"
 
 
-def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
+def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
+                 n_sets=1) -> int:
     from phyml_tpu_torch.io.output import (
         format_stats, write_results, write_site_lnl,
     )
@@ -400,16 +439,31 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
     opt_topo = "t" in args.optimize
     opt_len = "l" in args.optimize or opt_topo
     opt_rates = "r" in args.optimize
+
+    checkpointer = None
+    if args.checkpoint:
+        from phyml_tpu_torch.utils.checkpoint import Checkpointer
+        checkpointer = Checkpointer(args.checkpoint,
+                                    every_s=args.checkpoint_every)
+        resumed = checkpointer.resume()
+        if resumed is not None:
+            topo, params, stage = resumed
+            if not args.quiet:
+                print(f". Resumed from checkpoint ({stage}).")
+
     run_id = f"_{args.run_id}" if args.run_id else ""
     prefix = f"{args.input}{run_id}"
+    # side outputs of one data set of several must not clobber
+    # another's
+    side = f"{prefix}_set{set_idx + 1}" if n_sets > 1 else prefix
     trace = None
     if args.print_trace or args.json_trace:
         from phyml_tpu_torch.io.output import TraceWriter
         trace = TraceWriter(
             aln.names,
-            newick_path=(f"{prefix}_phyml_trace.txt"
+            newick_path=(f"{side}_phyml_trace.txt"
                          if args.print_trace else None),
-            json_path=(f"{prefix}_phyml_trace.json"
+            json_path=(f"{side}_phyml_trace.json"
                        if args.json_trace else None))
     if opt_topo:
         topo, params, lnl = _search(args, engine, model, params, topo, rng,
@@ -429,19 +483,31 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
         rv = topo.rooted()
         topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
 
+    if checkpointer is not None:
+        checkpointer.save(topo, params, "search_done", force=True)
+
     support, support_fmt = _supports(args, engine, model, params, topo,
                                      seed)
 
     # ---- outputs ------------------------------------------------------
+    il_lines = []
+    if "il_sigma" in params:
+        il_lines = [
+            ". Integrated length (IL) model: \tyes",
+            f"  - IL variance parameter sigma: \t"
+            f"{float(np.exp(float(params['il_sigma']))):.5f}",
+        ]
     stats = format_stats(
         input_name=args.input, aln=aln, model=model, params=params,
         lnl=lnl, topo=topo, search_desc=search_desc,
         start_tree_desc=start_desc, runtime_s=time.time() - t_start,
         seed=seed, n_parsimony=parsimony_score(engine, topo),
+        extra_lines=il_lines,
     )
+    # every data set after the first appends to the same two files
     tree_path, stats_path = write_results(
         prefix, topo, aln.names, stats, support=support,
-        support_fmt=support_fmt, append=args.append,
+        support_fmt=support_fmt, append=(set_idx > 0 or args.append),
     )
     if dup_name_pairs:
         from phyml_tpu_torch.io.newick import insert_duplicate_leaves
@@ -451,7 +517,7 @@ def _run_dataset(args, aln, rng, seed, device, dtype) -> int:
             fh.write(full + "\n")
     if args.print_site_lnl:
         ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
-        write_site_lnl(f"{prefix}_phyml_lk.txt", aln,
+        write_site_lnl(f"{side}_phyml_lk.txt", aln,
                        engine.site_logliks(params, ta))
     if not args.quiet:
         print(f". Log-likelihood: {lnl:.5f}")
@@ -466,7 +532,17 @@ def main(argv=None) -> int:
               f"yet (ROADMAP.md {_TOOLS}); give the options on the "
               "command line", file=sys.stderr)
         return 2
-    return run_analysis(build_parser().parse_args(real_argv))
+    parser = build_parser()
+    args = parser.parse_args(real_argv)
+    if args.xml:
+        from phyml_tpu_torch.io.xmlcfg import run_xml
+        device = _device(args)
+        if device is None:
+            return 1
+        return run_xml(args.xml, quiet=args.quiet, device=device)
+    if args.input is None:
+        parser.error("the following arguments are required: -i/--input")
+    return run_analysis(args)
 
 
 if __name__ == "__main__":

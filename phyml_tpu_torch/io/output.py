@@ -59,7 +59,7 @@ def format_stats(
     if n_parsimony is not None:
         L.append(f". Parsimony: \t\t\t\t{n_parsimony}")
     L.append(f". Tree size: \t\t\t\t{float(np.sum(topo.blen)):.5f}")
-    if model.n_classes > 1 and not model.freerate:
+    if model.n_classes > 1 and not model.freerate and not model.is_mixture:
         L.append(f". Discrete gamma model: \t\tYes")
         L.append(f"  - Number of classes: \t\t\t{model.n_classes}")
         L.append(f"  - Gamma shape parameter: \t\t"
@@ -67,7 +67,7 @@ def format_stats(
         for k in range(model.n_classes):
             L.append(f"  - Relative rate in class {k + 1}: \t\t"
                      f"{rates[k]:.5f} [freq={probs[k]:.6f}] ")
-    if model.freerate:
+    if model.freerate or model.is_mixture:
         L.append(f". FreeRate mixture: \t\t\tYes "
                  f"({model.n_classes} classes)")
         for k in range(model.n_classes):
@@ -122,7 +122,7 @@ def _class_rates(model, params):
         discrete_gamma, freerate_normalize,
     )
 
-    if model.freerate:
+    if model.is_mixture or model.freerate:
         r, w = freerate_normalize(params["class_rates_raw"],
                                   params["class_weights_raw"])
         return np.asarray(r), np.asarray(w)

@@ -72,8 +72,15 @@ class SubstModel:
     freqs_mode: str | None = None     # empirical|model|optimize|fixed
     fixed_freqs: Any = None           # np [ns] when freqs_mode == fixed
     custom_string: str = "012345"     # DNA CUSTOM grouping
-    # covarion (M4) is not ported yet (ROADMAP.md Queue 1, "Covarion,
-    # mixtures and partitions"); True raises
+    # CUSTOMAA: (S [20,20], pi [20]) numpy pair from a PAML rate file
+    # (--aa_rate_file, cl.c:560-570); overrides the empirical table
+    custom_aa: Any = None
+    # Mixture components: list of (S [ns,ns], pi [ns]) numpy pairs.
+    # When set, n_classes == len(components) and each class has its own
+    # Q (LG4X-style); otherwise a single Q is shared across classes.
+    components: list | None = None
+    # covarion (M4) is not ported yet (ROADMAP.md Queue 1, "Other state
+    # counts and covarion"); True raises
     covarion: bool = False
     # which scalar parameters are optimized (used by the optimizer)
     optimize_kappa: bool = True
@@ -85,8 +92,8 @@ class SubstModel:
         if self.covarion:
             raise NotImplementedError(
                 "the covarion model is not ported to phyml_tpu_torch yet "
-                "(ROADMAP.md Queue 1, 'Covarion, mixtures and "
-                "partitions')")
+                "(ROADMAP.md Queue 1, 'Other state counts and "
+                "covarion')")
         self.name = self.name.upper()
         if self.datatype == "generic":
             if self.generic_ns < 2:
@@ -108,6 +115,8 @@ class SubstModel:
     @property
     def obs_ns(self) -> int:
         """Observed (alphabet) states - what tips are encoded over."""
+        if self.components is not None:
+            return int(self.components[0][0].shape[-1])
         if self.datatype == "generic":
             return self.generic_ns
         return 4 if self.datatype == "nt" else 20
@@ -115,6 +124,10 @@ class SubstModel:
     @property
     def ns(self) -> int:
         return self.obs_ns
+
+    @property
+    def is_mixture(self) -> bool:
+        return self.components is not None
 
     def init_params(self, obs_freqs: np.ndarray | None = None) -> dict:
         """Default parameter dict of float64 tensors (reference
@@ -133,9 +146,9 @@ class SubstModel:
                     else "012345"
                 )
                 p["rr_val"] = torch.zeros(n_rr, dtype=_F64)  # log-rates
-        if self.n_classes > 1 and not self.freerate:
+        if self.n_classes > 1 and not self.freerate and not self.is_mixture:
             p["alpha"] = _t(1.0)
-        if self.freerate:
+        if self.is_mixture or self.freerate:
             p["class_rates_raw"] = torch.zeros(self.n_classes,
                                                dtype=_F64)
             p["class_weights_raw"] = torch.zeros(self.n_classes,
@@ -151,7 +164,7 @@ class SubstModel:
             p["freqs_const"] = _t(np.asarray(obs_freqs))
         elif self.freqs_mode == "fixed":
             p["freqs_const"] = _t(np.asarray(self.fixed_freqs))
-        # 'model' mode: frequencies come from the empirical table
+        # 'model' mode: frequencies come from the component table(s)
         return p
 
     # ------------------------------------------------------------------
@@ -164,7 +177,7 @@ class SubstModel:
             pi = _t(params["freqs_const"])
             pi = pi / torch.sum(pi, dim=-1, keepdim=True)
         else:
-            return comp_pi  # 'model': the empirical table's frequencies
+            return comp_pi  # 'model': the component tables' frequencies
         return pi[..., None, :].expand(*pi.shape[:-1], C, pi.shape[-1])
 
     def class_system(self, params: dict, fold_rates: bool = True):
@@ -179,7 +192,7 @@ class SubstModel:
         lead = batch_shape(params)
 
         # --- per-class rates & weights -------------------------------
-        if self.freerate:
+        if self.is_mixture or self.freerate:
             rates, w = freerate_normalize(
                 params["class_rates_raw"], params["class_weights_raw"]
             )
@@ -192,13 +205,20 @@ class SubstModel:
             w = torch.ones(1, dtype=_F64)
 
         # --- per-class exchangeabilities & base freqs -----------------
+        # S [..., C, ns, ns]: one Q for all classes (a class axis of 1),
+        # or a mixture's own Q and table frequencies per class
         comp_pi = None
-        if self.datatype == "generic":
+        if self.is_mixture:
+            S = torch.stack([_t(s) for s, _ in self.components])
+            comp_pi = torch.stack([_t(p_) for _, p_ in self.components])
+        elif self.datatype == "generic":
             # JC over the custom alphabet: unit exchangeabilities
-            S = torch.ones(ns, ns, dtype=_F64) - torch.eye(ns, dtype=_F64)
+            S = (torch.ones(ns, ns, dtype=_F64)
+                 - torch.eye(ns, dtype=_F64))[None]
         elif self.datatype == "aa":
-            S_np, pi_np = matrices.empirical_aa(self.name)
-            S = _t(S_np)
+            S_np, pi_np = self.custom_aa if self.custom_aa is not None \
+                else matrices.empirical_aa(self.name)
+            S = _t(S_np)[None]
             comp_pi = _t(pi_np).expand(C, ns)
         else:
             dparams = {k: _t(v) for k, v in params.items()}
@@ -217,7 +237,7 @@ class SubstModel:
                 rr6 = torch.clamp(rr6 / rr6[..., 5:6], RR_MIN, RR_MAX)
                 dparams["rr"] = rr6
             S = dna_mod.exchangeabilities(self.name, dparams, cmap)
-        S = S[..., None, :, :]                     # one Q for all classes
+            S = S[..., None, :, :]                 # one Q for all classes
 
         pi = self._frequencies(params, comp_pi)
 
@@ -246,3 +266,15 @@ def _f84_lambda(pi, kappa):
     R, Y = A + G, C + T
     kappa = torch.clamp(kappa, min=1e-5)
     return (Y + (R - Y) / (2.0 * kappa)) / (R - (R - Y) / (2.0 * kappa))
+
+
+def lg4x_model() -> SubstModel:
+    """The LG4X 4-matrix mixture (Le, Dang & Gascuel 2012), matching
+    the reference's examples/lg4x XML setup (4 partitionless classes
+    with free rates and weights)."""
+    comps = [matrices.empirical_aa(n)
+             for n in ("lg4x_1", "lg4x_2", "lg4x_3", "lg4x_4")]
+    return SubstModel(
+        datatype="aa", name="LG4X", n_classes=4, freerate=True,
+        freqs_mode="model", components=comps,
+    )

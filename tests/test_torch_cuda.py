@@ -1132,3 +1132,196 @@ def test_cli_support_and_start_flags_on_the_card(cuda, flags, tmp_path):
             snaps = json.loads(
                 (tmp_path / "aln.phy_phyml_trace.json").read_text())
             assert len(snaps) == len(lines)
+
+
+# --- per-class systems: LG4X and a two-matrix DNA mixture -----------------
+
+def _mixture_model(kind):
+    """LG4X, or a DNA mixture of an HKY85 class (kappa 4) and a GTR
+    class, each with its own pi (as an XML <mixtureelem> list builds
+    one), both with FreeRate rates and weights."""
+    from phyml_tpu_torch.models.substitution import lg4x_model
+
+    if kind == "lg4x":
+        return lg4x_model()
+    hky = np.ones((4, 4)) - np.eye(4)
+    hky[0, 2] = hky[2, 0] = hky[1, 3] = hky[3, 1] = 4.0
+    gtr = np.zeros((4, 4))
+    gtr[np.triu_indices(4, k=1)] = [1.2, 3.0, 0.8, 1.1, 4.0, 1.0]
+    comps = [(hky, np.array([0.3, 0.2, 0.3, 0.2])),
+             (gtr + gtr.T, np.array([0.2, 0.3, 0.25, 0.25]))]
+    return SubstModel(datatype="nt", name="XMLMIX", n_classes=2,
+                      freerate=True, freqs_mode="model", components=comps)
+
+
+def _mixture_setup(cuda, kind, n=40, sites=301, seed=4):
+    """Engine, tree, system and P-matrices at the mixture's own system
+    on sequences simulated under it; the raw rates and weights spread
+    the classes (the classes' Q, V, V^-1 and pi all differ)."""
+    from phyml_tpu_torch.models.eigen import pmat
+
+    rng = np.random.default_rng(seed)
+    model = _mixture_model(kind)
+    C, ns = model.n_classes, model.ns
+    params = model.init_params()
+    params["class_rates_raw"] = torch.as_tensor(rng.normal(0.0, 1.0, C))
+    params["class_weights_raw"] = torch.as_tensor(rng.normal(0.0, 0.5, C))
+    rv = Topology.random(n, rng, mean_blen=0.15).rooted()
+    lam, V, Vinv, pi, w, _ = model.class_system(params)
+    t = torch.as_tensor(rv.node_blen)[:, None].expand(rv.n_nodes, C)
+    P = np.clip(pmat(lam, V, Vinv, t).numpy(), 0.0, None)
+    P /= P.sum(-1, keepdims=True)
+    cls = rng.choice(C, size=sites, p=w.numpy())
+    states = np.zeros((rv.n_nodes, sites), dtype=np.int64)
+    for c in range(C):
+        at = cls == c
+        states[-1, at] = rng.choice(ns, size=int(at.sum()), p=pi.numpy()[c])
+    for i in range(rv.n_internal - 1, -1, -1):       # preorder
+        for c in rv.child[i]:
+            cum = P[int(c), cls, states[n + i], :].cumsum(axis=1)
+            r = rng.random(sites)[:, None]
+            states[int(c)] = np.clip((r > cum).sum(axis=1), 0, ns - 1)
+    enc = np.zeros((n, sites, ns), dtype=np.float32)
+    enc[np.arange(n)[:, None], np.arange(sites)[None], states[:n]] = 1.0
+    aln = compact(enc, [f"t{i}" for i in range(n)], model.datatype)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    tree = tree_arrays(rv, device=cuda)
+    sys_ = eng.system_of(params)
+    assert float((sys_[3][1] - sys_[3][0]).abs().max()) > 1e-2
+    return eng, tree, sys_, eng._pmats(sys_[0], sys_[1], sys_[2],
+                                       tree.blen), params
+
+
+@pytest.mark.parametrize("kind, kernel", [
+    ("dna_mix", "K1"), ("dna_mix", "K4"), ("lg4x", "K4")])
+def test_slot_kernels_at_per_class_systems(cuda, kind, kernel):
+    eng, tree, sys_, pm, _ = _mixture_setup(cuda, kind)
+    _slot_check(eng, tree, sys_, pm, kernel)
+
+
+@pytest.mark.parametrize("kind, kernel", [
+    ("dna_mix", "K2"), ("dna_mix", "K5"), ("lg4x", "K5")])
+def test_edge_kernels_at_per_class_systems(cuda, kind, kernel):
+    eng, tree, sys_, pm, _ = _mixture_setup(cuda, kind)
+    err, plain_err = _site_terms_gaps(eng, tree, sys_, pm,
+                                      _edotp_kernel(kernel))
+    assert err < plain_err + K2_TOL
+
+
+@pytest.mark.parametrize("kind", ["dna_mix", "lg4x"])
+def test_k3_at_the_line_search_grid_of_a_mixture(cuda, kind):
+    """K3 on the first zoom level of optimize_scalars's grid (every
+    FreeRate slot swept over its whole bracket, rate logits to +-7 and
+    weight logits to +-9: classes of weight ~e^-9 and rates ~e^+-7
+    before normalization), one launch, against its plain version."""
+    from phyml_tpu_torch.optim.round import _batched_params, free_scalar_slots
+
+    eng, tree, sys_, pm, params = _mixture_setup(cuda, kind)
+    slots = free_scalar_slots(eng.model, params)
+    cur = [float(params[nm][i]) for nm, i, *_ in slots]
+    S = []
+    for j, (_, _, _, lo, hi) in enumerate(slots):
+        for x in list(np.linspace(lo, hi, 12)) + [cur[j]]:
+            row = list(cur)
+            row[j] = x
+            S.append(row)
+    sysb = eng._system(_batched_params(params, slots, np.asarray(S)))
+    pmb = eng._pmats(sysb[0], sysb[1], sysb[2], tree.blen)
+    child, sched, n_slots = eng._topology(tree.child)
+    logw = eng._logw(sysb[4])
+    n0 = clv.uppass_site_lse.launches
+    got = clv.uppass_site_lse(child, eng.tips, pmb, sysb[3], logw,
+                              sched=sched, n_slots=n_slots)
+    ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, sysb[3], logw)
+    torch.cuda.synchronize()
+    assert clv.uppass_site_lse.launches == n0 + 1
+    assert got.shape == (len(S), eng.P) and bool(torch.isfinite(got).all())
+    tol = K13_TOL if eng.ns == 4 else AA_TOL
+    assert float((got - ref).abs().max()) < tol
+
+
+def test_lg4x_fit_card_against_cpu(cuda, tmp_path):
+    """`-d aa -m LG4X -u tree -o lr` on a 16 x 300 problem simulated
+    under LG4X: the card's float32 fit within BATCHED_LNL_TOL of the
+    CPU's float64 one; the card's passes went through K4, K5 and K3."""
+    from phyml_tpu_torch import cli
+
+    eng, tree, *_ = _mixture_setup(cuda, "lg4x", n=16, sites=300)
+    names = eng.aln.names
+    rv_topo = Topology.random(16, np.random.default_rng(4), mean_blen=0.15)
+    (tmp_path / "tree.nwk").write_text(rv_topo.to_newick(names) + "\n")
+    seqs = ["".join("ARNDCQEGHILKMFPSTWYV"[s] for s in
+                    eng.aln.partials[i][eng.aln.site_to_pattern].argmax(-1))
+            for i in range(16)]
+    (tmp_path / "aln.phy").write_text(" 16 300\n" + "".join(
+        f"{nm:<10s}  {sq}\n" for nm, sq in zip(names, seqs)))
+    lnl = {}
+    for platform in ("cpu", "gpu"):
+        n4, n5 = (clv_slots.uppass_site_lse_slots_stream.launches,
+                  edotp.edge_dotprods_stream.launches)
+        n3 = clv.uppass_site_lse.launches
+        assert cli.main(["-i", str(tmp_path / "aln.phy"), "-u",
+                         str(tmp_path / "tree.nwk"), "-d", "aa", "-m",
+                         "LG4X", "-o", "lr", "-b", "0", "--platform",
+                         platform, "--quiet"]) == 0
+        text = (tmp_path / "aln.phy_phyml_stats.txt").read_text()
+        lnl[platform] = float(text.split(". Log-likelihood:")[1].split()[0])
+        if platform == "gpu":
+            assert clv_slots.uppass_site_lse_slots_stream.launches > n4
+            assert edotp.edge_dotprods_stream.launches > n5
+            assert clv.uppass_site_lse.launches > n3
+    assert abs(lnl["gpu"] - lnl["cpu"]) <= BATCHED_LNL_TOL, lnl
+
+
+def test_two_partition_xml_card_against_cpu(cuda, tmp_path):
+    """A two-<partitionelem> XML run (GTR+G4 and HKY85+G4 halves of a
+    16 x 400 problem, BioNJ start, the NNI search): the same trees and
+    the combined lnL within BATCHED_LNL_TOL, card float32 against CPU
+    float64."""
+    from phyml_tpu_torch.io.xmlcfg import run_xml
+
+    rng = np.random.default_rng(6)
+    topo = Topology.random(16, rng, mean_blen=0.1)
+    eng, *_ = _simulated_setup(cuda, 4, 16, 400, 6, "nt", topo)
+    names = eng.aln.names
+    seqs = ["".join("ACGT"[s] for s in
+                    eng.aln.partials[i][eng.aln.site_to_pattern].argmax(-1))
+            for i in range(16)]
+    for k, (lo, hi) in enumerate(((0, 200), (200, 400))):
+        (tmp_path / f"g{k}.phy").write_text(f" 16 {hi - lo}\n" + "".join(
+            f"{nm:<10s}  {sq[lo:hi]}\n" for nm, sq in zip(names, seqs)))
+    rates = ",".join(f"R{i}" for i in range(1, 5))
+    xml = f"""<phyml run.id="x" output.file="joint">
+  <topology><instance id="T1" init.tree="bionj" search="nni"/></topology>
+  <ratematrices><instance id="M1" model="GTR"/>
+    <instance id="M2" model="HKY85"/></ratematrices>
+  <siterates>{"".join(f'<instance id="R{i}" init.value="1.0"/>'
+                      for i in range(1, 5))}
+    <weights family="gamma" alpha="1.0"/></siterates>
+  <equfreqs><instance id="F1" freqs="empirical"/></equfreqs>
+  <branchlengths><instance id="L1"/><instance id="L2"/></branchlengths>
+  {"".join(f'''<partitionelem file.name="g{k}.phy" data.type="nt"
+    interleaved="no"><mixtureelem list="T1,T1,T1,T1"/>
+    <mixtureelem list="{m},{m},{m},{m}"/>
+    <mixtureelem list="F1,F1,F1,F1"/><mixtureelem list="{rates}"/>
+    <mixtureelem list="{b},{b},{b},{b}"/></partitionelem>'''
+           for k, (m, b) in enumerate((("M1", "L1"), ("M2", "L2"))))}
+</phyml>"""
+    (tmp_path / "run.xml").write_text(xml)
+    out = {}
+    for platform in ("cpu", "gpu"):
+        n1 = clv_slots.uppass_site_lse_slots.launches
+        assert run_xml(str(tmp_path / "run.xml"), quiet=True,
+                       device=platform if platform == "cpu" else cuda) == 0
+        stats = (tmp_path / "joint_part1_phyml_stats.txt").read_text()
+        combined = float(stats.split("partitions):")[1].split()[0])
+        trees = [Topology.from_newick(
+            (tmp_path / f"joint_part{k}_phyml_tree.txt").read_text(), names)
+            for k in (1, 2)]
+        out[platform] = (combined, trees)
+        if platform == "gpu":
+            assert clv_slots.uppass_site_lse_slots.launches > n1
+    (lc, tc), (lg, tg) = out["cpu"], out["gpu"]
+    assert abs(lg - lc) <= BATCHED_LNL_TOL, (lg, lc)
+    assert all(a.rf_distance(b) == 0 for a, b in zip(tg, tc))
+    assert tg[0].rf_distance(tg[1]) == 0

@@ -155,13 +155,17 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag, item", [
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
-    (["--cov"], "'Covarion, mixtures and partitions'"),
-    (["-m", "LG4X"], "'Covarion, mixtures and partitions'"),
-    (["--checkpoint", "ck.pkl"], "'Remaining CLI flags and the checkpoint'"),
+    (["--cov"], "'Other state counts and covarion'"),
+    (["--ancestral"], "'Auxiliary tools'"),
+    (["--xml", "phytime.xml"], "'Bayesian tier'"),
     (["--cv", "tip"], "'Auxiliary tools'")])
 def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
+    if flag[0] == "--xml":
+        # an XML analysis with a <phytime> root (the Bayesian tier)
+        (tmp_path / flag[1]).write_text("<phytime></phytime>\n")
+        flag = [flag[0], str(tmp_path / flag[1])]
     assert tcli.main(["-i", str(aln), "--platform", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and flag[0] in err
