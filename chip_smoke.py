@@ -63,14 +63,34 @@
    then 16 x 500 card-against-CPU runs of the LG4X fit, a one-partition
    XML mixture, the two-partition XML run with the SPR search, `--il`,
    `--aa_rate_file`, `-n 2` and a checkpoint resume;
-11. the 16 x 500 card-against-CPU checks of steps 5, 7, 9 and 10 run
-   last, after every full-width path: the CPU float64 side of each in a
-   worker process (spawned, one torch thread each, all started
+11. phytime, the Bayesian dating chain: three `--xml` runs with a
+   <phytime> root (run_xml on the card, the launch counters reset just
+   before and read just after each, the chain's lnL evaluations and
+   topology proposals counted and timed): the DNA problem under GTR+G4
+   with the simulating tree as the user tree, a lognormal clock,
+   topology moves, the birth-death prior, a root and a clade
+   calibration, 10,000 iterations; the same under the Guindon clock
+   (no <lineagerates>: the Gamma-MGF P-matrices) at a fixed topology,
+   5,000; the 64-taxon protein problem under LG+G4, 2,000.  Each must
+   run every posterior lnL through the route's slot kernel (K1 / K4;
+   K2 / K5 for the start tree's branch lengths) and none through K3,
+   give MALA weight 0, cache an lnL equal to a recompute, keep its
+   heights feasible and its calibrations, and write a trace and a
+   chronogram that parse; the slot kernel at each run's final
+   P-matrices (MGF ones for the Guindon run) against its plain version;
+12. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10 and 11
+   run last, after every full-width path: the CPU float64 side of each
+   in a worker process (spawned, one torch thread each, all started
    together, stopped before the script ends), the card's side in this
-   process meanwhile.
+   process meanwhile.  The dating check holds the card's start
+   chronogram to the CPU's, the card's lnL and log prior at its start
+   and at its chain's final state to a CPU float64 recompute, and a
+   chain checkpointed at half and resumed on the card to the
+   uninterrupted chain's final state.
 
 It prints a JSON line of the default runs' numbers, a JSON line of the
 supports' numbers, a JSON line of step 10's numbers, a JSON line of
+the phytime runs' numbers, a JSON line of
 per-kernel results (`launches` from the default run, `launches_fixed_fit`
 from step 6; the stacked forms' from the rapid bootstrap, by stack
 size; a cell's rows, named "[cell]", from that cell's runs), the card
@@ -1731,7 +1751,8 @@ def small_checks(tmp):
     paths: the CPU float64 side of each in a worker process (spawned,
     one torch thread each, the longest first), the card's side in this
     process meanwhile; then each comparison.  Returns (the supports
-    check's aBayes gap, {slice check: numbers})."""
+    check's aBayes gap, {slice check: numbers}, the dating check's
+    numbers)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1739,6 +1760,7 @@ def small_checks(tmp):
     checks = [(f"small_default_{dt}", default_side, (dt,), report_default)
               for dt in ("aa", "nt")]
     checks.append(("small_support", support_side, (), report_support))
+    checks.append(("small_phytime", phytime_side, (), report_phytime))
     checks += [(label, slice_side, (label,), report_slice)
                for label in slice_labels]
     checks += [(f"small_{dt}", fit_side, (dt,), report_fit)
@@ -1757,7 +1779,8 @@ def small_checks(tmp):
             out[label] = report(*args, g, c.result())
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    return out["small_support"], {k: out[k] for k in slice_labels}
+    return out["small_support"], {k: out[k] for k in slice_labels}, \
+        out["small_phytime"]
 
 
 def mixture_rows(aln_path, tree_path, cuda, regs):
@@ -1818,6 +1841,546 @@ def lg4x_phase(aln_path, tree_path, cuda, regs, out):
             r["launches_at_B"] = res["k3_by_batch"].get(r["B"], 0)
             r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
     return rows
+
+
+# ----------------------------------------------------------------------
+# phytime: the Bayesian dating chain through `--xml` with a <phytime> root
+# ----------------------------------------------------------------------
+# iterations of each run (mcmc_iter_cap; batches of 250 between the
+# topology sweeps, MCMCSettings.batch)
+PHYTIME_RUNS = {"lognormal": ("nt", 10000, "lognormal", True),
+                "guindon": ("nt", 5000, None, False),
+                "protein": ("aa", 2000, "lognormal", True)}
+# cached lnL against a recompute on the card: both are one K1/K4 pass on
+# the same P-matrices (the recompute is asserted bit-identical to a
+# second one); a gap can only come from a branch length whose float32
+# rounding the lnL-invariant moves flip in its last bit
+CACHE_TOL = 1e-3
+# start chronogram of the 16 x 500 problem, card float32 branch-length
+# fit against CPU float64 (heights in substitutions per site)
+HEIGHT_TOL = 1e-3
+PRIOR_REL = 1e-9  # log prior at one state, card side against CPU: both
+#                   float64 host arithmetic
+
+
+def tip_sets(tt):
+    """Tip set below every node of a TimeTree."""
+    below = [frozenset([u]) for u in range(tt.n_otu)]
+    for i in range(tt.n_otu - 1):
+        c0, c1 = (int(x) for x in tt.child[i])
+        below.append(below[c0] | below[c1])
+    return below
+
+
+def phytime_calibrations(tree_path, names):
+    """A root calibration and one clade calibration (the internal node
+    with 8 to 32 tips closest to 16) around the heights the user tree's
+    own branch lengths give (TimeTree.from_topology, as the XML run
+    builds its start): [0.5 h, 2 h] each.  Returns [(taxa, lo, hi)]."""
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.topology import Topology
+
+    with open(tree_path) as fh:
+        tt = TimeTree.from_topology(Topology.from_newick(fh.read(), names),
+                                    names=names)
+    below = tip_sets(tt)
+    cands = [u for u in range(tt.n_otu, tt.root) if 8 <= len(below[u]) <= 32]
+    u = min(cands or [tt.root - 1], key=lambda v: abs(len(below[v]) - 16))
+    out = []
+    for node in (tt.root, u):
+        h = float(tt.heights[node])
+        out.append(([names[t] for t in sorted(below[node])], 0.5 * h,
+                     2.0 * h))
+    return out
+
+
+def phytime_xml(path, aln_name, tree_path, dt, cals, lineagerates,
+                sample_topology, seed=1):
+    """A <phytime> analysis: GTR+G4 (DNA) or LG+G4 (amino acids) on
+    aln_name, the user tree (optimise.tree: topology moves), the
+    birth-death prior, `cals`, outputs out_phytime_*."""
+    lr = (f'  <lineagerates model="{lineagerates}"/>\n'
+          if lineagerates else "")
+    model = "GTR" if dt == "nt" else "LG"
+    clades = "".join(
+        f'  <clade id="c{k}">'
+        + "".join(f'<taxon value="{t}"/>' for t in taxa) + "</clade>\n"
+        f'  <calibration clade.id="c{k}"><lower>{lo!r}</lower>'
+        f'<upper>{hi!r}</upper></calibration>\n'
+        for k, (taxa, lo, hi) in enumerate(cals))
+    rates = "".join(f'<instance id="R{i}" init.value="1.0"/>'
+                    for i in range(1, 5))
+    with open(path, "w") as fh:
+        fh.write(f'''<phytime run.id="phytime" output.file="out" r.seed="{seed}"
+  mcmc.chain.len="1e6" mcmc.sample.every="50" mcmc.burnin="1000">
+{lr}  <topology><instance id="T1" init.tree="user" file.name="{tree_path}"
+    optimise.tree="{'yes' if sample_topology else 'no'}"/></topology>
+  <ratematrices><instance id="M1" model="{model}"/></ratematrices>
+  <siterates>{rates}<weights family="gamma" alpha="1.0"/></siterates>
+  <branchlengths><instance id="L1"/></branchlengths>
+  <partitionelem file.name="{aln_name}" data.type="{dt}" interleaved="no">
+    <mixtureelem list="T1,T1,T1,T1"/>
+    <mixtureelem list="M1,M1,M1,M1"/>
+    <mixtureelem list="R1,R2,R3,R4"/>
+    <mixtureelem list="L1,L1,L1,L1"/>
+  </partitionelem>
+{clades}</phytime>
+''')
+
+
+@contextlib.contextmanager
+def chain_probes():
+    """Counts and times the chain's lnL evaluations (each ends in the
+    host sync that reads the lnL back), its topology proposals (each
+    holds one lnL evaluation), the slot schedules built and the chain
+    as a whole, and keeps each run_phytime's result and start state;
+    restores the functions on the way out."""
+    from phyml_tpu_torch.bayes import date
+    from phyml_tpu_torch.bayes.mcmc import MCMC
+    from phyml_tpu_torch.ops import likelihood
+
+    rec = {"lnL": [0, 0.0], "topology": [0, 0.0], "run": [0, 0.0],
+           "schedules": [0, 0.0], "results": [], "starts": []}
+    inside = []       # the topology step running, if any
+
+    def timed_fn(fn, key):
+        def run(*a, **k):
+            # an lnL evaluation inside a topology step counts as the
+            # step's
+            k_ = "topology lnL" if key == "lnL" and any(inside) else key
+            inside.append(key == "topology")
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.pop()
+                got = rec.setdefault(k_, [0, 0.0])
+                got[0] += 1
+                got[1] += time.perf_counter() - t
+        return run
+
+    saved = [(MCMC, "_lnL", MCMC._lnL),
+             (MCMC, "topology_step", MCMC.topology_step),
+             (MCMC, "run", MCMC.run), (MCMC, "init_state", MCMC.init_state),
+             (date, "run_phytime", date.run_phytime),
+             (likelihood, "build_slot_schedule",
+              likelihood.build_slot_schedule)]
+    init_state, run_phytime = MCMC.init_state, date.run_phytime
+    MCMC._lnL = timed_fn(MCMC._lnL, "lnL")
+    MCMC.topology_step = timed_fn(MCMC.topology_step, "topology")
+    MCMC.run = timed_fn(MCMC.run, "run")
+    likelihood.build_slot_schedule = timed_fn(likelihood.build_slot_schedule,
+                                              "schedules")
+    MCMC.init_state = lambda self, *a: rec["starts"].append(
+        init_state(self, *a)) or rec["starts"][-1]
+    date.run_phytime = lambda *a, **k: rec["results"].append(
+        run_phytime(*a, **k)) or rec["results"][-1]
+    try:
+        yield rec
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def chain_state_checks(tag, res, cals):
+    """Heights feasible, every calibrated clade's MRCA in the final
+    tree inside its bounds, the chronogram and trace written."""
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+
+    st = res.state
+    h, par = st.heights.numpy(), st.parent.numpy()
+    dt_min = float((h[par] - h)[:-1].min())
+    if not dt_min >= -1e-12:
+        fail(f"[{tag}] the final heights are infeasible: an edge of "
+             f"duration {dt_min}")
+    tt = TimeTree(n_otu=res.tree.n_otu, child=st.child.numpy(), heights=h,
+                  names=res.tree.names)
+    for taxa, lo, hi in cals:
+        node = tt.mrca([tt.names.index(t) for t in taxa])
+        if not lo <= h[node] <= hi:
+            fail(f"[{tag}] calibration [{lo}, {hi}] of a {len(taxa)}-taxon "
+                 f"clade broken: its MRCA at {h[node]}")
+    return dt_min
+
+
+def parse_outputs(tag, prefix, names, n_iter, thin):
+    """The trace (header, one row of finite numbers every `thin`
+    iterations, the ESS line) and the chronogram (every taxon, finite
+    non-negative durations) parse; returns the trace's rows."""
+    from phyml_tpu_torch.io.newick import parse_newick
+
+    with open(prefix + "_phyml_trace.txt") as fh:
+        lines = fh.read().splitlines()
+    if lines[0] != "iter\tposterior\tlnL\troot_height\tclock\tnu":
+        fail(f"[{tag}] trace header {lines[0]!r}")
+    rows = [[float(x) for x in ln.split("\t")] for ln in lines[1:]
+            if not ln.startswith("#")]
+    if len(rows) != -(-n_iter // thin) or not np.isfinite(rows).all() or \
+            not any(ln.startswith("# ESS:") for ln in lines):
+        fail(f"[{tag}] the trace does not parse: {len(rows)} rows")
+    with open(prefix + "_chronogram.txt") as fh:
+        root = parse_newick(fh.read().strip())
+    leaves, lengths, stack = [], [], [root]
+    while stack:
+        nd = stack.pop()
+        stack += nd.children
+        if nd.is_leaf:
+            leaves.append(nd.name)
+        if nd is not root:
+            lengths.append(nd.length)
+    if sorted(leaves) != sorted(names) or not all(
+            x is not None and math.isfinite(x) and x >= 0 for x in lengths):
+        fail(f"[{tag}] the chronogram does not parse to the taxa with "
+             "finite non-negative durations")
+    return rows
+
+
+def phytime_run(label, aln_path, tree_path, cuda):
+    """One <phytime> XML run through run_xml on the card (PHYTIME_RUNS),
+    with every launch counter set to 0 just before and read just after,
+    the chain's lnL evaluations and topology proposals counted and
+    timed, the card's idle share and peak memory.  Checks the route's
+    kernels launched and K3 never, MALA's weight 0, the cached lnL
+    against a recompute, feasible heights, the calibrations and the
+    outputs.  Returns (counts, result, numbers)."""
+    import torch
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.io.xmlcfg import run_xml
+
+    dt, n_iter, lineagerates, topo_moves = PHYTIME_RUNS[label]
+    tag = f"phytime {label}"
+    d = os.path.dirname(aln_path)
+    names = list(read_alignment(aln_path, datatype=dt).names)
+    cals = phytime_calibrations(tree_path, names)
+    xml = os.path.join(d, "phytime.xml")
+    phytime_xml(xml, os.path.basename(aln_path), tree_path, dt, cals,
+                lineagerates, topo_moves)
+    path = ("K1", "K2") if dt == "nt" else ("K4", "K5")
+    W = wrappers()
+    reset_counts()
+    with chain_probes() as rec, utilization_sampler() as util:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.time()
+        rc = run_xml(xml, quiet=True, device=cuda, mcmc_iter_cap=n_iter)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    counts = {name: fn.launches for name, fn in W.items()}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    busy = statistics.mean(util) if util else None
+    if rc != 0:
+        fail(f"[{tag}] run_xml returned {rc}")
+    res, start = rec["results"][0], rec["starts"][0]
+    mcmc = res.mcmc
+    st = res.state
+    again = mcmc._lnL(st)
+    twice = mcmc._lnL(st)
+    gap = float(st.lnL) - float(again)
+    ess = {k: float(v) for k, v in mcmc.ess.items()}
+    chain_s = rec["run"][1]
+    n_lnl, lnl_s = rec["lnL"]
+    n_topo, topo_s = rec["topology"]
+    n_tlnl, tlnl_s = rec.get("topology lnL", (0, 0.0))
+    n_sched, sched_s = rec["schedules"]
+    slot = path[0]
+    num = dict(
+        n_taxa=len(names), iterations=n_iter, wall_s=wall, chain_s=chain_s,
+        setup_s=wall - chain_s, ms_per_iteration=1e3 * chain_s / n_iter,
+        lnl_evaluations=n_lnl, lnl_ms=1e3 * lnl_s / max(1, n_lnl),
+        topology_tries=mcmc.topo_tries, topology_accepts=mcmc.topo_accepts,
+        topology_ms=1e3 * topo_s / max(1, n_topo),
+        topology_lnl_evaluations=n_tlnl,
+        topology_lnl_ms=1e3 * tlnl_s / max(1, n_tlnl),
+        schedule_builds=n_sched, schedule_ms=1e3 * sched_s / max(1, n_sched),
+        lnl_breakdown=lnl_breakdown(mcmc, st),
+        host_ms_per_iteration=1e3 * (chain_s - lnl_s - topo_s) / n_iter,
+        launches=counts, slot_launches_per_iteration=counts[slot] / n_iter,
+        idle_share=None if busy is None else 1 - busy,
+        nvml_samples=len(util), peak_gib=peak,
+        start_posterior=float(start.lnL + start.lp),
+        start_lnl=float(start.lnL), final_posterior=float(st.lnL + st.lp),
+        final_lnl=float(st.lnL), cached_minus_recompute=gap,
+        mala_weight=float(mcmc.move_w[-1]), ess=ess,
+        clock=float(torch.exp(st.log_clock)), nu=float(torch.exp(st.log_nu)))
+    print(f". [{tag}] {len(names)} taxa, {n_iter} iterations: wall "
+          f"{wall:.2f} s (chain {chain_s:.2f} s, {num['ms_per_iteration']:.3f}"
+          f" ms an iteration; set-up {wall - chain_s:.2f} s); {n_lnl} lnL "
+          f"evaluations x {num['lnl_ms']:.3f} ms (with the read-back); "
+          f"topology {mcmc.topo_accepts}/{mcmc.topo_tries} accepted, "
+          f"{num['topology_ms']:.3f} ms a proposal ({n_tlnl} lnL "
+          f"evaluations x {num['topology_lnl_ms']:.3f} ms), {n_sched} slot "
+          f"schedules built x {num['schedule_ms']:.3f} ms; host "
+          f"{num['host_ms_per_iteration']:.3f} ms an iteration; "
+          f"{slot} {num['slot_launches_per_iteration']:.3f} launches an "
+          f"iteration; idle share "
+          + ("not measured" if busy is None else f"{1 - busy:.3f}")
+          + f"; peak {peak:.3f} GiB; launches {counts}")
+    print(f". [{tag}] one lnL evaluation at the final state: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in
+                      num["lnl_breakdown"].items()))
+    print(f". [{tag}] posterior {num['start_posterior']:.4f} -> "
+          f"{num['final_posterior']:.4f}, lnL {num['start_lnl']:.4f} -> "
+          f"{num['final_lnl']:.4f}; cached - recompute {gap:.3e}; ESS {ess}")
+    if float(again) != float(twice):
+        fail(f"[{tag}] two recomputes of one state differ: {float(again)} "
+             f"and {float(twice)}")
+    if not abs(gap) <= CACHE_TOL:
+        fail(f"[{tag}] cached lnL off the recompute by {gap}")
+    if mcmc.move_w[-1] != 0.0:
+        fail(f"[{tag}] MALA has weight {mcmc.move_w[-1]} on the card")
+    if not (math.isfinite(num["final_posterior"]) and
+            math.isfinite(num["start_posterior"])):
+        fail(f"[{tag}] the start or final posterior is not finite")
+    if topo_moves and mcmc.topo_tries == 0:
+        fail(f"[{tag}] no topology move was tried")
+    for name, count in counts.items():
+        if name in path and count <= 0:
+            fail(f"[{tag}] {name} never launched")
+        if name not in path and count != 0:
+            fail(f"[{tag}] {name} launched {count} times off its route")
+    num["min_duration"] = chain_state_checks(tag, res, cals)
+    prefix = os.path.join(d, "out_phytime")
+    parse_outputs(tag, prefix, names, n_iter, 50)
+    return counts, res, num
+
+
+def lnl_breakdown(mcmc, st, reps=200):
+    """What one of the chain's lnL evaluations at st is made of (ms,
+    each the mean over reps): the whole call with its read-back
+    (`MCMC._lnL`), the same work enqueued without the read-back (one
+    synchronize after all reps: the host's share), the card's time for
+    it (CUDA events around that loop), and the slot kernel alone."""
+    import torch
+    from phyml_tpu_torch.ops.likelihood import TreeArrays
+
+    eng = mcmc.engine
+    blen, _ = mcmc._blen(st)
+
+    def enqueue():
+        tree = TreeArrays(child=st.child, blen=blen.to(eng.device, eng.dtype))
+        sys_ = eng.system_of(mcmc._params(st))
+        if mcmc.rate_model.kind == "guindon":
+            return eng._loglik_mgf_sys(sys_, tree, torch.exp(st.log_nu))
+        return eng._loglik_sys(sys_, tree)
+
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        mcmc._lnL(st)
+    out["with_read_back_ms"] = 1e3 * (time.perf_counter() - t) / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        enqueue()
+    end.record()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    out["enqueue_ms"] = 1e3 * host / reps
+    out["device_ms"] = start.elapsed_time(end) / reps
+    lam, V, Vinv, pi, w, _ = eng.system_of(mcmc._params(st))
+    pm = eng._pmats(lam, V, Vinv, blen.to(eng.device, eng.dtype))
+    _, sched, n_slots = eng._topology(st.child)
+    fn = wrappers()[eng.lnl_route]
+    out["slot_kernel_ms"] = timed(lambda: fn(
+        sched, eng.slot_tips, pm, pi, eng._logw(w), n_slots=n_slots))[1]
+    return out
+
+
+def chain_kernel_row(label, cell, mcmc, st, dt, launches, mgf=False):
+    """The route's slot kernel at a chain state's P-matrices (the
+    Guindon clock's MGF P-matrices with mgf, sigma = exp(log_nu) of the
+    state) against K1's plain version, timed, with its bound; launches
+    are the run's."""
+    import torch
+    from phyml_tpu_torch.models.eigen import mgf_rates
+    from phyml_tpu_torch.ops import clv_slots
+
+    eng = mcmc.engine
+    blen, _ = mcmc._blen(st)
+    blen = blen.to(eng.device, eng.dtype)
+    lam, V, Vinv, pi, w, _ = eng.system_of(mcmc._params(st))
+    if mgf:
+        lam = mgf_rates(lam, torch.exp(st.log_nu).to(eng.device, eng.dtype))
+    pm = eng._pmats(lam, V, Vinv, blen)
+    _, sched, n_slots = eng._topology(st.child)
+    logw = eng._logw(w)
+    args = (sched, eng.slot_tips, pm, pi, logw)
+    kname = eng.lnl_route
+    fn = wrappers()[kname]
+    ref, pms = timed(lambda: clv_slots.uppass_site_lse_slots_plain(
+        *args, n_slots=n_slots), 1)
+    out, ms = timed(lambda: fn(*args, n_slots=n_slots))
+    err = float((out - ref).abs().max())
+    n, C, ns, k = eng.n_otu, eng.C, eng.ns, eng.P
+    b_ms, b_by = bound(pruning_flops(n, C, ns, k),
+                       nbytes(sched, eng.tips, pm, pi, logw) + k * 4)
+    print(f". [{cell}] {kname} {fn.__name__} at the chain's "
+          f"{'MGF ' if mgf else ''}P-matrices ({label}): max|d|={err:.3e} "
+          f"(tol {SITE_TOL[dt]:g})  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})  launches {launches}")
+    if not err <= SITE_TOL[dt]:
+        fail(f"[{cell}] {kname} disagrees with its plain version at the "
+             f"chain's P-matrices: {err}")
+    return dict(name=f"{kname} {fn.__name__} [{cell}]", route="cuda",
+                source=f"phyml_tpu_torch/csrc/{SOURCE[kname]}",
+                replaces=TPU_KERNEL[kname], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, ns=ns, path=dt, cell=cell,
+                launches_from=f"the phytime {label} run")
+
+
+def phytime_phase(tmp, cuda):
+    """The three <phytime> runs at full width (PHYTIME_RUNS: the DNA
+    bench problem with a lognormal clock and topology moves, the same
+    under the Guindon clock at a fixed topology, the 64-taxon protein
+    problem), each on a copy of its problem, and the slot kernel's rows
+    at each run's final state.  Returns (numbers by run, kernel rows)."""
+    import torch
+
+    runs, rows = {}, []
+    for label, (dt, _, _, _) in PHYTIME_RUNS.items():
+        n_taxa = N_TAXA if dt == "nt" else DEFAULT_RUN_TAXA["aa"]
+        aln, tree = write_problem(os.path.join(tmp, f"phytime_{label}"), dt,
+                                  n_taxa, N_SITES, SEED)
+        counts, res, runs[label] = phytime_run(label, aln, tree, cuda)
+        cell = "phytime-guindon" if label == "guindon" else "phytime"
+        slot = res.mcmc.engine.lnl_route
+        rows.append(chain_kernel_row(label, cell, res.mcmc, res.state, dt,
+                                     counts[slot], mgf=label == "guindon"))
+        del res
+        torch.cuda.empty_cache()
+    return runs, rows
+
+
+def phytime_side(d, platform):
+    """The 16 x 500 dating check's side on one platform: the XML run's
+    start (the user tree's branch lengths fitted, TimeTree.from_topology)
+    and the chain's state there; on the card also a 1,000-iteration
+    chain with topology moves, and the same chain checkpointed at 500
+    and resumed, which must end in the same state."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.times import Calibration, TimePrior
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths
+    from phyml_tpu_torch.search.nni import _host_blen
+    from phyml_tpu_torch.topology import Topology
+
+    device = torch.device("cuda" if platform == "gpu" else "cpu")
+    dtype = torch.float32 if platform == "gpu" else torch.float64
+    aln_path, tree_path = write_problem(d, "nt", 16, 500, SEED + 1)
+    aln = read_alignment(aln_path, datatype="nt")
+    names = list(aln.names)
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    params = model.init_params(aln.obs_state_freqs)
+    eng = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+    with open(tree_path) as fh:
+        topo = Topology.from_newick(fh.read(), names)
+    rv = topo.rooted()
+    ta, _ = optimize_branch_lengths(eng, params, tree_arrays(
+        rv, dtype=dtype, device=device))
+    topo.set_blen_from_rooted(rv, _host_blen(ta))
+    tt = TimeTree.from_topology(topo, names=names)
+    cals = tuple(Calibration(taxa=tuple(t), lower=lo, upper=hi)
+                 for t, lo, hi in phytime_calibrations(tree_path, names))
+
+    def chain(n_iter):
+        return MCMC(eng, model, params, tt, RateModel(kind="lognormal"),
+                    TimePrior(kind="birthdeath", calibrations=cals),
+                    MCMCSettings(n_iter=n_iter, burnin=500, batch=250,
+                                 seed=3),
+                    sample_topology=True)
+
+    def host(st):
+        return {k: ({k2: v2.numpy() for k2, v2 in v.items()}
+                    if isinstance(v, dict) else v.numpy())
+                for k, v in st._asdict().items()}
+
+    st0 = chain(1000).init_state()
+    out = dict(dir=d, child=tt.child, heights=tt.heights, start=host(st0))
+    if platform == "gpu":
+        full = chain(1000)
+        final, _, _ = full.run(state=st0)
+        ck = os.path.join(d, "chain.npz")
+        chain(500).run(checkpoint_path=ck)
+        resumed, _, _ = chain(1000).run(checkpoint_path=ck)
+        out.update(final=host(final), topo_accepts=full.topo_accepts,
+                   resume_same=all(
+                       np.array_equal(a, b) for a, b in zip(
+                           (final.child, final.heights, final.log_r,
+                            final.lnL, final.lp),
+                           (resumed.child, resumed.heights, resumed.log_r,
+                            resumed.lnL, resumed.lp))))
+    return out
+
+
+def report_phytime(gpu, cpu):
+    """The 16 x 500 dating check: the same start chronogram (heights
+    within HEIGHT_TOL); the card's lnL and log prior at its start state
+    and at its chain's final state recomputed by a CPU float64 chain on
+    the card side's files (lnL within F64_TOL, log prior within
+    PRIOR_REL); the checkpoint resume ended where the chain did."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.times import Calibration, TimePrior
+    from phyml_tpu_torch.interop import chain_state_from_numpy
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine
+
+    (g, g_s), (c, c_s) = gpu, cpu
+    same_tree = np.array_equal(g["child"], c["child"])
+    dh = float(np.abs(g["heights"] - c["heights"]).max())
+    aln_path = os.path.join(g["dir"], "aln.phy")
+    aln = read_alignment(aln_path, datatype="nt")
+    names = list(aln.names)
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float64, device="cpu")
+    tt = TimeTree(n_otu=16, child=g["child"], heights=g["heights"],
+                  names=names)
+    cals = tuple(Calibration(taxa=tuple(t), lower=lo, upper=hi)
+                 for t, lo, hi in phytime_calibrations(
+                     os.path.join(g["dir"], "tree.nwk"), names))
+    mcmc = MCMC(eng, model, model.init_params(aln.obs_state_freqs), tt,
+                RateModel(kind="lognormal"),
+                TimePrior(kind="birthdeath", calibrations=cals),
+                MCMCSettings(seed=3))
+    gaps = {}
+    for label in ("start", "final"):
+        s = g[label]
+        st = chain_state_from_numpy(s)
+        gaps[label] = (float(s["lnL"]) - float(mcmc._lnL(st)),
+                       float(s["lp"]) - float(mcmc._log_prior(st)))
+    print(f". [small] phytime: start chronogram card against CPU: same "
+          f"topology {same_tree}, heights max|d| {dh:.2e} (tol "
+          f"{HEIGHT_TOL:g}); card lnL - CPU f64 at the start "
+          f"{gaps['start'][0]:.3e}, at the final state "
+          f"{gaps['final'][0]:.3e} (tol {F64_TOL}); log prior "
+          f"{gaps['start'][1]:.2e} / {gaps['final'][1]:.2e}; topology "
+          f"accepts {g['topo_accepts']}; checkpoint resume same state "
+          f"{g['resume_same']} ({g_s:.1f} s card, {c_s:.1f} s CPU)")
+    if not (same_tree and dh <= HEIGHT_TOL):
+        fail("small phytime: the start chronograms differ")
+    for label, (dl, dp) in gaps.items():
+        lp = abs(float(g[label]["lp"]))
+        if not (abs(dl) <= F64_TOL and abs(dp) <= PRIOR_REL * max(1.0, lp)):
+            fail(f"small phytime: the card's {label} state off the CPU's "
+                 f"recompute: lnL {dl}, log prior {dp}")
+    if not g["resume_same"]:
+        fail("small phytime: the resumed chain ended elsewhere")
+    return dict(height_gap=dh, lnl_gaps={k: v[0] for k, v in gaps.items()},
+                prior_gaps={k: v[1] for k, v in gaps.items()},
+                resume_same=g["resume_same"], gpu_s=g_s, cpu_s=c_s)
 
 
 def main() -> int:
@@ -1915,13 +2478,18 @@ def main() -> int:
             else:
                 rows += lg4x_phase(aln_path, tree_path, cuda, regs, mix)
             torch.cuda.empty_cache()
-        supports["small_abayes_gap"], mix["small"] = small_checks(tmp)
+        phytime, phytime_rows = phytime_phase(tmp, cuda)
+        rows += phytime_rows
+        torch.cuda.empty_cache()
+        supports["small_abayes_gap"], mix["small"], phytime["small"] = \
+            small_checks(tmp)
 
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
     print(json.dumps({"default_runs": runs}))
     print(json.dumps({"supports": supports}, default=str))
     print(json.dumps({"mixtures_partitions_flags": mix}, default=str))
+    print(json.dumps({"phytime": phytime}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

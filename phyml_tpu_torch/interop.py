@@ -36,3 +36,25 @@ def tree_arrays_from_numpy(child: np.ndarray, blen: np.ndarray,
         child=torch.as_tensor(np.asarray(child, dtype=np.int32)),
         blen=torch.as_tensor(np.asarray(blen), dtype=dtype,
                              device=default_device(device)))
+
+
+def chain_state_from_numpy(state: dict):
+    """The port's ChainState from phyml_tpu's, given as a dict of numpy
+    arrays (`{k: np.asarray(v) for k, v in jax_state._asdict().items()}`,
+    the dict fields `hyper` and `subst` as dicts of arrays): float64
+    host tensors, the child table int32, the parent vector int64."""
+    from phyml_tpu_torch.bayes.mcmc import ChainState
+
+    f64 = lambda v: torch.as_tensor(np.array(v, dtype=np.float64))
+    out = {}
+    for name in ChainState._fields:
+        v = state[name]
+        if name == "child":
+            out[name] = torch.as_tensor(np.array(v, dtype=np.int32))
+        elif name == "parent":
+            out[name] = torch.as_tensor(np.array(v, dtype=np.int64))
+        elif isinstance(v, dict):
+            out[name] = {k: f64(x) for k, x in v.items()}
+        else:
+            out[name] = f64(v)
+    return ChainState(**out)

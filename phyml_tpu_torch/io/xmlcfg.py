@@ -11,10 +11,11 @@ the reference builds in mixt.c — here a mixture is just the class axis
 of one engine).
 
 Multiple <partitionelem> blocks run as a shared-topology partitioned
-analysis (search/partitioned.py).  `parse_xml` is a copy of
-phyml_tpu's parser, which also reads the Bayesian roots' elements; a
-<phytime> / <phyrex> root, and mutmap="yes", stop the run naming the
-ROADMAP.md item that ports them.
+analysis (search/partitioned.py); a <phytime> root runs the Bayesian
+dating chain (_run_xml_bayes, bayes/date.py).  `parse_xml` is a copy
+of phyml_tpu's parser, which also reads the Bayesian roots' elements;
+a <phyrex> root, and mutmap="yes", stop the run naming the ROADMAP.md
+item that ports them.
 
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
 """
@@ -266,8 +267,7 @@ def _unported(cfg: dict) -> list[tuple[str, str]]:
     """(feature, ROADMAP item) of every requested XML feature the port
     does not run yet."""
     checks = [
-        (cfg["kind"] in ("phytime", "phyrex"), f"<{cfg['kind']}> root",
-         _BAYES),
+        (cfg["kind"] == "phyrex", "<phyrex> root", _BAYES),
         (cfg.get("mutmap", False), 'mutmap="yes"', _TOOLS),
     ]
     return [(what, item) for hit, what, item in checks if hit]
@@ -304,10 +304,14 @@ def _prefix(path: str, cfg: dict) -> str:
     return prefix
 
 
-def run_xml(path: str, quiet: bool = False, device=None) -> int:
-    """Run the analysis a <phyml> root describes on `device` (the CUDA
-    device unless given), float32 on the card and float64 on the CPU;
-    returns the exit code (2 for a feature not ported yet)."""
+def run_xml(path: str, quiet: bool = False, device=None,
+            mcmc_iter_cap: int | None = None) -> int:
+    """Run the analysis a <phyml> or <phytime> root describes on
+    `device` (the CUDA device unless given), float32 on the card and
+    float64 on the CPU; returns the exit code (2 for a feature not
+    ported yet).  mcmc_iter_cap bounds a chain's length below the
+    XML's mcmc.chain.len (tests and smoke runs; an analysis runs the
+    XML's value, as the reference does)."""
     from phyml_tpu_torch.io.output import format_stats, write_results
     from phyml_tpu_torch.ops.likelihood import default_device, tree_arrays
     from phyml_tpu_torch.optim.round import round_optimize
@@ -328,6 +332,9 @@ def run_xml(path: str, quiet: bool = False, device=None) -> int:
         raise ValueError(f"{path}: no <partitionelem> found")
     device = default_device(device)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
+    if cfg["kind"] == "phytime":
+        return _run_xml_bayes(path, cfg, quiet, mcmc_iter_cap, device,
+                              dtype)
     if len(cfg["partitions"]) > 1:
         return _run_xml_partitioned(path, cfg, t0, quiet, device, dtype)
     part = cfg["partitions"][0]
@@ -427,4 +434,66 @@ def _run_xml_partitioned(path: str, cfg: dict, t0: float, quiet: bool,
         print(f". Combined log-likelihood: {lnl:.5f}")
         for tree_path, stats_path in outputs:
             print(f". Results written to {tree_path} and {stats_path}")
+    return 0
+
+
+def _run_xml_bayes(path: str, cfg: dict, quiet: bool,
+                   mcmc_iter_cap: int | None, device, dtype) -> int:
+    """<phytime> execution: build the model from the same schema
+    elements as <phyml>, construct a starting chronogram (the user tree
+    or BioNJ, its branch lengths fitted, rooted on its last edge), read
+    the calibrations, run the joint MCMC, write trace + stats +
+    chronogram (≙ DATE_XML date.c:37)."""
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.date import (
+        calibrations_from_xml, print_summary, run_phytime,
+    )
+    from phyml_tpu_torch.bayes.mcmc import MCMCSettings
+    from phyml_tpu_torch.ops.likelihood import tree_arrays
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths
+    from phyml_tpu_torch.search.bionj import bionj_start
+    from phyml_tpu_torch.search.nni import _host_blen
+    from phyml_tpu_torch.topology import Topology
+
+    aln, (engine, model, params) = _partition_setup(
+        cfg, cfg["partitions"][0], device, dtype)
+    tcfg = cfg["topology"]
+    if tcfg.get("file"):
+        with open(tcfg["file"]) as fh:
+            topo = Topology.from_newick(fh.read(), aln.names)
+    else:
+        topo = bionj_start(engine, params)
+    rv = topo.rooted()
+    ta, _ = optimize_branch_lengths(
+        engine, params, tree_arrays(rv, dtype=dtype, device=device))
+    topo.set_blen_from_rooted(rv, _host_blen(ta))
+    tt = TimeTree.from_topology(topo, names=list(aln.names))
+
+    n_iter = cfg["mcmc"]["chain_len"]
+    if mcmc_iter_cap is not None:
+        n_iter = min(n_iter, mcmc_iter_cap)
+    settings = MCMCSettings(
+        n_iter=n_iter,
+        burnin=min(cfg["mcmc"]["burnin"], n_iter // 2),
+        thin=max(1, cfg["mcmc"]["sample_every"]),
+        seed=cfg["r_seed"],
+    )
+    base = os.path.dirname(os.path.abspath(path))
+    prefix = os.path.join(base, cfg["output_file"] or "phyml_tpu_out")
+    if cfg["run_id"]:
+        prefix += f"_{cfg['run_id']}"
+    trace_path = prefix + "_phyml_trace.txt"
+    res = run_phytime(
+        aln, tt, model=model, rate_kind=cfg["lineagerates"] or "lognormal",
+        prior_kind="birthdeath", calibrations=calibrations_from_xml(path),
+        settings=settings, trace_path=trace_path, verbose=not quiet,
+        sample_topology=tcfg.get("optimise", True), engine=engine)
+
+    with open(prefix + "_phyml_stats.txt", "w") as fh:
+        print_summary(res, out=fh)
+    with open(prefix + "_chronogram.txt", "w") as fh:
+        fh.write(res.tree.to_newick() + "\n")
+    if not quiet:
+        print_summary(res)
+        print(f". Trace written to {trace_path}")
     return 0

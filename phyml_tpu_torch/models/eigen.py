@@ -59,3 +59,30 @@ def pmat(lam, v, vinv, t):
     p = torch.einsum("...cxi,...nci,...ciy->...ncxy", v, elt, vinv)
     floor = 1e-100 if p.dtype == torch.float64 else 1e-30
     return torch.clamp(p, min=floor)
+
+
+def mgf_rates(lam, sigma):
+    """Eigenvalues of the branch-length-integrated P: with each branch
+    length Gamma-distributed of mean t and variance t*sigma, E[P(L)] =
+    V diag(exp(mu t)) V^{-1} with mu = -log(1 - lam*sigma)/sigma, an
+    exponential family in t again (reference PMat_MGF_Gamma
+    models.c:1044).  sigma <= 1e-12 keeps lam (plain P(t)); the base
+    1 - lam*sigma is floored at 1e-30, as phyml_tpu's
+    pmat_mgf_gamma."""
+    sig = torch.clamp(torch.as_tensor(sigma, dtype=lam.dtype,
+                                      device=lam.device), min=0.0)
+    base = torch.clamp(1.0 - lam * sig, min=1e-30)  # lam <= 0: base >= 1
+    mu = -torch.log(base) / torch.clamp(sig, min=1e-12)
+    return torch.where(sig > 1e-12, mu, lam)
+
+
+def pmat_mgf_gamma(lam, v, vinv, t, sigma):
+    """Branch-length-integrated P: E[P(L)] with L ~ Gamma of mean t
+    and variance t*sigma (reference PMat_MGF_Gamma models.c:1044,
+    called with mean = l*r_c, var = l*sigma*r_c^2, lk.c:2296-2323 —
+    the Guindon 2012 relaxed-clock model).  With the class rate folded
+    into lam (as in `pmat`), the reference's
+    (1 - lam*var/mean)^(-mean^2/var) reduces to
+    exp(t * mgf_rates(lam, sigma)), so this is `pmat` at those
+    eigenvalues.  t: [..., N, C]; sigma: scalar."""
+    return pmat(mgf_rates(lam, sigma), v, vinv, t)

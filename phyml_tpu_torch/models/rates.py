@@ -24,6 +24,45 @@ def _f64(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_F64)
 
 
+def _unbroadcast(g, shape):
+    """g summed down to `shape` (the reverse of broadcasting)."""
+    while g.dim() > len(shape):
+        g = g.sum(0)
+    for i, n in enumerate(shape):
+        if n == 1 and g.shape[i] != 1:
+            g = g.sum(i, keepdim=True)
+    return g
+
+
+class _GammaInc(torch.autograd.Function):
+    """torch.special.gammainc(a, x) with a derivative in the shape a,
+    which torch does not implement (the MCMC's MALA move differentiates
+    the discrete Gamma rates in alpha, as phyml_tpu does through
+    jax.scipy's).  d/dx is the Gamma density; d/da a central difference
+    of gammainc at a relative step of 6e-6 (float64: ~1e-10
+    relative)."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        ctx.save_for_backward(a, x)
+        return torch.special.gammainc(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        h = 6e-6 * a
+        da = (torch.special.gammainc(a + h, x)
+              - torch.special.gammainc(a - h, x)) / (2.0 * h)
+        dx = torch.exp((a - 1.0) * torch.log(x) - x - torch.lgamma(a))
+        return _unbroadcast(g * da, a.shape), _unbroadcast(g * dx, x.shape)
+
+
+def _gammainc(a, x):
+    if a.requires_grad or x.requires_grad:
+        return _GammaInc.apply(a, x)
+    return torch.special.gammainc(a, x)
+
+
 def gamma_icdf(p, alpha, n_newton: int = 40):
     """Quantile of Gamma(shape=alpha, scale=1) via Newton in log-x.
 
@@ -41,7 +80,7 @@ def gamma_icdf(p, alpha, n_newton: int = 40):
     lgam = torch.lgamma(alpha)
     for _ in range(n_newton):
         x = torch.exp(y)
-        f = torch.special.gammainc(alpha, x) - p
+        f = _gammainc(alpha, x) - p
         # d/dy gammainc(a, e^y) = pdf(e^y) * e^y
         logpdf_y = alpha * y - x - lgam
         step = f * torch.exp(-logpdf_y)
@@ -89,7 +128,7 @@ def discrete_gamma(alpha, n_cat: int, median: bool = False):
         rates = qs / a
     else:
         cuts = gamma_icdf(torch.arange(1, K, dtype=_F64) / K, a)
-        cum = torch.special.gammainc(a + 1.0, cuts)
+        cum = _gammainc(a + 1.0, cuts)
         cum = torch.cat([torch.zeros(lead + (1,), dtype=_F64), cum,
                          torch.ones(lead + (1,), dtype=_F64)], dim=-1)
         rates = K * torch.diff(cum, dim=-1)

@@ -19,6 +19,9 @@ kernels avx.c/sse.c).  Design:
         for the line search
       - `edge_dotprods_sys`                 -> K2, or K5 when streamed
         (ops/edotp.py)
+      - `loglik_mgf` (the Guindon 2012 clock's integrated P-matrices,
+        models/eigen.py:pmat_mgf_gamma) -> the single-pass kernel, as
+        the host lnL
       - `_loglik_sys` / `edge_dotprods_sys` on a stack of trees (child
         [R, n_int, 2], blen [R, n_nodes]; the rapid bootstrap's
         replicates under one system) -> one launch of K3 with a slot
@@ -56,7 +59,7 @@ import torch
 from torch import nn
 
 from phyml_tpu_torch.io.alignment import Alignment
-from phyml_tpu_torch.models.eigen import pmat
+from phyml_tpu_torch.models.eigen import mgf_rates, pmat
 from phyml_tpu_torch.models.substitution import SubstModel
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
@@ -353,6 +356,23 @@ class LikelihoodEngine(nn.Module):
     # batched params) on one tree: batched P-matrices, then one
     # batched K3 launch
     loglik_batch = _loglik_sys
+
+    def loglik_mgf(self, params, tree: TreeArrays, sigma, weights=None):
+        """lnL with branch-length-integrated P matrices: each branch
+        length is Gamma-distributed with mean blen and variance
+        blen*sigma, and P is its expectation (PMat_MGF_Gamma
+        models.c:1044; gamma_mgf_bl path of lk.c:2310-2323), the exact
+        likelihood of the Guindon 2012 relaxed clock.  One pass through
+        the route's slot kernel, as loglik."""
+        return self._loglik_mgf_sys(self.system_of(params), tree, sigma,
+                                    weights)
+
+    def _loglik_mgf_sys(self, sys, tree: TreeArrays, sigma, weights=None):
+        """_loglik_sys at the system whose eigenvalues are the MGF's
+        (models/eigen.py:mgf_rates): its P(t) are the integrated ones."""
+        lam, *rest = sys
+        sig = torch.as_tensor(sigma).to(self.device, self.dtype)
+        return self._loglik_sys((mgf_rates(lam, sig), *rest), tree, weights)
 
     # ------------------------------------------------------------------
     # scan path (independent reference; divide-by-max rescaling), and

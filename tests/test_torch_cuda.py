@@ -1325,3 +1325,90 @@ def test_two_partition_xml_card_against_cpu(cuda, tmp_path):
     assert abs(lg - lc) <= BATCHED_LNL_TOL, (lg, lc)
     assert all(a.rf_distance(b) == 0 for a, b in zip(tg, tc))
     assert tg[0].rf_distance(tg[1]) == 0
+
+
+# ----------------------------------------------------------------------
+# the dating chain (phytime) on the card
+# ----------------------------------------------------------------------
+CHAIN_F64_TOL = 1e-2  # chain lnL at 24 x 300, card f32 vs CPU f64 (the
+#                       float32 pass's own rounding, ~1e-7 per site)
+
+
+@pytest.mark.parametrize("datatype, kernel, n", [
+    ("nt", "K1", 40), ("nt", "K4", 40), ("aa", "K4", 40), ("aa", "K1", 6)])
+@pytest.mark.parametrize("sigma", [0.05, 0.8])
+def test_slot_kernels_at_mgf_pmatrices(cuda, datatype, kernel, n, sigma):
+    """K1 and K4 fed the Guindon clock's Gamma-MGF P-matrices
+    (models/eigen.py:pmat_mgf_gamma) against K1's plain version."""
+    from phyml_tpu_torch.models.eigen import mgf_rates
+
+    rng = np.random.default_rng(3)
+    eng, tree, sys_, _ = _simulated_setup(
+        cuda, 4, n, 301, 3, datatype, Topology.random(n, rng, mean_blen=0.2))
+    pm = eng._pmats(mgf_rates(sys_[0], sigma), sys_[1], sys_[2], tree.blen)
+    _slot_check(eng, tree, sys_, pm, kernel)
+
+
+def _chain_setup(device, n=24, sites=300, rate_kind="lognormal"):
+    """A dating chain on a 24 x 300 DNA problem simulated down a
+    coalescent chronogram under GTR+G4, float32 on the card, float64 on
+    the CPU: (MCMC, its TimeTree)."""
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.times import Calibration, TimePrior
+
+    rng = np.random.default_rng(12)
+    tt = TimeTree.coalescent(n, rng, theta=0.3)
+    eng, *_ = _simulated_setup(device if device != "cpu" else
+                               torch.device("cpu"), 4, n, sites, 12, "nt",
+                               tt.to_topology())
+    if device == "cpu":
+        eng = LikelihoodEngine(eng.aln, eng.model, dtype=torch.float64,
+                               device="cpu")
+    tt.names = list(eng.aln.names)
+    params = eng.model.init_params(eng.aln.obs_state_freqs)
+    params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
+    h = tt.heights[tt.root]
+    prior = TimePrior(kind="birthdeath", calibrations=(Calibration(
+        taxa=tuple(tt.names), lower=0.5 * h, upper=3.0 * h),))
+    return MCMC(eng, eng.model, params, tt, RateModel(kind=rate_kind), prior,
+                MCMCSettings(n_iter=500, burnin=250, batch=250, seed=2),
+                sample_topology=True, topo_moves_per_batch=24), tt
+
+
+@pytest.mark.parametrize("rate_kind", ["lognormal", "guindon"])
+def test_dating_chain_on_the_card(cuda, rate_kind):
+    """500 iterations and 48 topology proposals on the card: MALA's
+    weight is 0, the cached lnL equals a recompute (and a recompute
+    twice is bit-identical: K1 is deterministic), every posterior lnL
+    went through K1 and none through K3."""
+    mcmc, _ = _chain_setup(cuda, rate_kind=rate_kind)
+    assert mcmc.move_w[-1] == 0.0
+    n1 = clv_slots.uppass_site_lse_slots.launches
+    n3 = clv.uppass_site_lse.launches
+    st, trace, _ = mcmc.run()
+    torch.cuda.synchronize()
+    assert clv.uppass_site_lse.launches == n3
+    assert clv_slots.uppass_site_lse_slots.launches - n1 > 100
+    again = mcmc._lnL(st)
+    assert float(again) == float(mcmc._lnL(st))
+    assert abs(float(st.lnL) - float(again)) <= 1e-6
+    assert np.isfinite(trace).all() and mcmc.topo_tries == 48
+
+
+def test_dating_chain_lnl_card_against_cpu(cuda):
+    """The card's lnL and log prior at a chain state the card reached,
+    recomputed by a CPU float64 chain on the same problem."""
+    from phyml_tpu_torch.interop import chain_state_from_numpy
+
+    card, _ = _chain_setup(cuda)
+    cpu, _ = _chain_setup("cpu")
+    st, _, _ = card.run()
+    st_cpu = chain_state_from_numpy({
+        k: ({k2: v2.numpy() for k2, v2 in v.items()}
+            if isinstance(v, dict) else v.numpy())
+        for k, v in st._asdict().items()})
+    assert abs(float(card._lnL(st)) - float(cpu._lnL(st_cpu))) \
+        <= CHAIN_F64_TOL
+    assert float(card._log_prior(st)) == float(cpu._log_prior(st_cpu))

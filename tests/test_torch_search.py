@@ -157,14 +157,14 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
     (["--cov"], "'Other state counts and covarion'"),
     (["--ancestral"], "'Auxiliary tools'"),
-    (["--xml", "phytime.xml"], "'Bayesian tier'"),
+    (["--xml", "phyrex.xml"], "'Bayesian tier'"),
     (["--cv", "tip"], "'Auxiliary tools'")])
 def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
     if flag[0] == "--xml":
-        # an XML analysis with a <phytime> root (the Bayesian tier)
-        (tmp_path / flag[1]).write_text("<phytime></phytime>\n")
+        # an XML analysis with a <phyrex> root (the Bayesian tier)
+        (tmp_path / flag[1]).write_text("<phyrex></phyrex>\n")
         flag = [flag[0], str(tmp_path / flag[1])]
     assert tcli.main(["-i", str(aln), "--platform", "cpu", *flag]) == 2
     err = capsys.readouterr().err
