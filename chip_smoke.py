@@ -78,7 +78,17 @@
    heights feasible and its calibrations, and write a trace and a
    chronogram that parse; the slot kernel at each run's final
    P-matrices (MGF ones for the Guindon run) against its plain version;
-12. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10 and 11
+12. other state counts, on the kernels' ladder (every rung built, ptxas
+   checked for spills at each): DNA covarion GTR+G4 `--cov --cov_ncats
+   3` (12 states, 128 taxa), protein covarion LG+G4 (60 states, 64 taxa)
+   and binary `-d generic` (2 states, padded to 4; 128 taxa), each with
+   every kernel of its route against its plain version and the padding's
+   cost, its fixed fit and (DNA covarion, binary) its default run at 64
+   taxa, the launch counters reset just before and read just after;
+   then at 16 x 500 the covarion fits in the 'alpha' and 'free' modes,
+   amino-acid covarion at two hidden classes (40 states), 7- and
+   36-state alphabets and a dating chain that samples cov_delta;
+13. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11 and 12
    run last, after every full-width path: the CPU float64 side of each
    in a worker process (spawned, one torch thread each, all started
    together, stopped before the script ends), the card's side in this
@@ -90,7 +100,8 @@
 
 It prints a JSON line of the default runs' numbers, a JSON line of the
 supports' numbers, a JSON line of step 10's numbers, a JSON line of
-the phytime runs' numbers, a JSON line of
+the phytime runs' numbers, a JSON line of step 12's numbers, a JSON
+line of
 per-kernel results (`launches` from the default run, `launches_fixed_fit`
 from step 6; the stacked forms' from the rapid bootstrap, by stack
 size; a cell's rows, named "[cell]", from that cell's runs), the card
@@ -123,10 +134,13 @@ DEFAULT_RUN_TAXA = {"nt": 128, "aa": 64}
 # the bench problems of tools/gen_bench_problem.py:38-51
 FREQS = np.array([0.3, 0.2, 0.3, 0.2])           # DNA: GTR+G4
 RATES = np.array([1.2, 3.0, 0.8, 1.1, 4.0, 1.0])
-ALPHA = {"nt": 0.7, "aa": 0.9}                   # amino acids: LG+G4
+ALPHA = {"nt": 0.7, "aa": 0.9,                   # amino acids: LG+G4
+         "generic": 0.7}                         # JC over an alphabet
 # tolerances, all float32 on the card (tests/test_pallas.py):
-SITE_TOL = {"nt": 5e-4, "aa": 2e-3}  # per-site lnL, kernel vs plain
-#                                      (K1/K3/K4; DNA :44, AA :287)
+SITE_TOL = {"nt": 5e-4, "aa": 2e-3,  # per-site lnL, kernel vs plain
+            "generic": 5e-4}         # (K1/K3/K4; DNA :44, AA :287; the
+#                                      state-count cells: 5e-4 below 20
+#                                      states, 2e-3 from 20 up)
 EDGE_TOL = 2e-3   # per-site edge lnL terms, kernel vs plain (K2/K5, :218)
 F64_TOL = 0.5     # total lnL, host kernel float32 vs float64 scan (:104)
 E2E_TOL = 0.1     # final lnL of the small fit, card f32 vs CPU f64:
@@ -184,7 +198,9 @@ def reset_counts():
 def simulate(topo, model, params, n_sites, rng):
     """Sequences down the rooted tree under the model (the port's own
     P(t), float64 on the CPU); returns (names, seqs)."""
-    from phyml_tpu_torch.datatypes import AA_STATES, NT_STATES
+    from phyml_tpu_torch.datatypes import (
+        AA_STATES, GENERIC_STATES, NT_STATES,
+    )
     from phyml_tpu_torch.models.eigen import pmat
     import torch
 
@@ -204,7 +220,8 @@ def simulate(topo, model, params, n_sites, rng):
             cum = P[int(c), cls, states[n + i], :].cumsum(axis=1)
             r = rng.random(n_sites)[:, None]
             states[int(c)] = np.clip((r > cum).sum(axis=1), 0, ns - 1)
-    alphabet = NT_STATES if model.datatype == "nt" else AA_STATES
+    alphabet = {"nt": NT_STATES, "aa": AA_STATES,
+                "generic": GENERIC_STATES}[model.datatype]
     names = [f"T{i:04d}" for i in range(n)]
     return names, ["".join(alphabet[s] for s in states[i])
                    for i in range(n)]
@@ -220,7 +237,12 @@ def true_params(dt, params):
     return params
 
 
-def write_problem(dirname, dt, n_taxa, n_sites, seed):
+def write_problem(dirname, dt, n_taxa, n_sites, seed, generic_ns=2):
+    """An alignment simulated down a random tree (mean branch length
+    0.08) and that tree: GTR+G4 DNA, LG+G4 amino acids, or JC+G4 over a
+    custom alphabet of generic_ns states (0-9, then A-Z, as -d generic
+    reads them; 'X' is the missing-data code, so a 36-state problem
+    shows state 33 as missing)."""
     from phyml_tpu_torch.models.substitution import SubstModel
     from phyml_tpu_torch.topology import Topology
 
@@ -229,6 +251,9 @@ def write_problem(dirname, dt, n_taxa, n_sites, seed):
     if dt == "nt":
         model = SubstModel(datatype="nt", name="GTR", n_classes=4,
                            freqs_mode="fixed", fixed_freqs=FREQS)
+    elif dt == "generic":
+        model = SubstModel(datatype="generic", generic_ns=generic_ns,
+                           n_classes=4)
     else:
         model = SubstModel(datatype="aa", name="LG", n_classes=4,
                            freqs_mode="model")
@@ -346,8 +371,8 @@ def edotp_flops(n_otu, C, ns, P):
 
 
 def cli_argv(dt, aln_path, tree_path, platform):
-    model = ["-m", "GTR"] if dt == "nt" else ["-d", "aa", "-m", "LG",
-                                              "-a", "e"]
+    model = {"nt": ["-m", "GTR"], "aa": ["-d", "aa", "-m", "LG", "-a", "e"],
+             "generic": ["-d", "generic", "-a", "e"]}[dt]
     return ["-i", aln_path, "-u", tree_path, *model, "-c", "4",
             "-o", "lr", "-b", "0", "--platform", platform,
             "--r_seed", "1"]
@@ -359,6 +384,22 @@ def stats_lnl(aln_path) -> float:
             if line.startswith(". Log-likelihood:"):
                 return float(line.split(":")[1])
     fail("no Log-likelihood line in the stats file")
+
+
+def site_tol(dt, ns):
+    """Per-site tolerance of a kernel against its plain version: 5e-4
+    below 20 states (DNA, DNA covarion, small alphabets), 2e-3 from 20
+    up (amino acids, their covarion, large alphabets)."""
+    return SITE_TOL["aa"] if ns >= 20 else SITE_TOL[dt]
+
+
+def route_path(aln, model):
+    """(host lnL kernel, edge kernel, "K3") of a problem: the kernels
+    its runs must launch (likelihood.kernel_route at the model's state
+    count; K3 serves the batches)."""
+    from phyml_tpu_torch.ops.likelihood import kernel_route
+
+    return (*kernel_route(aln.n_otu, model.n_classes, model.ns), "K3")
 
 
 def grid_rows(slots, params, B):
@@ -379,26 +420,27 @@ def grid_rows(slots, params, B):
 
 
 def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
-                  params=None, cell=None, k3_batches=None):
+                  params=None, cell=None, k3_batches=None, extra=()):
     """Each kernel of the path against its plain version on the same
     card tensors at the main path's shapes; returns the kernels' JSON
     entries (launches filled in later).  `model` and `params` replace
     the CLI's model and the simulation's parameters for a cell of its
-    own (`cell` names it in each row; no tree-axis rows), and
+    own (`cell` names it in each row; no tree-axis rows), or `extra`
+    CLI flags the CLI's model (the state-count cells), and
     `k3_batches` the K3 batch sizes, then filled from the line search's
     first zoom level (grid_rows)."""
     import torch
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.io.alignment import read_alignment
-    from phyml_tpu_torch.ops import clv, clv_slots, edotp
+    from phyml_tpu_torch.ops import _build, clv, clv_slots, edotp
     from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
     from phyml_tpu_torch.optim.round import _batched_params, free_scalar_slots
     from phyml_tpu_torch.topology import Topology
 
     aln = read_alignment(aln_path, datatype=dt)
     if model is None:
-        args = cli.build_parser().parse_args(cli_argv(dt, aln_path,
-                                                      tree_path, "gpu"))
+        args = cli.build_parser().parse_args(cli_argv(
+            dt, aln_path, tree_path, "gpu") + list(extra))
         model = cli._build_model(args, aln)
         params = true_params(dt, cli._init_params(args, model, aln))
     tag = dt if cell is None else f"{dt} {cell}"
@@ -413,9 +455,12 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     n, C, ns, k = aln.n_otu, eng.C, eng.ns, aln.n_patterns
     lnl_k, edge_k = eng.lnl_route, eng.edotp_route
     child, sched, n_slots = eng._topology(tree.child)
-    want = ("K1", "K2") if dt == "nt" else ("K4", "K5")
+    want = ("K1", "K2") if (dt, ns) == ("nt", 4) else \
+        ("K4", "K5") if (dt, ns) == ("aa", 20) else route_path(aln, model)[:2]
+    NS = _build.rung(ns)
     print(f". [{tag}] problem: {n} taxa, {aln.n_sites} sites, {k} "
-          f"patterns, C={C}, ns={ns}; route {lnl_k}/{edge_k}")
+          f"patterns, C={C}, ns={ns} (kernels at {NS}); route "
+          f"{lnl_k}/{edge_k}")
     if (lnl_k, edge_k) != want:
         fail(f"[{tag}] route {lnl_k}/{edge_k}, expected {want}")
     W = wrappers()
@@ -446,6 +491,12 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     # K3 at B=1 on the same tensors, each with its peak memory, registers,
     # spills and the blocks per SM the runtime grants
     args1 = (sched, eng.slot_tips, pm, pi, logw)
+    # a launch between rungs copies its tips, P-matrices and pi to the
+    # rung (K2/K5 also V and V^-1): bytes, and a slack for the copies'
+    # rounding up to the caching allocator's 2 MiB segments
+    pad_bytes = 4 * (n * NS * -(-k // clv_slots.TILE) * clv_slots.TILE
+                     + eng.n_nodes * C * NS * NS + C * NS) if NS != ns else 0
+    pad_slack = 1.0 + (5 * 2.0 if NS != ns else 0.0)
     ref, pms = timed(lambda: clv_slots.uppass_site_lse_slots_plain(
         *args1, n_slots=n_slots), 1)
     _, k3_ms = timed(lambda: clv.uppass_site_lse(
@@ -464,25 +515,29 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
             if kname == lnl_k:
                 fail(f"[{tag}] the route's {kname} refuses its shape")
             continue
-        s_regs, spill = regs[kname][ns]
+        s_regs, spill = regs[kname][NS]
         blocks = clv_slots.blocks_per_sm(ns, C, n, n_slots, not resident)
         peak = peak_mib(lambda: W[kname](*args1, n_slots=n_slots))
         print(f". [{tag}] {kname}: {s_regs} registers, {spill} B spilled, "
-              f"{geo['blocks']} blocks of {C} warps ({geo['tile']} "
-              f"patterns, a warp per class, "
+              f"{geo['blocks']} blocks of {geo['warps_per_block']} warps "
+              f"({geo['tile']} patterns, "
+              + ("a warp per class" if geo["warps_per_block"] == C else
+                 "one warp for the classes in turn") + ", "
               f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
-              f"{blocks} per SM granted ({blocks * C} warps); peak "
+              f"{blocks} per SM granted "
+              f"({blocks * geo['warps_per_block']} warps); peak "
               f"{peak:.3f} MiB beyond its inputs (out "
               f"{k * 4 / 2 ** 20:.3f} MiB)")
-        if peak > k * 4 / 2 ** 20 + 1.0:
+        if peak > (k * 4 + pad_bytes) / 2 ** 20 + pad_slack:
             fail(f"[{tag}] {kname} allocates more than its outputs")
         out, ms = timed(lambda: W[kname](*args1, n_slots=n_slots))
         print(f". [{tag}] {kname} {ms:.4f} ms beside K3 at B=1 {k3_ms:.4f} "
               "ms on the same tensors")
         row(kname, W[kname].__name__, float((out - ref).abs().max()), ms,
-            pms, SITE_TOL[dt], slot_flops, slot_bytes,
+            pms, site_tol(dt, ns), slot_flops, slot_bytes,
             on_path=kname == lnl_k, registers=s_regs, spill_bytes=spill,
-            blocks_per_sm=blocks, warps_per_sm=blocks * C, peak_mib=peak,
+            blocks_per_sm=blocks,
+            warps_per_sm=blocks * geo["warps_per_block"], peak_mib=peak,
             k3_b1_ms=k3_ms)
         if kname == lnl_k:
             got = out
@@ -503,13 +558,14 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     # launch each, through the topology's slot schedule
     slots = free_scalar_slots(model, params)
     rng = np.random.default_rng(SEED)
+    k3_w = 1 if NS >= _build.WIDE_NS else C   # K3's warps a block
     tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
     for B in k3_batches or (1, 2, 13 * len(slots)):
         blocks = clv.blocks_per_sm(ns, C, n_slots)
-        k3_regs, spill = regs["K3"][ns]
+        k3_regs, spill = regs["K3"][NS]
         print(f". [{tag}] K3 B={B}: {n_slots} slots, {k3_regs} registers, "
-              f"{spill} B spilled, {blocks} blocks of {32 * C} threads "
-              f"per SM ({blocks * C} warps)")
+              f"{spill} B spilled, {blocks} blocks of {32 * k3_w} threads "
+              f"per SM ({blocks * k3_w} warps)")
         if B == 1:
             argsb = (child, eng.tips, pm, pi, logw)
         else:
@@ -534,11 +590,11 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
             if B == 1 else (lambda: clv.uppass_site_lse_plain(*argsb))
         ref, pms = timed(plain, 1)
         row("K3", f"uppass_site_lse (B={B})",
-            float((got - ref).abs().max()), ms, pms, SITE_TOL[dt],
+            float((got - ref).abs().max()), ms, pms, site_tol(dt, ns),
             pruning_flops(n, C, ns, k, B),
             nbytes(*argsb[1:], sched) + B * k * 4, B=B, peak_mib=peak,
             registers=k3_regs, spill_bytes=spill, blocks_per_sm=blocks,
-            warps_per_sm=blocks * C)
+            warps_per_sm=blocks * k3_w)
         del argsb, got, ref
 
     # edge dot products: K2 (DNA) or K5 (amino acids), every
@@ -554,14 +610,16 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     edge_bytes = nbytes(*args2) + nbytes(dp, sp)
     del dp, sp
     # a call allocates d and sc_d and the two workspace tensors, nothing
-    # more
+    # more (at the rung; a padded call adds its padded tips, P-matrices,
+    # V, V^-1 and pi)
     geo = edotp.geometry(ns, C, k)
-    out_bytes = eng.n_nodes * C * (ns + 1) * k * 4
+    out_bytes = eng.n_nodes * C * (NS + 1) * k * 4 + \
+        (pad_bytes + 4 * 2 * C * NS * NS if NS != ns else 0)
     ws_bytes = 2 * (n - 1) * geo["workspace_floats_per_node"] * 4
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for kname in ("K2", "K5"):
         blocks = edotp.blocks_per_sm(ns, kname == "K5")
-        e_regs, spill = regs[kname][ns]
+        e_regs, spill = regs[kname][NS]
         peak = peak_mib(lambda: W[kname](*args2))
         print(f". [{tag}] {kname}: {e_regs} registers, {spill} B spilled, "
               f"{geo['blocks']} blocks of one warp ({geo['tile']} patterns "
@@ -570,7 +628,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
               f"{peak:.2f} MiB beyond its inputs (outputs "
               f"{out_bytes / 2 ** 20:.2f} + workspace "
               f"{ws_bytes / 2 ** 20:.2f} MiB)")
-        if peak > (out_bytes + ws_bytes) / 2 ** 20 + 1.0:
+        if peak > (out_bytes + ws_bytes) / 2 ** 20 + pad_slack:
             fail(f"[{tag}] {kname} allocates more than its outputs and "
                  "workspace")
         (dk, sk), ms = timed(lambda: W[kname](*args2))
@@ -582,6 +640,18 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
             on_path=kname == edge_k, registers=e_regs, spill_bytes=spill,
             blocks_per_sm=blocks, warps_per_sm=blocks, peak_mib=peak)
     del site_p
+    if NS != ns:
+        # the padding a K1/K4 launch between rungs pays: its tips,
+        # P-matrices and pi copied to the rung
+        _, pad_ms = timed(lambda: (clv_slots.padded_tips(eng.slot_tips, NS),
+                                   _build.pad_states(pm, NS, (2, 3)),
+                                   _build.pad_states(pi, NS, (1,))))
+        print(f". [{tag}] padding {ns} -> {NS} states: tips, P-matrices "
+              f"and pi {pad_ms:.4f} ms a K1/K4 launch")
+        for r in rows:
+            r["pad_ms"] = pad_ms
+    for r in rows:
+        r["ns_kernel"] = NS
     torch.cuda.empty_cache()
     if cell is None:
         tree_axis_phases(dt, eng, sys_, row)
@@ -634,7 +704,7 @@ def tree_axis_phases(dt, eng, sys_, row):
           f"inputs (output {R * k * 4 / 2 ** 20:.2f} MiB); R x the single "
           f"bound {R * b1:.4f} ms")
     row("K3", f"uppass_site_lse (tree axis, R={R})",
-        float((got - ref).abs().max()), ms, pms, SITE_TOL[dt],
+        float((got - ref).abs().max()), ms, pms, site_tol(dt, ns),
         pruning_flops(n, C, ns, k, R),
         nbytes(sched, eng.tips, pm, pi, logw) + R * k * 4, R=R,
         tree_axis=True, single_launches_ms=single_ms, r_single_bound_ms=R * b1,
@@ -730,7 +800,7 @@ def main_path(dt, aln_path, tree_path, cuda, extra=(), runs=2, tag=None):
     lnl_start = float(eng.loglik(cli._init_params(args, model, aln),
                                  tree_arrays(rv, device=cuda)))
     del eng
-    path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
+    path = route_path(aln, model)
     W = wrappers()
     walls = []
     for run in range(runs):
@@ -900,10 +970,11 @@ def default_argv(dt, aln_path, platform):
     return argv
 
 
-def distance_check(dt, aln_path, cuda):
+def distance_check(dt, aln_path, cuda, extra=()):
     """The card's ML distances (float32) against the CPU's float64 on
-    the same alignment and starting parameters; returns the engine's
-    scorer block size (spr.default_batch_k on the BioNJ tree)."""
+    the same alignment and starting parameters (`extra` CLI flags
+    appended); returns the engine's scorer block size
+    (spr.default_batch_k on the BioNJ tree)."""
     import torch
     from phyml_tpu_torch import cli
     from phyml_tpu_torch.io.alignment import read_alignment
@@ -911,7 +982,8 @@ def distance_check(dt, aln_path, cuda):
     from phyml_tpu_torch.search import distances, spr
     from phyml_tpu_torch.search.bionj import bionj
 
-    args = cli.build_parser().parse_args(default_argv(dt, aln_path, "gpu"))
+    args = cli.build_parser().parse_args(default_argv(dt, aln_path, "gpu")
+                                         + list(extra))
     aln = read_alignment(aln_path, datatype=dt)
     model = cli._build_model(args, aln)
     params = cli._init_params(args, model, aln)
@@ -987,7 +1059,10 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
 
     tag = tag or dt
     argv = default_argv(dt, aln_path, "gpu") + list(extra)
-    path = ("K1", "K2", "K3") if dt == "nt" else ("K4", "K5", "K3")
+    args = cli.build_parser().parse_args(argv)
+    aln = read_alignment(aln_path, datatype=dt)
+    model = cli._build_model(args, aln)
+    path = route_path(aln, model)
     W = wrappers()
     reset_counts()
     out = io.StringIO()
@@ -1013,9 +1088,6 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
     lnl_final = stats_lnl(aln_path)
     # the BioNJ tree's lnL at the starting parameters (after the run's
     # counters were read)
-    args = cli.build_parser().parse_args(argv)
-    aln = read_alignment(aln_path, datatype=dt)
-    model = cli._build_model(args, aln)
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
     start = st["agglomeration"]["last"]
     lnl_start = float(eng.loglik(cli._init_params(args, model, aln),
@@ -1752,13 +1824,17 @@ def small_checks(tmp):
     one torch thread each, the longest first), the card's side in this
     process meanwhile; then each comparison.  Returns (the supports
     check's aBayes gap, {slice check: numbers}, the dating check's
-    numbers)."""
+    numbers, {state-count check: numbers})."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     slice_labels = list(slice_runs())
+    states_labels = list(states_runs())
     checks = [(f"small_default_{dt}", default_side, (dt,), report_default)
               for dt in ("aa", "nt")]
+    checks += [(label, states_side, (label,), report_slice)
+               for label in states_labels]
+    checks.append(("small_cov_chain", cov_chain_side, (), report_cov_chain))
     checks.append(("small_support", support_side, (), report_support))
     checks.append(("small_phytime", phytime_side, (), report_phytime))
     checks += [(label, slice_side, (label,), report_slice)
@@ -1779,8 +1855,9 @@ def small_checks(tmp):
             out[label] = report(*args, g, c.result())
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    states = {k: out[k] for k in states_labels + ["small_cov_chain"]}
     return out["small_support"], {k: out[k] for k in slice_labels}, \
-        out["small_phytime"]
+        out["small_phytime"], states
 
 
 def mixture_rows(aln_path, tree_path, cuda, regs):
@@ -1841,6 +1918,188 @@ def lg4x_phase(aln_path, tree_path, cuda, regs, out):
             r["launches_at_B"] = res["k3_by_batch"].get(r["B"], 0)
             r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
     return rows
+
+
+# ----------------------------------------------------------------------
+# state counts other than 4 and 20: covarion (M4) and custom alphabets,
+# on the kernels' ladder (ops/_build.py)
+# ----------------------------------------------------------------------
+# cell: (datatype, CLI flags, taxa of its kernel rows and fixed fit, taxa
+# of its default run or None); 4096 sites each.  The default runs at 64
+# taxa are a depth cut, as the protein default run's
+STATES_CELLS = {
+    "DNA covarion": ("nt", ("--cov", "--cov_ncats", "3"), N_TAXA, 64),
+    "protein covarion": ("aa", ("--cov", "--cov_ncats", "3"), 64, None),
+    "binary generic": ("generic", (), N_TAXA, 64),
+}
+
+
+def states_phase(tmp, cuda, regs):
+    """The state-count cells (STATES_CELLS): DNA covarion GTR+G4 `--cov
+    --cov_ncats 3` (12 states), protein covarion LG+G4 (60 states, the
+    wide rung's design) and binary `-d generic` (2 states, padded to 4),
+    each on a problem of its own simulated from the script's seed:
+    every kernel of its route (and the one beside it) and K3 at the line
+    search's batch against their plain versions, the fixed-topology fit
+    (`-u tree -o lr`) and, where the cell has one, the default run, each
+    with every launch counter set to 0 just before and read just after.
+    Returns (kernel rows, launches from the cell's default run or else
+    its fit; the runs' numbers)."""
+    import torch
+
+    rows, out = [], {}
+    for cell, (dt, extra, fit_n, run_n) in STATES_CELLS.items():
+        tag = f"{dt} {cell}"
+        d = os.path.join(tmp, "states_" + cell.replace(" ", "_"))
+        aln, tree = write_problem(d, dt, fit_n, N_SITES, SEED)
+        cell_rows = kernel_phases(dt, aln, tree, cuda, regs, cell=cell,
+                                  extra=extra)
+        torch.cuda.empty_cache()
+        fit_counts, fit_k3, out[f"{cell} fit"] = main_path(
+            dt, aln, tree, cuda, extra=extra, runs=1, tag=tag)
+        torch.cuda.empty_cache()
+        counts, k3_by_b, src = fit_counts, fit_k3, "the fixed-topology fit"
+        if run_n:
+            run_aln, run_tree = write_problem(f"{d}_{run_n}", dt, run_n,
+                                              N_SITES, SEED)
+            batch_k = distance_check(dt, run_aln, cuda, extra)
+            counts, res = default_run(dt, run_aln, run_tree, cuda, batch_k,
+                                      extra=extra, tag=tag)
+            out[f"{cell} default run"] = res
+            k3_by_b, src = res["k3_by_batch"], "the default run"
+            torch.cuda.empty_cache()
+        for r in cell_rows:
+            kname = r.pop("kernel")
+            r["launches"] = counts[kname]
+            r["launches_from"] = src
+            r["launches_fixed_fit"] = fit_counts[kname]
+            if "B" in r:
+                r["launches_at_B"] = k3_by_b.get(r["B"], 0)
+                r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
+        rows += cell_rows
+    return rows, out
+
+
+def states_runs():
+    """{check: run(d, platform)}: the state-count paths on 16 x 500
+    problems, each run returning (final lnL, trees): covarion fits in
+    the 'alpha' and 'free' modes, amino-acid covarion at two hidden
+    classes (40 states), and custom alphabets of 7 states (the default
+    run) and 36 (the fit)."""
+    from phyml_tpu_torch import cli
+
+    names = [f"T{i:04d}" for i in range(16)]
+
+    def by_cli(dt, extra, default=False, generic_ns=2):
+        def run(d, platform):
+            aln, tree = write_problem(d, dt, 16, 500, SEED + 1,
+                                      generic_ns=generic_ns)
+            argv = (default_argv(dt, aln, platform) if default
+                    else cli_argv(dt, aln, tree, platform))
+            if cli.main(argv + list(extra) + ["--quiet"]) != 0:
+                fail(f"small {dt} {extra} run on {platform} failed")
+            return (stats_lnls(aln),
+                    tree_lines(f"{aln}_phyml_tree.txt", names))
+        return run
+
+    return {
+        "cov_alpha_fit": by_cli("nt", ["--cov_alpha", "e", "--cov_ncats",
+                                       "2"]),
+        "cov_free_fit": by_cli("nt", ["--cov_free"]),
+        "aa_cov_2_hidden_fit": by_cli("aa", ["--cov", "--cov_ncats", "2"]),
+        "generic_7_default_run": by_cli("generic", [], default=True,
+                                        generic_ns=7),
+        "generic_36_fit": by_cli("generic", [], generic_ns=36),
+    }
+
+
+def states_side(label, d, platform):
+    return states_runs()[label](d, platform)
+
+
+def cov_chain(d, platform, dtype=None):
+    """(files' names, engine, MCMC) of the covarion dating check: the
+    16 x 500 DNA problem under GTR+G4 with two hidden classes, its
+    simulating tree as the chronogram's shape, a strict clock and the
+    birth-death prior; cov_delta is a chain parameter (the cov_switch
+    move)."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.times import TimePrior
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine
+    from phyml_tpu_torch.topology import Topology
+
+    device = torch.device("cuda" if platform == "gpu" else "cpu")
+    dtype = dtype or (torch.float32 if platform == "gpu" else torch.float64)
+    aln_path, tree_path = write_problem(d, "nt", 16, 500, SEED + 1)
+    aln = read_alignment(aln_path, datatype="nt")
+    names = list(aln.names)
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4,
+                       covarion=True, n_hidden=2)
+    params = model.init_params(aln.obs_state_freqs)
+    eng = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+    with open(tree_path) as fh:
+        tt = TimeTree.from_topology(Topology.from_newick(fh.read(), names),
+                                    names=names)
+    return MCMC(eng, model, params, tt, RateModel(kind="strict"),
+                TimePrior(kind="birthdeath"),
+                MCMCSettings(n_iter=1000, burnin=500, batch=250, seed=5))
+
+
+def cov_chain_side(d, platform):
+    """The covarion dating check's side: the chain's start state (both
+    platforms) and, on the card, its state after 1,000 iterations and
+    the cov_switch move's acceptance."""
+    from phyml_tpu_torch.bayes.mcmc import MCMC
+
+    def host(st):
+        return {k: ({k2: v2.numpy() for k2, v2 in v.items()}
+                    if isinstance(v, dict) else v.numpy())
+                for k, v in st._asdict().items()}
+
+    mc = cov_chain(d, platform)
+    st0 = mc.init_state()
+    out = dict(start=host(st0))
+    if platform == "gpu":
+        final, _, acc = mc.run(state=st0)
+        out.update(final=host(final),
+                   switch_accept=float(acc[MCMC.MOVE_NAMES.index(
+                       "cov_switch")]))
+    return out
+
+
+def report_cov_chain(gpu, cpu):
+    """The covarion dating check: the start state's lnL on the card
+    (float32) and on the CPU (float64) within F64_TOL; the card chain's
+    final state recomputed by a CPU float64 chain within F64_TOL; the
+    chain sampled cov_delta (its move accepted, the value moved)."""
+    import torch
+    from phyml_tpu_torch.interop import chain_state_from_numpy
+
+    (g, g_s), (c, c_s) = gpu, cpu
+    mc = cov_chain(os.path.join(tempfile.mkdtemp(), "cov_chain"), "cpu",
+                   torch.float64)
+    start_gap = float(g["start"]["lnL"]) - float(c["start"]["lnL"])
+    final = chain_state_from_numpy(g["final"])
+    final_gap = float(final.lnL) - float(mc._lnL(final))
+    d0 = float(g["start"]["subst"]["cov_delta"])
+    d1 = float(g["final"]["subst"]["cov_delta"])
+    print(f". [small] covarion dating chain (16 x 500, GTR+G4, 2 hidden "
+          f"classes, 1,000 iterations on the card): start lnL gpu f32 - "
+          f"cpu f64 {start_gap:.2e}, final lnL - CPU f64 recompute "
+          f"{final_gap:.2e} (tol {F64_TOL}); cov_delta {d0:.4f} -> "
+          f"{d1:.4f}, cov_switch accepted {g['switch_accept']:.3f} "
+          f"({g_s:.1f} s card, {c_s:.1f} s CPU)")
+    if not (abs(start_gap) <= F64_TOL and abs(final_gap) <= F64_TOL):
+        fail("small covarion chain: the card's lnL is off the CPU's")
+    if not (g["switch_accept"] > 0 and d1 != d0):
+        fail("small covarion chain: cov_delta was not sampled")
+    return dict(start_gap=start_gap, final_gap=final_gap, delta=(d0, d1),
+                switch_accept=g["switch_accept"], gpu_s=g_s, cpu_s=c_s)
 
 
 # ----------------------------------------------------------------------
@@ -2220,9 +2479,9 @@ def chain_kernel_row(label, cell, mcmc, st, dt, launches, mgf=False):
                        nbytes(sched, eng.tips, pm, pi, logw) + k * 4)
     print(f". [{cell}] {kname} {fn.__name__} at the chain's "
           f"{'MGF ' if mgf else ''}P-matrices ({label}): max|d|={err:.3e} "
-          f"(tol {SITE_TOL[dt]:g})  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
-          f"bound {b_ms:.4f} ms ({b_by})  launches {launches}")
-    if not err <= SITE_TOL[dt]:
+          f"(tol {site_tol(dt, ns):g})  kernel {ms:.4f} ms  plain "
+          f"{pms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  launches {launches}")
+    if not err <= site_tol(dt, ns):
         fail(f"[{cell}] {kname} disagrees with its plain version at the "
              f"chain's P-matrices: {err}")
     return dict(name=f"{kname} {fn.__name__} [{cell}]", route="cuda",
@@ -2424,7 +2683,7 @@ def main() -> int:
         regs[kname] = ptxas_report(log_path, fragment)
         print(f". {kname} ptxas (ns: registers, spill bytes): "
               f"{regs[kname]}")
-        for ns in (4, 20):
+        for ns in _build.LADDER:
             if ns not in regs[kname] or regs[kname][ns][0] is None:
                 fail(f"no ptxas report for {kname} at ns={ns}")
             if regs[kname][ns][1] != 0:
@@ -2481,8 +2740,13 @@ def main() -> int:
         phytime, phytime_rows = phytime_phase(tmp, cuda)
         rows += phytime_rows
         torch.cuda.empty_cache()
-        supports["small_abayes_gap"], mix["small"], phytime["small"] = \
-            small_checks(tmp)
+        t_states = time.time()
+        states_rows, states = states_phase(tmp, cuda, regs)
+        states["wall_s"] = time.time() - t_states
+        rows += states_rows
+        torch.cuda.empty_cache()
+        supports["small_abayes_gap"], mix["small"], phytime["small"], \
+            states["small"] = small_checks(tmp)
 
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
@@ -2490,6 +2754,7 @@ def main() -> int:
     print(json.dumps({"supports": supports}, default=str))
     print(json.dumps({"mixtures_partitions_flags": mix}, default=str))
     print(json.dumps({"phytime": phytime}, default=str))
+    print(json.dumps({"state_counts": states}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,6 @@ F64 = torch.float64
 # ROADMAP.md Queue 1 items that port what this chain refuses
 _BAYES = "Queue 1, 'Bayesian tier'"
 _TOOLS = "Queue 1, 'Auxiliary tools'"
-_COV = "Queue 1, 'Other state counts and covarion'"
 
 
 class ChainState(NamedTuple):
@@ -142,10 +141,6 @@ class MCMC:
                 "MCMC(fastlk=True): the normal approximation "
                 "(optim/fastlk.py) is not ported to phyml_tpu_torch yet "
                 f"(ROADMAP.md {_TOOLS})")
-        if any(k in subst_params for k in ("cov_delta", "cov_alpha")):
-            raise NotImplementedError(
-                "MCMC with covarion parameters: covarion is not ported to "
-                f"phyml_tpu_torch yet (ROADMAP.md {_COV})")
         self.engine = engine
         self.model = model
         self.tt = time_tree

@@ -13,10 +13,12 @@ PAML rate file through `--aa_rate_file`): the start tree
 {l, r, lr, n/''}), branch supports (`-b N` bootstrap with `--tbe`,
 `--bayesian_bootstrap`, `--rapid_boot`; `-b -1/-2/-3/-4/-5` aLRT,
 SH-aLRT and aBayes), the model and data flags (`--il`, `--codpos`,
-`--weights`, `--no_gap`, `-n` data sets), `--checkpoint`,
-`--print_site_lnl`, and `--xml` analyses (io/xmlcfg.py: mixtures and
-partitions).  Every other analysis flag stops the run with a message
-naming the ROADMAP.md item that ports it.
+`--weights`, `--no_gap`, `-n` data sets), the covarion model (`--cov`,
+`--cov_delta`, `--cov_alpha`, `--cov_ncats`, `--cov_free`), custom
+alphabets (`-d generic`), `--checkpoint`, `--print_site_lnl`, and
+`--xml` analyses (io/xmlcfg.py: mixtures and partitions).  Every other
+analysis flag stops the run with a message naming the ROADMAP.md item
+that ports it.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
@@ -26,6 +28,10 @@ naming the ROADMAP.md item that ports it.
         -c 4 -a e -o lr -b 0 --platform gpu
     python -m phyml_tpu_torch.cli -i prot.phy -d aa -m LG4X -b 0 \\
         --platform gpu                       # the LG4X mixture
+    python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 --cov \\
+        --cov_ncats 3 --cov_delta e -b 0 --platform gpu   # covarion
+    python -m phyml_tpu_torch.cli -i binary.phy -d generic -c 4 -b 0 \\
+        --platform gpu                       # a custom alphabet
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
 """
 
@@ -102,11 +108,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--weights", default=None,
                    help="site-weight file")
-    p.add_argument("--cov", action="store_true")
-    p.add_argument("--cov_delta", default=None)
-    p.add_argument("--cov_alpha", default=None)
-    p.add_argument("--cov_ncats", type=int, default=3)
-    p.add_argument("--cov_free", action="store_true")
+    # covarion (M4) family; the reference's --cov CLI (cl.c:69-74) is
+    # bit-rotted upstream (see tests/test_covarion.py) but phyml_tpu
+    # keeps the option surface, and so does this port
+    p.add_argument("--cov", action="store_true",
+                   help="covarion (M4) model: hidden rate classes "
+                        "with switching")
+    p.add_argument("--cov_delta", default=None,
+                   help="switching rate (value, or 'e' to estimate)")
+    p.add_argument("--cov_alpha", default=None,
+                   help="gamma shape of hidden-class rates (value or "
+                        "'e'); selects the --cov_alpha mode")
+    p.add_argument("--cov_ncats", type=int, default=3,
+                   help="number of hidden rate classes")
+    p.add_argument("--cov_free", action="store_true",
+                   help="free hidden-class rates and frequencies")
     p.add_argument("--cv", choices=["tip", "kfold.col", "kfold.pos"],
                    default=None)
     p.add_argument("--ancestral", "--anc", action="store_true")
@@ -141,7 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # ROADMAP.md Queue 1 items that port what this CLI does not run yet
-_STATES = "Queue 1, 'Other state counts and covarion'"
 _SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
 _TOOLS = "Queue 1, 'Auxiliary tools'"
 
@@ -151,8 +166,6 @@ def _unported(args) -> list[tuple[str, str]]:
     not run yet."""
     checks = [
         (args.distributed, "--distributed", _SUPPORT),
-        (args.cov or args.cov_free or args.cov_delta is not None
-         or args.cov_alpha is not None, "--cov*", _STATES),
         (args.cv is not None, "--cv", _TOOLS),
         (args.ancestral, "--ancestral", _TOOLS),
         (args.ps, "--ps", _TOOLS),
@@ -195,6 +208,13 @@ def _build_model(args, aln):
             fixed = np.asarray([float(x) for x in f.split(",")])
             freqs_mode = "fixed"
     opt_r = "r" in args.optimize
+    use_cov = (args.cov or args.cov_free or args.cov_delta is not None
+               or args.cov_alpha is not None)
+    cov_mode = "fixed"
+    if args.cov_free:
+        cov_mode = "free"
+    elif args.cov_alpha is not None:
+        cov_mode = "alpha"
     custom_aa = None
     if args.aa_rate_file:
         from phyml_tpu_torch.models.matrices import read_paml_matrix
@@ -209,10 +229,16 @@ def _build_model(args, aln):
         freerate=args.free_rates,
         freqs_mode=freqs_mode,
         fixed_freqs=fixed,
+        covarion=use_cov,
+        n_hidden=args.cov_ncats,
+        cov_mode=cov_mode,
         optimize_kappa=opt_r and args.ts_tv == "e",
         optimize_alpha=opt_r and args.alpha == "e",
         optimize_pinv=opt_r and args.pinv == "e",
         optimize_rr=opt_r,
+        optimize_cov=opt_r and (args.cov_delta == "e"
+                                or args.cov_alpha == "e"
+                                or args.cov_free),
     )
 
 
@@ -225,6 +251,11 @@ def _init_params(args, model, aln):
         params["alpha"] = torch.tensor(float(args.alpha), **f64)
     if args.pinv != "e" and model.invar:
         params["pinv"] = torch.tensor(float(args.pinv), **f64)
+    if model.covarion:
+        if args.cov_delta not in (None, "e"):
+            params["cov_delta"] = torch.tensor(float(args.cov_delta), **f64)
+        if args.cov_alpha not in (None, "e") and "cov_alpha" in params:
+            params["cov_alpha"] = torch.tensor(float(args.cov_alpha), **f64)
     if args.il:
         # IL branch-length variance sigma, stored in log space and
         # optimized with the other scalars (reference default 0.1,

@@ -87,16 +87,34 @@
 //     blocks (28 warps) per SM, by registers.
 // chip_smoke.py prints the registers and the blocks per SM the runtime
 // grants (phyml_batched_uppass_occupancy).
+//
+// Other state counts: one instantiation per rung of ladder.cuh, its
+// R x Q tile from the table; the wrapper pads ns to the rung.  On the
+// wide rungs (40 and up) the P-matrix ring of C classes no longer fits
+// (4*C*ns^2 floats: 230 KB at ns = 60, C = 4), so a block is one warp
+// that walks the classes in turn, its ring holding one class's two
+// child matrices a stage (58 KB at ns = 60) and its slots one class's
+// partials; each class's root terms collect in shared memory and the
+// class log-sum-exp stays in this kernel.  The tip rows are copied
+// again for each class (from L2).
 #include "common.cuh"
 
 namespace phyml {
 
-// R output states and Q patterns per thread at each instantiated state
-// count
+// R output states and Q patterns per thread at each rung (ladder.cuh)
 template <int NS>
-constexpr int kRows = NS == 20 ? 5 : NS;
+constexpr int kRows = Rung<NS>::kBatchRows;
 template <int NS>
-constexpr int kCols = NS == 20 ? 4 : 2;
+constexpr int kCols = Rung<NS>::kBatchCols;
+
+// warps of one block: one per class, or one that walks the classes (the
+// wide rungs)
+template <int NS>
+constexpr bool kBatchClassLoop = NS >= kWideNS;
+template <int NS>
+int batched_block_warps(int C) {
+  return kBatchClassLoop<NS> ? 1 : C;
+}
 
 // patterns one warp covers, the block's pattern tile
 template <int NS>
@@ -112,29 +130,30 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
                                       const float* __restrict__ pi,
                                       const float* __restrict__ logw,
                                       float* __restrict__ out, int n_nodes,
-                                      int n_int, int n_slots, int P,
+                                      int n_int, int n_slots, int C, int P,
                                       int sched_stride, int param_stride) {
   constexpr int R = kRows<NS>, G = NS / R, Q = kCols<NS>;
   constexpr int T = kTile<NS>;           // the block's pattern tile
   constexpr int kSlot = (NS + 1) * T;    // floats of one slot, class
   extern __shared__ __align__(16) float smem[];
-  const int C = blockDim.y;
-  const int lane = threadIdx.x, c = threadIdx.y;
-  const int tid = c * 32 + lane, nthr = 32 * C;
+  const int W = blockDim.y;  // C class warps, or one on the wide rungs
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int tid = wy * 32 + lane, nthr = 32 * W;
   const int g = lane % G;             // my state group
   const int lp = lane / G * Q;        // my first pattern
   const int b = blockIdx.x, p0 = blockIdx.y * T;
   const int mat = C * NS * NS;  // floats of one node's P-matrices
+  const int wmat = W * NS * NS;  // ... of the block's classes
   const float* pm_b = pmats + static_cast<size_t>(b) * n_nodes * mat;
   const int bp = b * param_stride;  // my system's pi and logw
   sched += static_cast<size_t>(b) * sched_stride;
-  // ring: pm_ring[stage][child][C][NS][NS], tip_ring[stage][child][NS][T]
+  // ring: pm_ring[stage][child][W][NS][NS], tip_ring[stage][child][NS][T]
   float* pm_ring = smem;
-  float* tip_ring = pm_ring + 4 * mat;
-  // slots[C][n_slots][NS + 1][T]; row NS holds the log2 scale
+  float* tip_ring = pm_ring + 4 * wmat;
+  // slots[W][n_slots][NS + 1][T]; row NS holds the log2 scale
   float* slots = tip_ring + 4 * NS * T;
-  float* red = slots + static_cast<size_t>(C) * n_slots * kSlot;
-  float* my = slots + c * n_slots * kSlot + lp;
+  float* red = slots + static_cast<size_t>(W) * n_slots * kSlot;  // [C][T]
+  float* my = slots + wy * n_slots * kSlot + lp;
   auto slot = [&](int s) { return my + s * kSlot; };
 
   // The block checks the schedule once, a row per thread, before it
@@ -159,13 +178,19 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
       for (int k = 0; k < 7; ++k) st[k] = sched[7 * i + k];
     }
   };
+  // the block's classes c0 .. c0 + W - 1: all C in one pass, or on the
+  // wide rungs one a pass (a compile-time single pass on the others)
+  constexpr bool kLoop = kBatchClassLoop<NS>;
+  const int n_pass = kLoop ? C : 1;
+  int c0 = 0;
   // issue the copies of a step's operands into ring half `stage`
   auto fetch = [&](const int (&st)[7], int stage) {
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      copy_block16(pm_ring + (2 * stage + k) * mat,
-                   pm_b + static_cast<size_t>(st[3 * k]) * mat, mat, tid,
-                   nthr);
+      copy_block16(pm_ring + (2 * stage + k) * wmat,
+                   pm_b + static_cast<size_t>(st[3 * k]) * mat +
+                       c0 * NS * NS,
+                   wmat, tid, nthr);
       if (st[3 * k + 1])
         copy_tip_rows<NS>(tip_ring + (2 * stage + k) * NS * T,
                           tips + static_cast<size_t>(st[3 * k]) * NS * P,
@@ -174,91 +199,96 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
     cp_async_commit();
   };
 
-  int cur[7], nxt[7], later[7];
-  load_step(0, cur);
-  load_step(1, nxt);
-  fetch(cur, 0);
-  for (int i = 0; i < n_int; ++i) {
-    const int stage = i & 1;
-    cp_async_wait<0>();  // this thread's copies of step i have landed
-    __syncthreads();     // ... and every thread's; step i-1 is done, so
-                         // ring half stage^1 is free
-    if (i + 1 < n_int) fetch(nxt, stage ^ 1);
-    load_step(i + 2, later);
+  for (int pass = 0; pass < n_pass; ++pass) {
+    c0 = kLoop ? pass : 0;
+    const int c = kLoop ? pass : wy;  // my class this pass
+    if (pass > 0) __syncthreads();  // the last pass is done with the ring
+    int cur[7], nxt[7], later[7];
+    load_step(0, cur);
+    load_step(1, nxt);
+    fetch(cur, 0);
+    for (int i = 0; i < n_int; ++i) {
+      const int stage = i & 1;
+      cp_async_wait<0>();  // this thread's copies of step i have landed
+      __syncthreads();     // ... and every thread's; step i-1 is done, so
+                           // ring half stage^1 is free
+      if (i + 1 < n_int) fetch(nxt, stage ^ 1);
+      load_step(i + 2, later);
 
-    float acc[2][R][Q];
-    float s[Q];
+      float acc[2][R][Q];
+      float s[Q];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) s[j] = 0.0f;
+      for (int j = 0; j < Q; ++j) s[j] = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const float* x;
-      if (cur[3 * k + 1]) {
-        x = tip_ring + (2 * stage + k) * NS * T + lp;
-      } else {
-        x = slot(cur[3 * k + 2]);
-        float sk[Q];
-        load_q<Q>(x + NS * T, sk);
+      for (int k = 0; k < 2; ++k) {
+        const float* x;
+        if (cur[3 * k + 1]) {
+          x = tip_ring + (2 * stage + k) * NS * T + lp;
+        } else {
+          x = slot(cur[3 * k + 2]);
+          float sk[Q];
+          load_q<Q>(x + NS * T, sk);
 #pragma unroll
-        for (int j = 0; j < Q; ++j) s[j] += sk[j];
+          for (int j = 0; j < Q; ++j) s[j] += sk[j];
+        }
+        tile_matmul<NS, R, Q>(
+            pm_ring + (2 * stage + k) * wmat + (wy * NS + g * R) * NS, x, T,
+            acc[k]);
       }
-      tile_matmul<NS, R, Q>(
-          pm_ring + (2 * stage + k) * mat + (c * NS + g * R) * NS, x, T,
-          acc[k]);
-    }
-    // combine, then rescale each column by an exact power of two
-    float f[Q];
+      // combine, then rescale each column by an exact power of two
+      float f[Q];
 #pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      float m = 0.0f;
+      for (int j = 0; j < Q; ++j) {
+        float m = 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[0][r][j] *= acc[1][r][j];
+          m = r ? fmaxf(m, acc[0][r][j]) : acc[0][r][j];
+        }
+        m = fmaxf(column_max<G>(m), FLT_MIN);
+        const int e = (__float_as_int(m) >> 23) & 0xFF;
+        f[j] = __int_as_float((254 - e) << 23);
+        s[j] += static_cast<float>(e - 127);
+      }
+      __syncwarp();  // every lane has read this step's child slots
+      float* d = slot(cur[6]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        acc[0][r][j] *= acc[1][r][j];
-        m = r ? fmaxf(m, acc[0][r][j]) : acc[0][r][j];
+        float y[Q];
+#pragma unroll
+        for (int j = 0; j < Q; ++j) y[j] = acc[0][r][j] * f[j];
+        store_q<Q>(d + (g * R + r) * T, y);
       }
-      m = fmaxf(column_max<G>(m), FLT_MIN);
-      const int e = (__float_as_int(m) >> 23) & 0xFF;
-      f[j] = __int_as_float((254 - e) << 23);
-      s[j] += static_cast<float>(e - 127);
+      if (g == 0) store_q<Q>(d + NS * T, s);
+      if (i + 1 < n_int) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k) cur[k] = nxt[k], nxt[k] = later[k];
+      }
     }
-    __syncwarp();  // every lane has read this step's child slots
-    float* d = slot(cur[6]);
+
+    // root: sum_x pi * clv (each lane reads back the states it wrote),
+    // then log-sum-exp over classes
+    const float* x = slot(cur[6]);
+    const float* pi_c = pi + (static_cast<size_t>(bp) * C + c) * NS + g * R;
+    float l[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) l[j] = 0.0f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float y[Q];
+      float v[Q];
+      load_q<Q>(x + (g * R + r) * T, v);
 #pragma unroll
-      for (int j = 0; j < Q; ++j) y[j] = acc[0][r][j] * f[j];
-      store_q<Q>(d + (g * R + r) * T, y);
+      for (int j = 0; j < Q; ++j) l[j] += pi_c[r] * v[j];
     }
-    if (g == 0) store_q<Q>(d + NS * T, s);
-    if (i + 1 < n_int) {
+    float sc[Q];
+    load_q<Q>(x + NS * T, sc);
+    const float lw = logw[bp * C + c];
 #pragma unroll
-      for (int k = 0; k < 7; ++k) cur[k] = nxt[k], nxt[k] = later[k];
+    for (int j = 0; j < Q; ++j) {
+      l[j] = column_sum<G>(l[j]);
+      if (g == 0)
+        red[c * T + lp + j] = lw + sc[j] * kLn2 + logf(fmaxf(l[j], FLT_MIN));
     }
-  }
-
-  // root: sum_x pi * clv (each lane reads back the states it wrote),
-  // then log-sum-exp over classes
-  const float* x = slot(cur[6]);
-  const float* pi_c = pi + (static_cast<size_t>(bp) * C + c) * NS + g * R;
-  float l[Q];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) l[j] = 0.0f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float v[Q];
-    load_q<Q>(x + (g * R + r) * T, v);
-#pragma unroll
-    for (int j = 0; j < Q; ++j) l[j] += pi_c[r] * v[j];
-  }
-  float sc[Q];
-  load_q<Q>(x + NS * T, sc);
-  const float lw = logw[bp * C + c];
-#pragma unroll
-  for (int j = 0; j < Q; ++j) {
-    l[j] = column_sum<G>(l[j]);
-    if (g == 0)
-      red[c * T + lp + j] = lw + sc[j] * kLn2 + logf(fmaxf(l[j], FLT_MIN));
   }
   __syncthreads();
   float* out_b = out + static_cast<size_t>(b) * P;
@@ -269,8 +299,9 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
 template <int NS>
 size_t batched_smem(int C, int n_slots) {
   constexpr size_t T = kTile<NS>;
-  return (4 * static_cast<size_t>(C) * NS * NS + 4 * NS * T +
-          (static_cast<size_t>(n_slots) * (NS + 1) + 1) * C * T) *
+  const size_t W = batched_block_warps<NS>(C);
+  return (4 * W * NS * NS + 4 * NS * T +
+          (static_cast<size_t>(n_slots) * (NS + 1) * W + C) * T) *
          sizeof(float);
 }
 
@@ -285,10 +316,10 @@ int launch_batched(const int* sched, const float* tips, const float* pmats,
   if (smem > kMaxSmem || tiles > 65535) return kUnsupported;
   cudaError_t err = allow_smem(batched_uppass_kernel<NS>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(32, C), grid(B, tiles);
+  const dim3 block(32, batched_block_warps<NS>(C)), grid(B, tiles);
   batched_uppass_kernel<NS><<<grid, block, smem, stream>>>(
-      sched, tips, pmats, pi, logw, out, n_otu + n_int, n_int, n_slots, P,
-      sched_stride, param_stride);
+      sched, tips, pmats, pi, logw, out, n_otu + n_int, n_int, n_slots, C,
+      P, sched_stride, param_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,11 +330,22 @@ int occupancy(int C, int n_slots, int* blocks_per_sm) {
   cudaError_t err = allow_smem(batched_uppass_kernel<NS>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, batched_uppass_kernel<NS>, 32 * C, smem));
+      blocks_per_sm, batched_uppass_kernel<NS>,
+      32 * batched_block_warps<NS>(C), smem));
 }
 
 }  // namespace phyml
 
+#define PHYML_BATCHED_CASE(NS, ...)                                       \
+  case NS:                                                                \
+    return phyml::launch_batched<NS>(sched, tips, pmats, pi, logw, out,   \
+                                     n_otu, n_int, n_slots, C, P, B,      \
+                                     sched_stride, param_stride, st);
+#define PHYML_BATCHED_OCC_CASE(NS, ...) \
+  case NS:                              \
+    return phyml::occupancy<NS>(C, n_slots, blocks_per_sm);
+
+// A case per rung of ladder.cuh; -1 for another ns.
 extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
                                     const float* pmats, const float* pi,
                                     const float* logw, float* out, int n_otu,
@@ -317,29 +359,19 @@ extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
   const int param_stride = shared_params ? 0 : 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
-    case 4:
-      return phyml::launch_batched<4>(sched, tips, pmats, pi, logw, out,
-                                      n_otu, n_int, n_slots, C, P, B,
-                                      sched_stride, param_stride, st);
-    case 20:
-      return phyml::launch_batched<20>(sched, tips, pmats, pi, logw, out,
-                                       n_otu, n_int, n_slots, C, P, B,
-                                       sched_stride, param_stride, st);
+    PHYML_LADDER(PHYML_BATCHED_CASE)
     default:
       return phyml::kUnsupported;
   }
 }
 
-// The blocks of K3 (32 * C threads each) one SM holds at (ns, C,
-// n_slots), as the runtime grants them.
+// The blocks of K3 (32 * C threads each, 32 on the wide rungs) one SM
+// holds at (ns, C, n_slots), as the runtime grants them.
 extern "C" int phyml_batched_uppass_occupancy(int ns, int C, int n_slots,
                                               int* blocks_per_sm) {
   if (C < 1 || C > 32 || n_slots < 1) return phyml::kUnsupported;
   switch (ns) {
-    case 4:
-      return phyml::occupancy<4>(C, n_slots, blocks_per_sm);
-    case 20:
-      return phyml::occupancy<20>(C, n_slots, blocks_per_sm);
+    PHYML_LADDER(PHYML_BATCHED_OCC_CASE)
     default:
       return phyml::kUnsupported;
   }

@@ -17,13 +17,14 @@ __global__ void slot_site_lse_stream_kernel(
     const int* __restrict__ sched, const float* __restrict__ tips,
     const float* __restrict__ pmats, const float* __restrict__ pi,
     const float* __restrict__ logw,
-    float* __restrict__ out, int n_otu, int n_int, int n_slots, int P,
-    int ldt) {
+    float* __restrict__ out, int n_otu, int n_int, int n_slots, int C,
+    int P, int ldt) {
   slot_site_lse_body<NS, false>(sched, tips, pmats, pi, logw, out, n_otu,
-                                n_int, n_slots, P, ldt);
+                                n_int, n_slots, C, P, ldt);
 }
 
 }  // namespace phyml
 
-PHYML_SLOT_ENTRY(phyml_slot_site_lse_stream,
-                 phyml::slot_site_lse_stream_kernel, false)
+#define PHYML_SLOT_KERNEL phyml::slot_site_lse_stream_kernel
+#define PHYML_SLOT_RESIDENT false
+PHYML_SLOT_ENTRY(phyml_slot_site_lse_stream)

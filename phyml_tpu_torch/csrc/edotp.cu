@@ -24,4 +24,5 @@ __global__ void edge_dotprods_kernel(
 
 }  // namespace phyml
 
-PHYML_EDOTP_ENTRY(phyml_edge_dotprods, phyml::edge_dotprods_kernel)
+#define PHYML_EDOTP_KERNEL phyml::edge_dotprods_kernel
+PHYML_EDOTP_ENTRY(phyml_edge_dotprods)

@@ -67,23 +67,30 @@
 //   V, V^-1 and pi are shared.  Blocks of one tree share nothing with
 //   another's, so the one launch of R trees is R independent sweeps.
 //
-// Static shared memory per block (kEdotpSmem): ns = 20 20.2 KB, ns = 4
-// 5.1 KB.  Registers from ptxas (chip_smoke.py prints them and the
-// blocks per SM the runtime grants).
+// * Other state counts: one instantiation per rung of ladder.cuh, its
+//   R x Q tile from the table (T = 32 patterns at ns = 4 and 8, 16 up to
+//   24, 8 from 32 to 60, 4 at 64: a down step holds about six R x Q
+//   register tiles, so the wide rungs keep R x Q near ns = 20's 10);
+//   the wrapper pads ns to the rung.
+//
+// Dynamic shared memory per block (kEdotpSmem): ns = 20 20.2 KB, ns = 4
+// 5.1 KB, ns = 60 102 KB (V^T, V^-1 and the P-matrix ring are 6 ns^2
+// floats; above 48 KB a block opts in).  Registers from ptxas
+// (chip_smoke.py prints them and the blocks per SM the runtime grants).
 #pragma once
 
 #include "common.cuh"
 
 namespace phyml {
 
-// R states and Q patterns per thread at each instantiated state count
+// R states and Q patterns per thread at each rung (ladder.cuh)
 template <int NS>
-constexpr int kEdotpRows = NS == 20 ? 5 : 4;
+constexpr int kEdotpRows = Rung<NS>::kEdotpRows;
 template <int NS>
-constexpr int kEdotpCols = NS == 20 ? 2 : 1;
+constexpr int kEdotpCols = Rung<NS>::kEdotpCols;
 
 // patterns one warp covers, the block's pattern tile (ns = 4: 32,
-// ns = 20: 16)
+// ns = 20: 16, ns = 60: 8)
 template <int NS>
 constexpr int kEdotpTile = 32 / (NS / kEdotpRows<NS>) * kEdotpCols<NS>;
 
@@ -124,7 +131,7 @@ __device__ __forceinline__ void edge_dotprods_body(
   constexpr int M = NS * NS;          // floats of one class's P-matrix
   constexpr int kCol = (NS + 1) * T;  // one class's tile, scale row last
   static_assert(32 % T == 0 && T % 4 == 0, "a tile row is 1-8 lanes' work");
-  __shared__ __align__(16) float smem[kEdotpSmem<NS>];
+  extern __shared__ __align__(16) float smem[];  // kEdotpSmem<NS> floats
   const int C = gridDim.y, c = blockIdx.y;  // a block (one warp) per class
   const int lane = threadIdx.x;
   const int g = lane % G;       // my state group: states g*R .. g*R+R-1
@@ -439,26 +446,43 @@ int launch_edotp(K* kernel, const int* child, const float* tips,
                  float* ws_out, int n_otu, int n_int, int C, int P, int Pw,
                  int R, cudaStream_t stream) {
   constexpr int T = kEdotpTile<NS>;
-  if (Pw % T != 0 || Pw < P || Pw - P >= T) return kUnsupported;
+  constexpr size_t smem = kEdotpSmem<NS> * sizeof(float);
+  if (Pw % T != 0 || Pw < P || Pw - P >= T || smem > kMaxSmem)
+    return kUnsupported;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(32), grid(Pw / T, C, R);
-  kernel<<<grid, block, 0, stream>>>(child, tips, pmats, V, Vinv, pi, d, scd,
-                                     ws_clv, ws_out, n_otu, n_int, P, Pw);
+  kernel<<<grid, block, smem, stream>>>(child, tips, pmats, V, Vinv, pi, d,
+                                        scd, ws_clv, ws_out, n_otu, n_int, P,
+                                        Pw);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NS, typename K>
 int edotp_occupancy(K* kernel, int* blocks_per_sm) {
+  constexpr size_t smem = kEdotpSmem<NS> * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, 32, 0));
+      blocks_per_sm, kernel, 32, smem));
 }
 
 }  // namespace phyml
 
-// One extern "C" launcher and one occupancy query per kernel, for ns in
-// {4, 20} (-1 for another ns, or a pattern width Pw that is not P
-// rounded up to the tile); R stacked trees (1 for one tree), each with
-// its own child table, P-matrices, outputs and workspace.
-#define PHYML_EDOTP_ENTRY(FN, KERNEL)                                         \
+// One extern "C" launcher and one occupancy query per kernel, a case per
+// rung of ladder.cuh (-1 for another ns, or a pattern width Pw that is
+// not P rounded up to the tile); R stacked trees (1 for one tree), each
+// with its own child table, P-matrices, outputs and workspace.  The
+// including file defines PHYML_EDOTP_KERNEL (its kernel template) first.
+#define PHYML_EDOTP_CASE(NS, ...)                                          \
+  case NS:                                                                 \
+    return phyml::launch_edotp<NS>(PHYML_EDOTP_KERNEL<NS>, child, tips,    \
+                                   pmats, V, Vinv, pi, d, scd, ws_clv,     \
+                                   ws_out, n_otu, n_int, C, P, Pw, R, st);
+#define PHYML_EDOTP_OCC_CASE(NS, ...) \
+  case NS:                            \
+    return phyml::edotp_occupancy<NS>(PHYML_EDOTP_KERNEL<NS>, blocks_per_sm);
+#define PHYML_EDOTP_ENTRY(FN)                                                 \
   extern "C" int FN(const int* child, const float* tips, const float* pmats, \
                     const float* V, const float* Vinv, const float* pi,       \
                     float* d, float* scd, float* ws_clv, float* ws_out,       \
@@ -468,24 +492,14 @@ int edotp_occupancy(K* kernel, int* blocks_per_sm) {
       return phyml::kUnsupported;                                             \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
     switch (ns) {                                                             \
-      case 4:                                                                 \
-        return phyml::launch_edotp<4>(KERNEL<4>, child, tips, pmats, V, Vinv, \
-                                      pi, d, scd, ws_clv, ws_out, n_otu,      \
-                                      n_int, C, P, Pw, R, st);                \
-      case 20:                                                                \
-        return phyml::launch_edotp<20>(KERNEL<20>, child, tips, pmats, V,     \
-                                       Vinv, pi, d, scd, ws_clv, ws_out,      \
-                                       n_otu, n_int, C, P, Pw, R, st);        \
+      PHYML_LADDER(PHYML_EDOTP_CASE)                                          \
       default:                                                                \
         return phyml::kUnsupported;                                           \
     }                                                                         \
   }                                                                           \
   extern "C" int FN##_occupancy(int ns, int* blocks_per_sm) {                 \
     switch (ns) {                                                             \
-      case 4:                                                                 \
-        return phyml::edotp_occupancy<4>(KERNEL<4>, blocks_per_sm);           \
-      case 20:                                                                \
-        return phyml::edotp_occupancy<20>(KERNEL<20>, blocks_per_sm);         \
+      PHYML_LADDER(PHYML_EDOTP_OCC_CASE)                                      \
       default:                                                                \
         return phyml::kUnsupported;                                           \
     }                                                                         \

@@ -25,4 +25,5 @@ __global__ void edge_dotprods_stream_kernel(
 
 }  // namespace phyml
 
-PHYML_EDOTP_ENTRY(phyml_edge_dotprods_stream, phyml::edge_dotprods_stream_kernel)
+#define PHYML_EDOTP_KERNEL phyml::edge_dotprods_stream_kernel
+PHYML_EDOTP_ENTRY(phyml_edge_dotprods_stream)

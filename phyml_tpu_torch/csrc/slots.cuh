@@ -32,10 +32,11 @@
 //   second launch).
 // * Register tiles (common.cuh:tile_matmul): each lane owns R states x Q
 //   patterns of a column split over G = ns / R lanes, T = 32 patterns
-//   a warp at both state counts (ns = 4: R = 4, G = 1, Q = 1; ns = 20:
-//   R = 5, G = 4, Q = 4): 472 warps at 128 x 3767 DNA, 496 at 128 x 3945
-//   amino acids, C = 4.  A 16-pattern tile at ns = 20 (twice the warps,
-//   twice the P-matrix copies and loads per FMA) was slower.
+//   a warp at ns = 4 and 20 (ns = 4: R = 4, G = 1, Q = 1; ns = 20:
+//   R = 5, G = 4, Q = 4; other rungs in ladder.cuh): 472 warps at
+//   128 x 3767 DNA, 496 at 128 x 3945 amino acids, C = 4.  A
+//   16-pattern tile at ns = 20 (twice the warps, twice the P-matrix
+//   copies and loads per FMA) was slower.
 // * K1 (resident): at block start each warp copies its class's
 //   P-matrices for the whole tree, (n_nodes - 1) ns^2 floats (16 KB at
 //   128-taxon DNA), into shared memory with cp.async; after that copy no
@@ -63,34 +64,49 @@
 //   column's log2 scale), the schedule's own slot count.  The root's
 //   partial never leaves registers.
 //
+// * Other state counts: one instantiation per rung of ladder.cuh, its
+//   R x Q tile from the table (T = 32 patterns up to 24 states, 16
+//   above); the wrappers pad ns to the rung.  On the wide rungs (40 and
+//   up) a block is one warp that walks the C classes in turn, reusing
+//   its share (the ring and the slots), with its ring one step ahead
+//   (S = 2): at ns = 60 a warp's share is 58 KB of ring + 15 KB of tip
+//   ring + 3.9 KB a slot, where a block of four class warps with S = 3
+//   would need 346 KB.  The class terms of the tile collect in shared
+//   memory as before, so the class log-sum-exp stays in this kernel.
+//
 // Dynamic shared memory per warp (slot_warp_floats; a block holds C of
-// them and C x T class terms), independent of the tree's size but for
-// K1's matrices and the slot count: K1 at 128-taxon DNA, 4 slots: 16 KB
-// of matrices + 3 KB of tip ring + 2.5 KB of slots; K4 at ns = 20:
-// 9.6 + 15.4 KB + 2.7 KB a slot, so a block of C = 8 classes fits only
-// a one-slot schedule, and the engine sends a pass K4's block cannot
-// hold to K3 at B = 1 (ops/likelihood.py:single_pass_kernel).
-// Registers from ptxas (chip_smoke.py prints them and the blocks per
-// SM the runtime grants).
+// them, one on the wide rungs, and C x T class terms), independent of
+// the tree's size but for K1's matrices and the slot count: K1 at
+// 128-taxon DNA, 4 slots: 16 KB of matrices + 3 KB of tip ring + 2.5 KB
+// of slots; K4 at ns = 20: 9.6 + 15.4 KB + 2.7 KB a slot, so a block of
+// C = 8 classes fits only a one-slot schedule, and the engine sends a
+// pass K4's block cannot hold to K3 at B = 1
+// (ops/likelihood.py:single_pass_kernel).  Registers from ptxas
+// (chip_smoke.py prints them and the blocks per SM the runtime grants).
 #pragma once
 
 #include "common.cuh"
 
 namespace phyml {
 
-// R states and Q patterns per lane at each instantiated state count
+// R states and Q patterns per lane at each rung (ladder.cuh)
 template <int NS>
-constexpr int kSlotRows = NS == 20 ? 5 : 4;
+constexpr int kSlotRows = Rung<NS>::kSlotRows;
 template <int NS>
-constexpr int kSlotCols = NS == 20 ? 4 : 1;
+constexpr int kSlotCols = Rung<NS>::kSlotCols;
 
-// patterns one warp covers (32 at both state counts)
+// patterns one warp covers (32 up to 24 states, 16 above)
 template <int NS>
 constexpr int kSlotTile = 32 / (NS / kSlotRows<NS>) * kSlotCols<NS>;
 
+// a block is one warp that walks the classes in turn (the wide rungs)
+template <int NS>
+constexpr bool kSlotClassLoop = NS >= kWideNS;
+
 // steps a step's tip rows (and K4's P-matrices) are copied ahead of it;
 // the ring has kSlotAhead + 1 stages
-constexpr int kSlotAhead = 2;
+template <int NS>
+constexpr int kSlotAhead = kSlotClassLoop<NS> ? 1 : 2;
 
 // Floats of shared memory one warp uses: P-matrices (K1: its class's
 // for every child node; K4: the ring), the tip ring and the slots (a
@@ -98,7 +114,7 @@ constexpr int kSlotAhead = 2;
 template <int NS, bool kResident>
 __host__ __device__ constexpr size_t slot_warp_floats(int n_nodes,
                                                       int n_slots) {
-  constexpr size_t T = kSlotTile<NS>, S = kSlotAhead + 1;
+  constexpr size_t T = kSlotTile<NS>, S = kSlotAhead<NS> + 1;
   const size_t pm = kResident ? static_cast<size_t>(n_nodes - 1) * NS * NS
                               : 2 * S * NS * NS;
   return pm + 2 * S * NS * T + static_cast<size_t>(n_slots) * (NS + 1) * T;
@@ -116,11 +132,11 @@ __device__ __forceinline__ void slot_site_lse_warp(
     float (&term)[kSlotCols<NS>]) {
   constexpr int R = kSlotRows<NS>, G = NS / R, Q = kSlotCols<NS>;
   constexpr int T = kSlotTile<NS>;
-  constexpr int D = kSlotAhead, S = D + 1;
+  constexpr int D = kSlotAhead<NS>, S = D + 1;
   constexpr int M = NS * NS;         // floats of one class's P-matrix
   constexpr int kSlot = (NS + 1) * T;
-  static_assert(T % 4 == 0 && 128 % T == 0 && (NS * T) % 128 == 0,
-                "a warp copies whole tile rows");
+  constexpr int kTipPieces = NS * T / 4;  // 16-byte pieces of a tip tile
+  static_assert(T % 4 == 0 && 128 % T == 0, "a warp copies whole rows");
   const int lane = threadIdx.x;
   const int g = lane % G;        // my state group: states g*R .. g*R+R-1
   const int lp = lane / G * Q;   // my first pattern in the tile
@@ -142,7 +158,8 @@ __device__ __forceinline__ void slot_site_lse_warp(
   // Tip rows lie ldt floats apart, each 16-byte aligned and holding
   // whole tiles (padded_tips), so a tile row is T / 4 16-byte pieces:
   // piece lane + 32m of the [NS][T] tile sits at row lane / (T/4) +
-  // m * (128 / T).
+  // m * (128 / T) (a last, partial round where NS * T / 4 is not a
+  // multiple of 32, ns = 60).
   const size_t tip_lane =
       static_cast<size_t>(lane / (T / 4)) * ldt + p0 + 4 * (lane % (T / 4));
   // row i of the schedule (7 ints: child0 id, is tip, slot, child1 id,
@@ -177,9 +194,10 @@ __device__ __forceinline__ void slot_site_lse_warp(
           const float* src =
               tips + static_cast<size_t>(id) * NS * ldt + tip_lane;
 #pragma unroll
-          for (int m = 0; m < NS * T / 128; ++m)
-            cp_async16(dst + 4 * lane + 128 * m,
-                       src + m * (128 / T) * static_cast<size_t>(ldt));
+          for (int m = 0; m < (kTipPieces + 31) / 32; ++m)
+            if (lane + 32 * m < kTipPieces)
+              cp_async16(dst + 4 * lane + 128 * m,
+                         src + m * (128 / T) * static_cast<size_t>(ldt));
         }
       }
     }
@@ -256,46 +274,61 @@ __device__ __forceinline__ void slot_site_lse_warp(
   }
 }
 
-// The kernel of one route: a block of C warps (threadIdx.y = class) per
-// pattern tile, each warp on its own share of shared memory, then the
-// class log-sum-exp of the tile's patterns after one barrier.
+// The kernel of one route: a block of C warps (threadIdx.y = class; on
+// the wide rungs one warp for the C classes in turn) per pattern tile,
+// each warp on its own share of shared memory, then the class
+// log-sum-exp of the tile's patterns after one barrier.
 template <int NS, bool kResident>
 __device__ __forceinline__ void slot_site_lse_body(
     const int* __restrict__ sched, const float* __restrict__ tips,
     const float* __restrict__ pmats, const float* __restrict__ pi,
     const float* __restrict__ logw, float* __restrict__ out, int n_otu,
-    int n_int, int n_slots, int P, int ldt) {
+    int n_int, int n_slots, int C, int P, int ldt) {
   constexpr int G = NS / kSlotRows<NS>, Q = kSlotCols<NS>;
   constexpr int T = kSlotTile<NS>;
   extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x, c = threadIdx.y, C = blockDim.y;
+  const int lane = threadIdx.x, wy = threadIdx.y, W = blockDim.y;
   const int lp = lane / G * Q, p0 = blockIdx.x * T;
   const size_t wf = slot_warp_floats<NS, kResident>(n_otu + n_int, n_slots);
-  float* red = smem + C * wf;  // [C][T] class terms
+  float* red = smem + W * wf;  // [C][T] class terms
   {
     // the block checks the schedule once, a row per thread, before any
     // warp walks it
     bool bad = false;
-    for (int i = c * 32 + lane; i < n_int; i += 32 * C)
+    for (int i = wy * 32 + lane; i < n_int; i += 32 * W)
       bad |= schedule_row_bad(sched, i, n_otu, n_otu + n_int - 1, n_slots);
     if (__syncthreads_or(bad)) __trap();
   }
-  float term[Q];
-  slot_site_lse_warp<NS, kResident>(smem + c * wf, sched, tips, pmats, pi,
-                                    logw, c, C, p0, n_otu, n_int, n_slots,
-                                    ldt, term);
-  if (lane % G == 0)
+  // one pass for my class, or on the wide rungs (W = 1) one a class
+  constexpr bool kLoop = kSlotClassLoop<NS>;
+  const int n_pass = kLoop ? C : 1;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int c = kLoop ? pass : wy;
+    if (pass > 0) __syncwarp();  // every lane is done with the last pass
+    float term[Q];
+    slot_site_lse_warp<NS, kResident>(smem + wy * wf, sched, tips, pmats,
+                                      pi, logw, c, C, p0, n_otu, n_int,
+                                      n_slots, ldt, term);
+    if (lane % G == 0)
 #pragma unroll
-    for (int j = 0; j < Q; ++j) red[c * T + lp + j] = term[j];
+      for (int j = 0; j < Q; ++j) red[c * T + lp + j] = term[j];
+  }
   __syncthreads();
-  for (int t = c * 32 + lane; t < T && p0 + t < P; t += 32 * C)
+  for (int t = wy * 32 + lane; t < T && p0 + t < P; t += 32 * W)
     out[p0 + t] = class_lse(red + t, C, T);
+}
+
+// warps of one block: one per class, or one on the wide rungs
+template <int NS>
+int slot_block_warps(int C) {
+  return kSlotClassLoop<NS> ? 1 : C;
 }
 
 template <int NS, bool kResident>
 size_t slot_smem(int C, int n_nodes, int n_slots) {
-  return C *
-         (slot_warp_floats<NS, kResident>(n_nodes, n_slots) + kSlotTile<NS>) *
+  return (slot_block_warps<NS>(C) *
+              slot_warp_floats<NS, kResident>(n_nodes, n_slots) +
+          static_cast<size_t>(C) * kSlotTile<NS>) *
          sizeof(float);
 }
 
@@ -312,8 +345,9 @@ int launch_slot(K* kernel, const int* sched, const float* tips,
   if (smem > kMaxSmem || !padded) return kUnsupported;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(P + T - 1) / T, dim3(32, C), smem, stream>>>(
-      sched, tips, pmats, pi, logw, out, n_otu, n_int, n_slots, P, ldt);
+  kernel<<<(P + T - 1) / T, dim3(32, slot_block_warps<NS>(C)), smem,
+           stream>>>(sched, tips, pmats, pi, logw, out, n_otu, n_int,
+                     n_slots, C, P, ldt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,15 +359,26 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, 32 * C, smem));
+      blocks_per_sm, kernel, 32 * slot_block_warps<NS>(C), smem));
 }
 
 }  // namespace phyml
 
-// One extern "C" launcher and one occupancy query per route, for ns in
-// {4, 20} (-1 for another ns, more than 32 classes, tip rows not padded
-// to whole tiles, or a shape whose shared memory does not fit a block).
-#define PHYML_SLOT_ENTRY(FN, KERNEL, RESIDENT)                                \
+// One extern "C" launcher and one occupancy query per route, a case per
+// rung of ladder.cuh (-1 for another ns, more than 32 classes, tip rows
+// not padded to whole tiles, or a shape whose shared memory does not fit
+// a block).  The including file defines PHYML_SLOT_KERNEL (its kernel
+// template) and PHYML_SLOT_RESIDENT (true for K1) first.
+#define PHYML_SLOT_CASE(NS, ...)                                           \
+  case NS:                                                                 \
+    return phyml::launch_slot<NS, PHYML_SLOT_RESIDENT>(                    \
+        PHYML_SLOT_KERNEL<NS>, sched, tips, pmats, pi, logw, out, n_otu,   \
+        n_int, n_slots, C, P, ldt, st);
+#define PHYML_SLOT_OCC_CASE(NS, ...)                                       \
+  case NS:                                                                 \
+    return phyml::slot_occupancy<NS, PHYML_SLOT_RESIDENT>(                 \
+        PHYML_SLOT_KERNEL<NS>, C, n_otu, n_slots, blocks_per_sm);
+#define PHYML_SLOT_ENTRY(FN)                                                \
   extern "C" int FN(const int* sched, const float* tips, const float* pmats, \
                     const float* pi, const float* logw, float* out,          \
                     int n_otu, int n_int, int n_slots, int ns, int C, int P, \
@@ -342,16 +387,7 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
       return phyml::kUnsupported;                                            \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
     switch (ns) {                                                            \
-      case 4:                                                                \
-        return phyml::launch_slot<4, RESIDENT>(KERNEL<4>, sched, tips,       \
-                                               pmats, pi, logw, out, n_otu,  \
-                                               n_int, n_slots, C, P, ldt,    \
-                                               st);                          \
-      case 20:                                                               \
-        return phyml::launch_slot<20, RESIDENT>(KERNEL<20>, sched, tips,     \
-                                                pmats, pi, logw, out, n_otu, \
-                                                n_int, n_slots, C, P, ldt,   \
-                                                st);                         \
+      PHYML_LADDER(PHYML_SLOT_CASE)                                          \
       default:                                                               \
         return phyml::kUnsupported;                                          \
     }                                                                        \
@@ -361,12 +397,7 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
     if (C < 1 || C > 32 || n_otu < 2 || n_slots < 1)                         \
       return phyml::kUnsupported;                                            \
     switch (ns) {                                                            \
-      case 4:                                                                \
-        return phyml::slot_occupancy<4, RESIDENT>(KERNEL<4>, C, n_otu,       \
-                                                  n_slots, blocks_per_sm);   \
-      case 20:                                                               \
-        return phyml::slot_occupancy<20, RESIDENT>(KERNEL<20>, C, n_otu,     \
-                                                   n_slots, blocks_per_sm);  \
+      PHYML_LADDER(PHYML_SLOT_OCC_CASE)                                      \
       default:                                                               \
         return phyml::kUnsupported;                                          \
     }                                                                        \

@@ -21,7 +21,9 @@ from phyml_tpu_torch.ops.likelihood import TreeArrays, default_device
 def params_from_numpy(params: dict[str, np.ndarray], device="cpu",
                       dtype=torch.float64) -> dict[str, torch.Tensor]:
     """Model parameters as tensors (the port keeps them as host
-    float64 tensors, the defaults)."""
+    float64 tensors, the defaults): every key as it comes, the
+    covarion model's cov_delta, cov_alpha, cov_h_fq_raw and
+    cov_multipl_raw among them."""
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in params.items()}
 

@@ -39,6 +39,9 @@ def format_stats(
     extra_lines: list[str] | None = None,
 ) -> str:
     pi1 = model.class_system(params)[3].numpy()[0]
+    if model.covarion:
+        # display observed-state frequencies (hidden classes folded)
+        pi1 = pi1.reshape(model.n_hidden, -1).sum(axis=0)
     rates, probs = _class_rates(model, params)
 
     L = []
@@ -76,6 +79,18 @@ def format_stats(
     if model.invar:
         L.append(f". Proportion of invariant: \t\t"
                  f"{float(np.asarray(params.get('pinv', 0.0))):.3f}")
+    if model.covarion:
+        from phyml_tpu_torch.models.covarion import m4_hidden_system
+        h_fq, multipl = m4_hidden_system(model, params)
+        L.append(f". Covarion (M4) model: \t\t\tYes "
+                 f"({model.n_hidden} hidden classes, mode "
+                 f"{model.cov_mode})")
+        L.append(f"  - Switching rate (delta): \t\t"
+                 f"{float(np.asarray(params['cov_delta'])):.5f}")
+        for k in range(model.n_hidden):
+            L.append(f"  - Hidden class {k + 1}: \t\t\trate="
+                     f"{float(np.asarray(multipl)[k]):.5f} "
+                     f"freq={float(np.asarray(h_fq)[k]):.6f}")
     if model.datatype == "nt":
         if "kappa" in params:
             kappa = float(np.asarray(params["kappa"]))

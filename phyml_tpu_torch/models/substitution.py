@@ -34,6 +34,9 @@ import torch
 
 from phyml_tpu_torch.models import dna as dna_mod
 from phyml_tpu_torch.models import matrices
+from phyml_tpu_torch.models.covarion import (
+    m4_exchangeabilities, m4_hidden_system,
+)
 from phyml_tpu_torch.models.eigen import reversible_eigen
 from phyml_tpu_torch.models.rates import discrete_gamma, freerate_normalize
 
@@ -42,7 +45,8 @@ RR_MIN, RR_MAX = 0.01, 100.0  # utilities.h clamps for GTR rates
 _F64 = torch.float64
 # parameters whose unbatched value is a vector (all others are scalars)
 _VECTOR_PARAMS = ("rr_val", "freqs_raw", "freqs_const",
-                  "class_rates_raw", "class_weights_raw")
+                  "class_rates_raw", "class_weights_raw",
+                  "cov_h_fq_raw", "cov_multipl_raw")
 
 
 def _t(x) -> torch.Tensor:
@@ -79,21 +83,22 @@ class SubstModel:
     # When set, n_classes == len(components) and each class has its own
     # Q (LG4X-style); otherwise a single Q is shared across classes.
     components: list | None = None
-    # covarion (M4) is not ported yet (ROADMAP.md Queue 1, "Other state
-    # counts and covarion"); True raises
+    # Covarion (M4, m4.c; models/covarion.py): n_hidden rate classes
+    # over the observed process; cov_mode selects the hidden-multiplier
+    # parameterization ('fixed' = plain --cov, 'alpha' = --cov_alpha
+    # discrete-gamma, 'free' = --cov_free free freqs+multipliers;
+    # m4.c:338-396)
     covarion: bool = False
+    n_hidden: int = 3
+    cov_mode: str = "fixed"
     # which scalar parameters are optimized (used by the optimizer)
     optimize_kappa: bool = True
     optimize_alpha: bool = True
     optimize_pinv: bool = False
     optimize_rr: bool = True
+    optimize_cov: bool = True
 
     def __post_init__(self):
-        if self.covarion:
-            raise NotImplementedError(
-                "the covarion model is not ported to phyml_tpu_torch yet "
-                "(ROADMAP.md Queue 1, 'Other state counts and "
-                "covarion')")
         self.name = self.name.upper()
         if self.datatype == "generic":
             if self.generic_ns < 2:
@@ -110,6 +115,12 @@ class SubstModel:
             # these models fix pi = 1/4 (utilities.h model defs)
             self.freqs_mode = "fixed"
             self.fixed_freqs = np.full(4, 0.25)
+        if self.covarion:
+            if self.is_mixture:
+                raise ValueError("covarion cannot combine with "
+                                 "matrix mixtures")
+            if self.n_hidden < 2:
+                raise ValueError("covarion needs >= 2 hidden classes")
 
     # ------------------------------------------------------------------
     @property
@@ -123,6 +134,10 @@ class SubstModel:
 
     @property
     def ns(self) -> int:
+        """Process states: obs_ns, times n_hidden under covarion
+        (mod->ns = n_o * n_h, init.c:6406)."""
+        if self.covarion:
+            return self.obs_ns * self.n_hidden
         return self.obs_ns
 
     @property
@@ -155,6 +170,17 @@ class SubstModel:
                                                  dtype=_F64)
         if self.invar:
             p["pinv"] = _t(0.2)
+        if self.covarion:
+            # M4 defaults: delta = 1, cov alpha = 1, free-mode raws
+            # h_fq_unscaled = 1, multipl_unscaled = [0..n_h-1]
+            # (M4_Init_Model init.c:6431-6436)
+            p["cov_delta"] = _t(1.0)
+            if self.cov_mode == "alpha":
+                p["cov_alpha"] = _t(1.0)
+            elif self.cov_mode == "free":
+                p["cov_h_fq_raw"] = torch.ones(self.n_hidden, dtype=_F64)
+                p["cov_multipl_raw"] = torch.arange(self.n_hidden,
+                                                    dtype=_F64)
         if self.freqs_mode == "optimize":
             base = obs_freqs if obs_freqs is not None else np.full(ns, 1 / ns)
             p["freqs_raw"] = torch.log(_t(np.asarray(base)))
@@ -242,7 +268,21 @@ class SubstModel:
         pi = self._frequencies(params, comp_pi)
 
         # --- eigensystem (batched over classes and the batch shape) ---
-        lam, V, Vinv = reversible_eigen(S, pi)
+        if self.covarion:
+            # M4: blow the observed system up to n_hidden * obs_ns
+            # states (m4.c:324 M4_Update_Qmat); the M4 normalization
+            # (observed substitutions only) replaces the mean-rate-1
+            # scaling, so eigen runs with normalize=False
+            o_pi = pi[..., 0, :]
+            E = self._m4_observed_exch(params, S[..., 0, :, :], o_pi)
+            h_fq, multipl = m4_hidden_system(self, params)
+            S_big, pi_big = m4_exchangeabilities(
+                E, o_pi, h_fq, multipl, _t(params["cov_delta"]))
+            S, pi = S_big[..., None, :, :], pi_big[..., None, :]
+            ns = self.ns
+            lam, V, Vinv = reversible_eigen(S, pi, normalize=False)
+        else:
+            lam, V, Vinv = reversible_eigen(S, pi)
         pinv = _t(params.get("pinv", 0.0))
         if fold_rates:
             lam = lam * rates[..., :, None]  # fold class rate into lam
@@ -259,6 +299,42 @@ class SubstModel:
         return (lam.expand(lead + (C, ns)), V.expand(lead + (C, ns, ns)),
                 Vinv.expand(lead + (C, ns, ns)), pi.expand(lead + (C, ns)),
                 w.expand(lead + (C,)), pinv.expand(lead))
+
+    def _m4_observed_exch(self, params, S_base, o_pi):
+        """Observed-state exchangeabilities [..., n_o, n_o] the M4 big Q
+        uses.
+
+        For DNA models other than GTR/CUSTOM the reference overwrites
+        the observed rates with the kappa1/kappa2 transition pattern
+        (m4.c:411-431, with A<->G = kappa2, C<->T = kappa1 - flipped
+        relative to PMat_TN93's convention).  For GTR/CUSTOM/AA (and
+        generic data) it seeds them from the base model's normalized
+        Q-matrix upper triangle (M4_Init_Model init.c:6417-6425), which
+        bakes one factor of pi_j into the 'exchangeability'.
+        """
+        if self.datatype == "nt" and self.name not in ("GTR", "CUSTOM"):
+            kappa = _t(params.get("kappa", 4.0))
+            if self.name == "F84":
+                lam_p = _f84_lambda(o_pi, kappa)
+            elif self.name == "TN93":
+                lam_p = _t(params["lambda"])
+            else:
+                lam_p = _t(1.0)
+            kappa2 = kappa * 2.0 / (1.0 + lam_p)
+            kappa1 = kappa2 * lam_p
+            lead = torch.broadcast_shapes(kappa2.shape, kappa1.shape)
+            E = torch.ones(lead + (4, 4), dtype=_F64)
+            E[..., 0, 2] = E[..., 2, 0] = kappa2.expand(lead)
+            E[..., 1, 3] = E[..., 3, 1] = kappa1.expand(lead)
+            return E
+        n_o = S_base.shape[-1]
+        eye = torch.eye(n_o, dtype=_F64)
+        off = S_base * o_pi[..., None, :] * (1.0 - eye)
+        diag = -torch.sum(off, dim=-1)
+        q = off + torch.diag_embed(diag)
+        q = q / (-torch.sum(o_pi * diag, dim=-1))[..., None, None]
+        upper = torch.triu(torch.clamp(q, min=1e-5), diagonal=1)
+        return upper + upper.transpose(-1, -2)
 
 
 def _f84_lambda(pi, kappa):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,8 +61,70 @@ _SIGNATURES = {
     "phyml_edge_dotprods_occupancy": [_I, _P],
     "phyml_edge_dotprods_stream_occupancy": [_I, _P],
 }
-# state counts the kernels are instantiated for (DNA, amino acids)
-KERNEL_NS = (4, 20)
+
+
+def _read_ladder() -> tuple[dict, int]:
+    """The state-count ladder of csrc/ladder.cuh, read from the table the
+    kernels are instantiated from: (rung -> its register tiles {"slot":
+    (R, Q), "batch": (R, Q), "edotp": (R, Q)} of K1/K4, K3 and K2/K5,
+    the first wide rung kWideNS)."""
+    with open(os.path.join(_CSRC, "ladder.cuh")) as fh:
+        text = fh.read()
+    table = text[text.index("#define PHYML_LADDER(X)"):]
+    table = table[:table.index("namespace")]
+    rungs = {}
+    for row in re.findall(r"X\(([\d,\s]+)\)", table):
+        ns, sr, sq, br, bq, er, eq = (int(v) for v in row.split(","))
+        rungs[ns] = {"slot": (sr, sq), "batch": (br, bq),
+                     "edotp": (er, eq)}
+    wide = int(re.search(r"kWideNS = (\d+);", text).group(1))
+    return rungs, wide
+
+
+# the rungs every kernel is instantiated for (a problem's state count is
+# padded up to the next: rung), and the first rung whose K1, K4 and K3
+# run one warp a block that walks the classes
+RUNGS, WIDE_NS = _read_ladder()
+LADDER = tuple(sorted(RUNGS))
+# ROADMAP.md Queue 2 item that ports state counts past the ladder
+_BEYOND = "Queue 2, 'More than 64 states'"
+
+
+def rung(ns: int) -> int:
+    """The smallest rung of the ladder holding ns states; more states
+    than the top rung raise NotImplementedError (no fallback)."""
+    for r in LADDER:
+        if ns <= r:
+            return r
+    raise NotImplementedError(
+        f"no CUDA kernel for {ns} states: the kernels are built for up to "
+        f"{LADDER[-1]} (ROADMAP.md {_BEYOND})")
+
+
+def tile(family: str, ns: int) -> int:
+    """Patterns one warp covers at the rung of ns: 32 / G * Q with
+    G = rung / R lanes per pattern column (family "slot", "batch" or
+    "edotp")."""
+    NS = rung(ns)
+    R, Q = RUNGS[NS][family]
+    return 32 // (NS // R) * Q
+
+
+def pad_states(t, NS: int, dims: tuple):
+    """t with each axis in dims (the state axes) zero-padded to NS
+    entries; t itself when it has NS already.  A padded state has a zero
+    row and column in every P-matrix, V and V^-1 and a zero in pi and
+    the tips, so it adds nothing to any sum the kernels take."""
+    ns = t.shape[dims[0]]
+    if ns == NS:
+        return t
+    shape = list(t.shape)
+    for d in dims:
+        shape[d] = NS
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, ns) if d in dims else slice(None)
+              for d in range(t.dim()))] = t
+    return out
 
 
 def sources() -> list[str]:
@@ -147,12 +210,8 @@ def library() -> ctypes.CDLL:
 
 
 def check(rc: int, name: str, ns: int) -> None:
-    """Raise on a kernel launcher's nonzero return code."""
-    if rc == -1 and ns not in KERNEL_NS:
-        raise NotImplementedError(
-            f"{name}: no CUDA kernel for {ns} states (the kernels are "
-            f"built for ns in {KERNEL_NS}; other state counts are "
-            "ROADMAP.md Queue 1, 'Other state counts')")
+    """Raise on a kernel launcher's nonzero return code (the wrappers
+    launch at a rung of the ladder, `rung`)."""
     if rc == -1:
         raise NotImplementedError(
             f"{name}: no CUDA kernel for this shape (more than 32 rate "

@@ -17,7 +17,11 @@ in shared memory, so the wrapper allocates only the output; see the
 kernel's header for the design and what bounds it.
 
 `uppass_site_lse` launches the kernel for CUDA tensors and runs the
-plain PyTorch version `uppass_site_lse_plain` for CPU tensors.
+plain PyTorch version `uppass_site_lse_plain` for CPU tensors.  The
+kernel is built for the rungs of the state-count ladder
+(`_build.LADDER`); operands of another state count are padded to the
+next rung (tips, P-matrices and pi, a copy of each per launch), which
+leaves the output unchanged.
 """
 
 from __future__ import annotations
@@ -155,6 +159,10 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
         return out if batched else out[0]
     _build.check_operands(name, ints=(sched,),
                           floats=(tips, pmats, pi, logw))
+    NS = _build.rung(tips.shape[1])
+    tips = _build.pad_states(tips, NS, (1,))
+    pmats = _build.pad_states(pmats, NS, (3, 4))
+    pi = _build.pad_states(pi, NS, (pi.dim() - 1,))
     # the ring copies P-matrices in 16-byte pieces
     _build.check_aligned(name, pmats)
     n_otu, ns, P = tips.shape
@@ -175,12 +183,14 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
 
 
 def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
-    """Blocks of K3 (32 * C threads each) one SM of the current device
-    holds at this shape, as the CUDA runtime grants them."""
+    """Blocks of K3 (32 * C threads each, 32 on the wide rungs) one SM
+    of the current device holds at the rung of ns, as the CUDA runtime
+    grants them."""
     blocks = ctypes.c_int(0)
+    NS = _build.rung(ns)
     rc = _build.library().phyml_batched_uppass_occupancy(
-        ns, C, n_slots, ctypes.byref(blocks))
-    _build.check(rc, "uppass_site_lse blocks_per_sm", ns)
+        NS, C, n_slots, ctypes.byref(blocks))
+    _build.check(rc, "uppass_site_lse blocks_per_sm", NS)
     return blocks.value
 
 

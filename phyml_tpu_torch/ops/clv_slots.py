@@ -32,6 +32,12 @@ padded to the tile (`padded_tips`), so that tip rows are copied in
 other tips themselves (a copy).  `geometry` gives the launch shape and
 shared memory the body computes, `blocks_per_sm` the runtime's
 occupancy.
+
+The kernels are built for the rungs of the state-count ladder
+(`_build.LADDER`); for another state count the wrappers pad the
+operands to the next rung, a copy of each per launch: tips (zero rows),
+P-matrices (a zero row and column) and pi (a zero).  Padded states add
+nothing to any sum, so the output is unchanged.
 """
 
 from __future__ import annotations
@@ -149,11 +155,11 @@ def uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw, *,
     return torch.logsumexp(a, dim=0)
 
 
-# Patterns one warp covers at every state count (kSlotTile in
-# csrc/slots.cuh)
+# Patterns the tips' rows are padded to: a multiple of every rung's
+# warp tile (kSlotTile in csrc/slots.cuh: 32 up to 24 states, 16 above)
 TILE = 32
 # Ring stages: tip rows (and K4's P-matrices) are copied two steps ahead
-# (kSlotAhead + 1)
+# (kSlotAhead + 1), one step on the wide rungs
 STAGES = 3
 # Shared memory one block may use on Hopper (common.cuh kMaxSmem)
 MAX_BLOCK_SMEM = 232448
@@ -161,19 +167,25 @@ MAX_BLOCK_SMEM = 232448
 
 def geometry(ns: int, C: int, P: int, n_otu: int, n_slots: int,
              resident: bool) -> dict:
-    """Launch shape of K1 (resident=True) or K4, as csrc/slots.cuh
-    computes it: the pattern tile, the grid (one block of C warps per
-    tile, a warp per class), the dynamic shared memory of one warp
+    """Launch shape of K1 (resident=True) or K4 at the rung of ns, as
+    csrc/slots.cuh computes it: the pattern tile, the grid (one block
+    per tile: of C warps, a warp per class, or on the wide rungs one
+    warp that walks the classes), the dynamic shared memory of one warp
     (slot_warp_floats: its class's P-matrices of every child node (K1)
     or the ring of two per stage (K4), the tip ring and the slots) and
-    of a block (C warps and C x tile class terms).  A launch whose
+    of a block (its warps and C x tile class terms).  A launch whose
     block needs more than MAX_BLOCK_SMEM is refused."""
-    T, S = TILE, STAGES
+    NS = _build.rung(ns)
+    T = _build.tile("slot", ns)
+    wide = NS >= _build.WIDE_NS
+    S = 2 if wide else STAGES
     n_nodes = 2 * n_otu - 1
-    pm = (n_nodes - 1) * ns * ns if resident else 2 * S * ns * ns
-    warp = 4 * (pm + 2 * S * ns * T + n_slots * (ns + 1) * T)
-    return dict(tile=T, blocks=-(-P // T), warp_smem_bytes=warp,
-                block_smem_bytes=C * (warp + 4 * T))
+    pm = (n_nodes - 1) * NS * NS if resident else 2 * S * NS * NS
+    warp = 4 * (pm + 2 * S * NS * T + n_slots * (NS + 1) * T)
+    warps = 1 if wide else C
+    return dict(tile=T, blocks=-(-P // T), warps_per_block=warps,
+                warp_smem_bytes=warp,
+                block_smem_bytes=warps * warp + 4 * C * T)
 
 
 def _check(name, sched, tips, pmats, pi, logw, n_slots):
@@ -190,12 +202,17 @@ def _check(name, sched, tips, pmats, pi, logw, n_slots):
 def _launch_slots(fn_name, name, sched, tips, pmats, pi, logw, n_slots):
     """Check the operands and launch one of the slot kernels (K1, K4),
     which share a C signature; returns the site lse [P].  Tips whose
-    rows are not padded to the tile are padded first (slot_tips)."""
+    rows are not padded to the tile are padded first (slot_tips), and
+    operands of a state count between rungs are padded to the next
+    rung."""
     _build.check_operands(name, ints=(sched,), floats=(pmats, pi, logw))
     if tips.device != pmats.device or tips.dtype != torch.float32:
         raise ValueError(f"{name}: tips must be a float32 tensor on "
                          f"{pmats.device}, got {tips.dtype} on {tips.device}")
-    tips = slot_tips(tips)
+    NS = _build.rung(tips.shape[1])
+    tips = slot_tips(tips) if tips.shape[1] == NS else padded_tips(tips, NS)
+    pmats = _build.pad_states(pmats, NS, (2, 3))
+    pi = _build.pad_states(pi, NS, (1,))
     n_otu, ns, P = tips.shape
     ldt = tips.stride(1)
     # the P-matrices are copied in 16-byte pieces
@@ -213,14 +230,17 @@ def _launch_slots(fn_name, name, sched, tips, pmats, pi, logw, n_slots):
     return out
 
 
-def padded_tips(tips):
+def padded_tips(tips, NS: int | None = None):
     """A view [n_otu, ns, P] of a copy of tips whose rows are padded with
     ones to a whole number of TILE patterns: the kernels copy tip rows
     in 16-byte pieces (P is odd at the bench shapes, so unpadded rows
-    start anywhere)."""
+    start anywhere).  With NS (a rung above ns) the view has NS rows a
+    tip, the added ones zero."""
     n_otu, ns, P = tips.shape
-    store = tips.new_ones((n_otu, ns, -(-P // TILE) * TILE))
-    store[..., :P] = tips
+    NS = ns if NS is None else NS
+    store = tips.new_ones((n_otu, NS, -(-P // TILE) * TILE))
+    store[:, ns:] = 0.0
+    store[:, :ns, :P] = tips
     return store[..., :P]
 
 
@@ -270,15 +290,17 @@ def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
 
 def blocks_per_sm(ns: int, C: int, n_otu: int, n_slots: int,
                   stream: bool) -> int:
-    """Blocks of K1 (stream=False) or K4 (C warps each) one SM of the
-    current device holds for an n_otu-taxon tree walked with n_slots
-    slots, as the CUDA runtime grants them."""
+    """Blocks of K1 (stream=False) or K4 (C warps each, one on the wide
+    rungs) one SM of the current device holds for an n_otu-taxon tree
+    walked with n_slots slots at the rung of ns, as the CUDA runtime
+    grants them."""
     fn = "phyml_slot_site_lse_stream_occupancy" if stream \
         else "phyml_slot_site_lse_occupancy"
     blocks = ctypes.c_int(0)
-    rc = getattr(_build.library(), fn)(ns, C, n_otu, n_slots,
+    NS = _build.rung(ns)
+    rc = getattr(_build.library(), fn)(NS, C, n_otu, n_slots,
                                        ctypes.byref(blocks))
-    _build.check(rc, fn, ns)
+    _build.check(rc, fn, NS)
     return blocks.value
 
 

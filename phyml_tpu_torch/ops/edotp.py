@@ -26,6 +26,13 @@ version, `edge_dotprods_plain`, which the wrappers run for CPU tensors.
 The kernels and the engine's scan path split d and sc_d differently
 (power-of-two rescale against divide-by-max), so compare them through
 LikelihoodEngine.edge_site_terms, never raw d.
+
+The kernels are built for the rungs of the state-count ladder
+(`_build.LADDER`); operands of another state count are padded to the
+next rung (tips, P-matrices, V, V^-1 and pi, a copy of each per launch,
+each padded state a zero row and column or a zero), and d is returned
+as the view of its first ns states: the padded states' rows of d are
+zero.
 """
 
 from __future__ import annotations
@@ -92,26 +99,27 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
     return d, sc_d
 
 
-# Patterns per thread block by state count (kEdotpTile in
-# csrc/edotp.cuh): the workspace's pattern axis is P rounded up to it.
-TILE = {4: 32, 20: 16}
+# Patterns per thread block by rung (kEdotpTile in csrc/edotp.cuh): the
+# workspace's pattern axis is P rounded up to it.
+TILE = {NS: _build.tile("edotp", NS) for NS in _build.LADDER}
 # Ring stages: each step's operands are copied one step ahead
 # (kEdotpAhead + 1).
 STAGES = 2
 
 
 def geometry(ns: int, C: int, P: int) -> dict:
-    """Launch geometry of K2 and K5 (one kernel body), as
-    csrc/edotp.cuh computes it: the padded pattern width Pw, the grid
-    (one block of one warp per pattern tile and class), the block's
-    static shared memory (kEdotpSmem) and the workspace floats per
+    """Launch geometry of K2 and K5 (one kernel body) at the rung NS of
+    ns, as csrc/edotp.cuh computes it: the padded pattern width Pw, the
+    grid (one block of one warp per pattern tile and class), the block's
+    dynamic shared memory (kEdotpSmem) and the workspace floats per
     internal node."""
-    T = TILE[ns]
+    NS = _build.rung(ns)
+    T = TILE[NS]
     Pw = -(-P // T) * T
-    smem = ((2 + 2 * STAGES) * ns * ns + 3 * STAGES * (ns + 1) * T
-            + 2 * ns * T) * 4
+    smem = ((2 + 2 * STAGES) * NS * NS + 3 * STAGES * (NS + 1) * T
+            + 2 * NS * T) * 4
     return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32,
-                smem_bytes=smem, workspace_floats_per_node=C * (ns + 1) * Pw)
+                smem_bytes=smem, workspace_floats_per_node=C * (NS + 1) * Pw)
 
 
 def check_child_table(name: str, child, n_otu: int) -> None:
@@ -148,6 +156,12 @@ def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
     name = wrapper.__name__
     _build.check_operands(name, ints=(child,),
                           floats=(tips, pmats, V, Vinv, pi))
+    ns_true = tips.shape[1]
+    NS = _build.rung(ns_true)
+    tips = _build.pad_states(tips, NS, (1,))
+    pmats = _build.pad_states(pmats, NS, (pmats.dim() - 2, pmats.dim() - 1))
+    V, Vinv = (_build.pad_states(m, NS, (1, 2)) for m in (V, Vinv))
+    pi = _build.pad_states(pi, NS, (1,))
     # the tile products read the P-matrices in 16-byte pieces
     _build.check_aligned(name, pmats)
     n_otu, ns, P = tips.shape
@@ -173,7 +187,7 @@ def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
     wrapper.launches += 1
     if lead:
         wrapper.launches_by_trees[R] = wrapper.launches_by_trees.get(R, 0) + 1
-    return d, sc_d
+    return d[..., :ns_true, :], sc_d
 
 
 def edge_dotprods(child, tips, pmats, V, Vinv, pi):
@@ -201,12 +215,14 @@ def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
 
 def blocks_per_sm(ns: int, stream: bool) -> int:
     """Blocks (one warp each) of K2 (stream=False) or K5 one SM of the
-    current device holds, as the CUDA runtime grants them."""
+    current device holds at the rung of ns, as the CUDA runtime grants
+    them."""
     fn = "phyml_edge_dotprods_stream_occupancy" if stream \
         else "phyml_edge_dotprods_occupancy"
     blocks = ctypes.c_int(0)
-    rc = getattr(_build.library(), fn)(ns, ctypes.byref(blocks))
-    _build.check(rc, fn, ns)
+    NS = _build.rung(ns)
+    rc = getattr(_build.library(), fn)(NS, ctypes.byref(blocks))
+    _build.check(rc, fn, NS)
     return blocks.value
 
 

@@ -61,6 +61,7 @@ from torch import nn
 from phyml_tpu_torch.io.alignment import Alignment
 from phyml_tpu_torch.models.eigen import mgf_rates, pmat
 from phyml_tpu_torch.models.substitution import SubstModel
+from phyml_tpu_torch.ops import _build
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
     MAX_BLOCK_SMEM, build_slot_schedule, padded_tips, uppass_site_lse_slots,
@@ -80,13 +81,17 @@ RESIDENT_WARP_BYTES = 48 * 1024
 
 def kernel_route(n_otu: int, C: int, ns: int) -> tuple[str, str]:
     """(host lnL kernel, edge-dot-product kernel) for a tree of n_otu
-    taxa: ("K1", "K2") while K1's shared memory fits
-    RESIDENT_WARP_BYTES a warp and a block, else the streamed
-    ("K4", "K5")."""
+    taxa: ("K1", "K2") while K1's shared memory at the rung of ns (the
+    state count the kernels run, `_build.rung`) fits
+    RESIDENT_WARP_BYTES a warp and a block of C warps, else the streamed
+    ("K4", "K5").  Past the ladder's top rung, where no kernel runs, the
+    streamed pair is named."""
+    if ns > _build.LADDER[-1]:
+        return ("K4", "K5")
     n_slots = int(math.ceil(math.log2(max(n_otu, 2)))) + 1
     geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=True)
     fits = geo["warp_smem_bytes"] <= RESIDENT_WARP_BYTES and \
-        geo["block_smem_bytes"] <= MAX_BLOCK_SMEM
+        C * geo["warp_smem_bytes"] + 4 * C * geo["tile"] <= MAX_BLOCK_SMEM
     return ("K1", "K2") if fits else ("K4", "K5")
 
 
@@ -98,7 +103,8 @@ def single_pass_kernel(route: str, ns: int, C: int, n_otu: int,
     slot count, else K3 at B = 1.  K1's route is chosen at the worst
     slot count, so only K4 can miss: its C warps each hold a ring and
     the slots (at 20 states, 25 KB + 2.7 KB a slot a warp), so a block
-    of 8 classes holds one slot only, and one of 4 classes twelve."""
+    of 8 classes holds one slot only, and one of 4 classes twelve.  On
+    the wide rungs (40 states and up) a block is one warp."""
     geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=route == "K1")
     return route if geo["block_smem_bytes"] <= MAX_BLOCK_SMEM else "K3"
 
@@ -159,6 +165,8 @@ class LikelihoodEngine(nn.Module):
         self.dtype = dtype
         self.device = default_device(device)
         self.n_otu = aln.n_otu
+        # the process's state count (covarion: obs_ns x n_hidden); the
+        # kernels pad it to a rung of their ladder, nothing here does
         self.ns = model.ns
         self.C = model.n_classes
         self.n_nodes = 2 * self.n_otu - 1
@@ -172,9 +180,17 @@ class LikelihoodEngine(nn.Module):
             # the P-matrix einsum must run in full float32: a TF32
             # P(t) is a ~1e-3 per-site likelihood error
             torch.backends.cuda.matmul.allow_tf32 = False
+            # more states than the kernels' top rung: refused here, not
+            # at the first launch (no fallback to the plain versions)
+            _build.rung(self.ns)
 
         dev = dict(device=self.device)
-        tips = np.ascontiguousarray(np.transpose(aln.partials, (0, 2, 1)))
+        tips = np.transpose(aln.partials, (0, 2, 1))  # [n_otu, obs_ns, P]
+        if self.ns != tips.shape[1]:
+            # covarion: the observed-state tip vector for every hidden
+            # class (M4_Init_Partial_Lk_Tips m4.c:528; states h * n_o + o)
+            tips = np.tile(tips, (1, self.ns // tips.shape[1], 1))
+        tips = np.ascontiguousarray(tips)
         self.register_buffer("tips", torch.as_tensor(tips, dtype=dtype,
                                                      **dev))
         # the slot kernels' (K1, K4) view of the tips, rows padded to
@@ -583,6 +599,11 @@ class LikelihoodEngine(nn.Module):
         """Per-pattern invariant-site likelihood pi[invar_state]
         (lk.c:1240), 0 for non-invariant patterns."""
         pi_mix = torch.einsum("...c,...cx->...x", w, pi)
+        if self.model.covarion:
+            # invariant patterns are defined over OBSERVED states;
+            # marginalize the hidden classes out of pi
+            pi_mix = pi_mix.reshape(*pi_mix.shape[:-1],
+                                    self.model.n_hidden, -1).sum(-2)
         return pi_mix[..., self.invar_state] * self.invar_ok
 
     def _mix_invar(self, lse, pi, w, pinv):

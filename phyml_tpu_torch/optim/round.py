@@ -71,6 +71,23 @@ def free_scalar_slots(model, params):
         n = int(params["freqs_raw"].shape[0])
         for i in range(n - 1):
             slots.append(("freqs_raw", i, lambda x: x, -9.0, 9.0))
+    if getattr(model, "covarion", False) and model.optimize_cov:
+        # Optimize_M4mod bounds: delta in [0.01, 10] (optimiz.c:1016),
+        # covarion alpha in [0.01, 10] (:1087), free multipliers and
+        # class freqs in [0.1, 100] (:1047/:1068)
+        if "cov_delta" in params:
+            slots.append(("cov_delta", None, exp,
+                          math.log(0.01), math.log(10.0)))
+        if "cov_alpha" in params:
+            slots.append(("cov_alpha", None, exp,
+                          math.log(0.01), math.log(10.0)))
+        if "cov_multipl_raw" in params:
+            for i in range(model.n_hidden):
+                slots.append(("cov_multipl_raw", i, exp,
+                              math.log(0.1), math.log(100.0)))
+            for i in range(model.n_hidden):
+                slots.append(("cov_h_fq_raw", i, exp,
+                              math.log(0.1), math.log(100.0)))
     return slots
 
 

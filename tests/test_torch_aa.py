@@ -213,13 +213,15 @@ def test_empirical_freqs_match_phyml_tpu(datatype, alphabet):
 
 
 def test_unbuilt_state_count_names_its_roadmap_item():
-    """A launcher's 'unsupported' code for a state count the kernels are
-    not built for raises with the ROADMAP item that ports it; for a
-    built one it names the shape limit instead."""
+    """A state count past the kernels' ladder (more than 64 states)
+    raises with the ROADMAP item that ports it; at a built rung the
+    launcher's 'unsupported' code names the shape limit instead."""
     from phyml_tpu_torch.ops import _build
 
-    with pytest.raises(NotImplementedError, match="Other state counts"):
-        _build.check(-1, "edge_dotprods", 7)
+    with pytest.raises(NotImplementedError, match="More than 64 states"):
+        _build.rung(80)
+    with pytest.raises(NotImplementedError, match="More than 64 states"):
+        _build.rung(65)
     with pytest.raises(NotImplementedError, match="rate classes"):
         _build.check(-1, "edge_dotprods", 20)
     _build.check(0, "edge_dotprods", 20)

@@ -24,8 +24,7 @@ tests/test_bayes.py:16-46), in float64, and are held:
 * the port's own invariants: the cached lnL equals a recompute within
   1e-6, one seed gives one chain, a checkpoint resume ends where the
   uninterrupted chain ends, the Guindon chain runs on the MGF path,
-  and the refusals (trait_x, fastlk, covarion) name their ROADMAP
-  items.
+  and the refusals (trait_x, fastlk) name their ROADMAP items.
 """
 
 import jax
@@ -561,16 +560,21 @@ def test_guindon_chain_runs_on_the_mgf_path(problem, monkeypatch):
 
 @pytest.mark.parametrize("what", ["trait_x", "fastlk", "covarion"])
 def test_refusals_name_their_roadmap_items(problem, what):
+    """trait_x and fastlk stop naming their ROADMAP items; covarion,
+    refused until its port, now builds a chain whose covarion moves
+    are drawn (tests/test_torch_covarion.py holds them to phyml_tpu)."""
     jtt, jaln, taln = problem
-    tm = TModel(datatype="nt", name="HKY85", n_classes=4)
+    tm = TModel(datatype="nt", name="HKY85", n_classes=4,
+                covarion=what == "covarion")
     tp = tm.init_params(taln.obs_state_freqs)
+    eng = TEngine(taln, tm, dtype=torch.float64, device="cpu")
+    if what == "covarion":
+        mc = TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior())
+        assert mc.move_w[TMCMC.MOVE_NAMES.index("cov_switch")] > 0
+        return
     kw, item = {
         "trait_x": ({"trait_x": np.zeros((N_TAXA, 2))}, "Bayesian tier"),
         "fastlk": ({"fastlk": True}, "Auxiliary tools"),
-        "covarion": ({}, "Other state counts and covarion"),
     }[what]
-    if what == "covarion":
-        tp["cov_delta"] = torch.tensor(1.0, dtype=torch.float64)
-    eng = TEngine(taln, tm, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match=f"Queue 1, '{item}'"):
         TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(), **kw)

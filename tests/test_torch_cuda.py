@@ -27,7 +27,7 @@ import torch
 
 from phyml_tpu_torch.io.alignment import compact
 from phyml_tpu_torch.models.substitution import SubstModel
-from phyml_tpu_torch.ops import clv, clv_slots, edotp
+from phyml_tpu_torch.ops import _build, clv, clv_slots, edotp
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
 from phyml_tpu_torch.topology import Topology
 
@@ -1412,3 +1412,81 @@ def test_dating_chain_lnl_card_against_cpu(cuda):
     assert abs(float(card._lnL(st)) - float(cpu._lnL(st_cpu))) \
         <= CHAIN_F64_TOL
     assert float(card._log_prior(st)) == float(cpu._log_prior(st_cpu))
+
+
+# ----------------------------------------------------------------------
+# the state-count ladder: every kernel at every rung, and between rungs
+# through the wrappers' padding
+# ----------------------------------------------------------------------
+def _generic_setup(cuda, ns, C, n, sites=301, seed=21):
+    """A float32 engine on random ns-state data under the generic model
+    with random state frequencies (a non-uniform pi makes the
+    P-matrices' rows differ), its random tree and P-matrices."""
+    rng = np.random.default_rng(seed + ns)
+    enc = np.zeros((n, sites, ns), dtype=np.float32)
+    enc[np.arange(n)[:, None], np.arange(sites)[None],
+        rng.integers(0, ns, size=(n, sites))] = 1.0
+    aln = compact(enc, [f"t{i}" for i in range(n)], "generic")
+    model = SubstModel(datatype="generic", generic_ns=ns, n_classes=C)
+    params = model.init_params()
+    params["freqs_const"] = torch.as_tensor(rng.dirichlet(np.ones(ns)))
+    params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    tree = tree_arrays(Topology.random(n, rng, mean_blen=0.2).rooted(),
+                       device=cuda)
+    sys_ = eng.system_of(params)
+    return eng, tree, sys_, eng._pmats(sys_[0], sys_[1], sys_[2], tree.blen)
+
+
+LADDER_CASES = sorted(set(_build.LADDER) | {2, 7, 36})
+
+
+@pytest.mark.parametrize("ns", LADDER_CASES)
+def test_every_kernel_at_every_rung(cuda, ns):
+    """K1-K5 against their plain versions at every rung of the ladder and
+    at 2, 7 and 36 states, which the wrappers pad to 4, 8 and 40: 5e-4
+    per site below 20 states, 2e-3 from 20 up (and for K2/K5's edge
+    terms, beyond the float32 plain version's own gap)."""
+    tol = K13_TOL if ns < 20 else AA_TOL
+    # K1 on a 4-taxon tree (its whole-tree matrices fit a block at every
+    # rung), the others on 12 taxa
+    for n, kernels in ((4, ("K1",)), (12, ("K3", "K4", "K2", "K5"))):
+        eng, tree, sys_, pm = _generic_setup(cuda, ns, 4, n)
+        assert eng.ns == ns and eng.tips.shape[1] == ns
+        child, sched, n_slots = eng._topology(tree.child)
+        pi, logw = sys_[3], eng._logw(sys_[4])
+        ref = clv_slots.uppass_site_lse_slots_plain(
+            sched, eng.tips, pm, pi, logw, n_slots=n_slots)
+        for name in kernels:
+            if name in ("K1", "K4"):
+                got = _slot_kernel(name)(sched, eng.slot_tips, pm, pi, logw,
+                                         n_slots=n_slots)
+            elif name == "K3":
+                B = 3
+                got = clv.uppass_site_lse(
+                    child, eng.tips, torch.stack([pm] * B),
+                    torch.stack([pi] * B), torch.stack([logw] * B),
+                    sched=sched, n_slots=n_slots)
+                torch.cuda.synchronize()
+                assert float((got - ref[None]).abs().max()) < tol, name
+                continue
+            else:
+                err, plain = _site_terms_gaps(eng, tree, sys_, pm,
+                                              _edotp_kernel(name))
+                assert err < plain + K2_TOL, (name, err, plain)
+                continue
+            torch.cuda.synchronize()
+            assert got.shape == (eng.P,) and bool(torch.isfinite(got).all())
+            assert float((got - ref).abs().max()) < tol, name
+
+
+def test_past_the_ladder_is_refused(cuda):
+    """More than 64 states raise NotImplementedError naming the ROADMAP
+    item, at the engine, not at a launch: no fallback."""
+    rng = np.random.default_rng(0)
+    enc = np.zeros((4, 20, 80), dtype=np.float32)
+    enc[:, np.arange(20), rng.integers(0, 80, size=20)] = 1.0
+    aln = compact(enc, [f"t{i}" for i in range(4)], "generic")
+    model = SubstModel(datatype="generic", generic_ns=80, n_classes=1)
+    with pytest.raises(NotImplementedError, match="More than 64 states"):
+        LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)

@@ -1,0 +1,261 @@
+"""Custom alphabets (`-d generic`) and the kernels' state-count padding,
+on the CPU.
+
+* The engine's lnL at 2, 7 and 36 states (JC over the alphabet, +G4)
+  against phyml_tpu's, in float64, within 1e-6.
+* The CLI's default run (BioNJ, then the NNI search) on 2- and 7-state
+  data against phyml_tpu.cli on the same file: the same tree, the stats
+  lnL within 1e-6.
+* The padding the CUDA wrappers apply (`ops/_build.py`: a state count
+  between the ladder's rungs goes up to the next rung): each plain
+  kernel (K1/K4's, K3's, K2/K5's) on operands padded to the next rung
+  equals its unpadded result within 1e-12 in float64, at 2, 7, 12, 36
+  and 60 states (12 and 60 are rungs: padded to the next one up), and
+  the padded states' rows of d are zero.  No kernel runs here, so this
+  holds the padding logic in the CPU tests.
+* The ladder read from csrc/ladder.cuh, and the rules that size the
+  search and the bootstrap (`default_batch_k`, `rep_chunk_for`) read
+  the true state count, not the rung.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phyml_tpu import cli as jcli
+from phyml_tpu.evolve import write_phylip
+from phyml_tpu.io.alignment import compact as jcompact
+from phyml_tpu.models.substitution import SubstModel as JModel
+from phyml_tpu.ops.likelihood import LikelihoodEngine as JEngine
+from phyml_tpu.ops.likelihood import tree_arrays as jtree_arrays
+from phyml_tpu.topology import Topology
+from phyml_tpu_torch import cli as tcli
+from phyml_tpu_torch.interop import params_from_numpy, tree_arrays_from_numpy
+from phyml_tpu_torch.io.alignment import compact as tcompact
+from phyml_tpu_torch.models.substitution import SubstModel as TModel
+from phyml_tpu_torch.ops import _build, clv, clv_slots, edotp
+from phyml_tpu_torch.ops.likelihood import LikelihoodEngine as TEngine
+from phyml_tpu_torch.search import spr as tspr
+from phyml_tpu_torch.search import support as tsupport
+from test_torch_bionj import _stats_lnl
+
+LNL_TOL = 1e-6
+PAD_TOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """As in tests/test_torch_bionj.py: one torch thread for the many
+    small ops of the search."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jc_states(ns, n_taxa, n_sites, seed, mean_blen=0.15):
+    """[n_taxa, n_sites] states simulated under JC over ns states down a
+    random tree (the generic model's process), and the tree."""
+    rng = np.random.default_rng(seed)
+    topo = Topology.random(n_taxa, rng, mean_blen=mean_blen)
+    rv = topo.rooted()
+    states = np.zeros((rv.n_nodes, n_sites), dtype=np.int64)
+    states[-1] = rng.integers(0, ns, n_sites)
+    for i in range(rv.n_internal - 1, -1, -1):        # preorder
+        for c in (int(x) for x in rv.child[i]):
+            t = float(rv.node_blen[c])
+            same = 1.0 / ns + (1.0 - 1.0 / ns) * np.exp(-ns * t / (ns - 1))
+            keep = rng.random(n_sites) < same
+            other = (states[rv.n_otu + i]
+                     + rng.integers(1, ns, n_sites)) % ns
+            states[c] = np.where(keep, states[rv.n_otu + i], other)
+    return states[:rv.n_otu], topo
+
+
+def _one_hot(states, ns):
+    n, sites = states.shape
+    enc = np.zeros((n, sites, ns), dtype=np.float32)
+    enc[np.arange(n)[:, None], np.arange(sites)[None], states] = 1.0
+    return enc
+
+
+@pytest.mark.parametrize("ns", [2, 7, 36])
+def test_loglik_matches_phyml_tpu(ns):
+    states, topo = _jc_states(ns, 10, 200, seed=ns)
+    enc = _one_hot(states, ns)
+    names = [f"t{i}" for i in range(10)]
+    kw = dict(datatype="generic", generic_ns=ns, n_classes=4)
+    jm, tm = JModel(**kw), TModel(**kw)
+    jaln, taln = jcompact(enc, names, "generic"), tcompact(enc, names,
+                                                           "generic")
+    p = {k: np.asarray(v) for k, v in jm.init_params().items()}
+    p["alpha"] = np.asarray(0.6)
+    jeng = JEngine(jaln, jm, dtype=jnp.float64, use_pallas=False)
+    teng = TEngine(taln, tm, dtype=torch.float64, device="cpu")
+    assert teng.ns == ns and teng.tips.shape[1] == ns
+    jta = jtree_arrays(topo.rooted(), dtype=jnp.float64)
+    tta = tree_arrays_from_numpy(np.asarray(jta.child), np.asarray(jta.blen),
+                                 device="cpu", dtype=torch.float64)
+    want = float(jeng.loglik({k: jnp.asarray(v) for k, v in p.items()}, jta))
+    got = float(teng.loglik(params_from_numpy(p), tta))
+    assert abs(got - want) < LNL_TOL, (got, want)
+
+
+@pytest.mark.parametrize("ns", [2, 7])
+def test_cli_generic_matches_phyml_tpu(ns, tmp_path, monkeypatch):
+    """`-d generic` (JC over the inferred alphabet, +G4), the default
+    run: the same tree and the stats lnL within 1e-6 in both CLIs."""
+    import phyml_tpu.io.output as jout
+    import phyml_tpu_torch.io.output as tout
+
+    states, _ = _jc_states(ns, 7, 120, seed=10 + ns)
+    names = [f"t{i}" for i in range(7)]
+    seqs = ["".join("0123456789"[s] for s in row) for row in states]
+    runs = {}
+    for tag, main, mod in (("jax", jcli.main, jout),
+                           ("torch", tcli.main, tout)):
+        d = tmp_path / tag
+        d.mkdir()
+        aln = str(d / "aln.phy")
+        write_phylip(aln, names, seqs)
+        seen = _stats_lnl(monkeypatch, mod)
+        assert main(["-i", aln, "-d", "generic", "-c", "4", "-b", "0",
+                     "--platform", "cpu", "--r_seed", "1", "--quiet"]) == 0
+        with open(f"{aln}_phyml_tree.txt") as fh:
+            runs[tag] = (float(seen[-1]),
+                         Topology.from_newick(fh.read(), names))
+    (lj, tj), (lt, tt) = runs["jax"], runs["torch"]
+    assert tt.rf_distance(tj) == 0
+    assert abs(lt - lj) < LNL_TOL, (lt, lj)
+
+
+# ----------------------------------------------------------------------
+# the wrappers' padding, held on the plain versions
+# ----------------------------------------------------------------------
+def _next_rung(ns):
+    """The rung a wrapper pads ns to; for a rung, the next one up."""
+    return _build.rung(ns + 1) if ns in _build.LADDER else _build.rung(ns)
+
+
+def _plain_operands(ns, C=3, n=9, P=37, seed=4):
+    """float64 operands of the plain kernels on random ns-state data: a
+    random tree, random reversible system, random tips."""
+    rng = np.random.default_rng(seed + ns)
+    enc = _one_hot(rng.integers(0, ns, size=(n, P)), ns)
+    tm = TModel(datatype="generic", generic_ns=ns, n_classes=C)
+    aln = tcompact(enc, [f"t{i}" for i in range(n)], "generic")
+    eng = TEngine(aln, tm, dtype=torch.float64, device="cpu")
+    p = tm.init_params()
+    p["freqs_const"] = torch.as_tensor(rng.dirichlet(np.ones(ns)))
+    p["alpha"] = torch.tensor(0.7, dtype=torch.float64)
+    tree = tree_arrays_from_numpy(
+        np.asarray(Topology.random(n, rng, mean_blen=0.2).rooted().child),
+        rng.uniform(0.01, 0.4, 2 * n - 1), device="cpu",
+        dtype=torch.float64)
+    lam, V, Vinv, pi, w, _ = eng.system_of(p)
+    pm = eng._pmats(lam, V, Vinv, tree.blen)
+    child, sched, n_slots = eng._topology(tree.child)
+    return dict(eng=eng, child=child, sched=sched, n_slots=n_slots,
+                tips=eng.tips, pm=pm, V=V, Vinv=Vinv, pi=pi,
+                logw=eng._logw(w))
+
+
+@pytest.mark.parametrize("ns", [2, 7, 12, 36, 60])
+def test_plain_kernels_unchanged_by_padding(ns):
+    o = _plain_operands(ns)
+    NS = _next_rung(ns)
+    assert NS > ns
+    pad = _build.pad_states
+    tips, pm = pad(o["tips"], NS, (1,)), pad(o["pm"], NS, (2, 3))
+    pi, V, Vinv = pad(o["pi"], NS, (1,)), pad(o["V"], NS, (1, 2)), \
+        pad(o["Vinv"], NS, (1, 2))
+    assert tips.shape[1] == pm.shape[-1] == NS
+    assert float(pm[..., ns:, :].abs().max()) == 0.0
+    # K1/K4's plain version, on the slot tips padded as the wrapper pads
+    # them (rows to the tile, states to the rung)
+    slot_tips = clv_slots.padded_tips(o["tips"], NS)
+    assert slot_tips.shape == tips.shape and \
+        slot_tips.stride(1) % clv_slots.TILE == 0
+    want = clv_slots.uppass_site_lse_slots_plain(
+        o["sched"], o["tips"], o["pm"], o["pi"], o["logw"],
+        n_slots=o["n_slots"])
+    got = clv_slots.uppass_site_lse_slots_plain(
+        o["sched"], slot_tips, pm, pi, o["logw"], n_slots=o["n_slots"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=PAD_TOL)
+    # K3's, a batch of two systems
+    want3 = clv.uppass_site_lse_plain(
+        o["child"], o["tips"], torch.stack([o["pm"]] * 2),
+        torch.stack([o["pi"]] * 2), torch.stack([o["logw"]] * 2))
+    got3 = clv.uppass_site_lse_plain(
+        o["child"], tips, torch.stack([pm] * 2), torch.stack([pi] * 2),
+        torch.stack([o["logw"]] * 2))
+    np.testing.assert_allclose(got3.numpy(), want3.numpy(), rtol=0,
+                               atol=PAD_TOL)
+    # K2/K5's: the first ns rows of d and sc_d unchanged, the padded
+    # states' rows zero
+    d0, s0 = edotp.edge_dotprods_plain(o["child"], o["tips"], o["pm"],
+                                       o["V"], o["Vinv"], o["pi"])
+    d1, s1 = edotp.edge_dotprods_plain(o["child"], tips, pm, V, Vinv, pi)
+    np.testing.assert_allclose(d1[:, :, :ns].numpy(), d0.numpy(), rtol=0,
+                               atol=PAD_TOL)
+    np.testing.assert_allclose(s1.numpy(), s0.numpy(), rtol=0, atol=PAD_TOL)
+    assert float(d1[:, :, ns:].abs().max()) == 0.0
+
+
+def test_ladder_read_from_the_kernel_sources():
+    """The rungs and tiles come from csrc/ladder.cuh: eleven rungs or
+    fewer cover every ns from 2 to 64, 4, 12, 20 and 60 are exact, a
+    warp's tile divides the tips' padding and the edge kernels' tile
+    divides 32; past 64 states the ladder refuses."""
+    assert {4, 12, 20, 60} <= set(_build.LADDER)
+    assert _build.LADDER[-1] == 64 and len(_build.LADDER) <= 11
+    for ns in range(2, 65):
+        NS = _build.rung(ns)
+        assert NS >= ns and NS % 4 == 0
+        assert clv_slots.TILE % _build.tile("slot", ns) == 0
+        assert 32 % edotp.TILE[NS] == 0
+        for family in ("slot", "batch", "edotp"):
+            R, _ = _build.RUNGS[NS][family]
+            assert 32 % (NS // R) == 0 and NS % R == 0
+    assert edotp.geometry(60, 4, 4096)["tile"] == 8
+    with pytest.raises(NotImplementedError, match="More than 64 states"):
+        _build.rung(65)
+
+
+def test_wide_rungs_run_one_warp_a_block():
+    """From WIDE_NS up K1/K4 run one warp a block (a ring one step
+    ahead) whose share fits a block at ns = 60; below, C class warps."""
+    g = clv_slots.geometry(60, 4, 4096, 64, 7, resident=False)
+    assert g["warps_per_block"] == 1 and g["tile"] == 16
+    assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+    assert g["block_smem_bytes"] == g["warp_smem_bytes"] + 4 * 4 * 16
+    # ring 2 x 2 x 60^2, tip ring 2 x 2 x 60 x 16, 7 slots of 61 x 16
+    assert g["warp_smem_bytes"] == 4 * (4 * 3600 + 4 * 60 * 16 + 7 * 61 * 16)
+    g12 = clv_slots.geometry(12, 4, 4096, 128, 8, resident=False)
+    assert g12["warps_per_block"] == 4 and g12["tile"] == 32
+    # 12 states at 128 taxa: K1's whole-tree matrices pass 48 KiB a warp,
+    # so the engine takes the streamed route
+    from phyml_tpu_torch.ops.likelihood import kernel_route
+    assert kernel_route(128, 4, 12) == ("K4", "K5")
+    assert kernel_route(128, 4, 2) == ("K1", "K2")
+
+
+def test_search_and_bootstrap_sizes_read_the_true_state_count():
+    """default_batch_k (the SPR block: it decides the search's
+    trajectory) and rep_chunk_for (the rapid bootstrap's batch) take the
+    engine's true ns, never the rung its kernels pad to: at 36 states a
+    128-taxon, 272-pattern SPR block is 10 candidates (at 40, 9)."""
+    o = _plain_operands(36)
+    eng = o["eng"]
+    assert eng.ns == 36 and eng.tips.shape[1] == 36
+    rv = Topology.random(128, np.random.default_rng(0)).rooted()
+    eng.n_nodes, eng.P, eng.C = 255, 272, 4
+    assert tspr.default_batch_k(eng, rv) == 10
+    eng.ns = 40
+    assert tspr.default_batch_k(eng, rv) == 9
+    eng.ns = 36
+    per_rep = tsupport.REP_TENSORS * 255 * 4 * 36 * 272 * 8
+    assert tsupport.rep_chunk_for(eng, 10 ** 6) == \
+        int(tsupport.CPU_REP_BUDGET // per_rep)

@@ -97,5 +97,12 @@ def test_batched_class_system_matches_single():
 
 
 def test_covarion_not_ported_yet():
+    """What of covarion the card does not run yet: a process of more
+    than 64 states (amino acids at four hidden classes, 80 states),
+    which the kernels' ladder refuses naming its ROADMAP item."""
+    from phyml_tpu_torch.ops import _build
+
+    m = TModel(datatype="aa", name="LG", covarion=True, n_hidden=4)
+    assert m.ns == 80
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TModel(datatype="nt", name="HKY85", covarion=True)
+        _build.rung(m.ns)

@@ -155,7 +155,7 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag, item", [
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
-    (["--cov"], "'Other state counts and covarion'"),
+    (["--mutmap"], "'Auxiliary tools'"),
     (["--ancestral"], "'Auxiliary tools'"),
     (["--xml", "phyrex.xml"], "'Bayesian tier'"),
     (["--cv", "tip"], "'Auxiliary tools'")])
