@@ -88,25 +88,42 @@
    then at 16 x 500 the covarion fits in the 'alpha' and 'free' modes,
    amino-acid covarion at two hidden classes (40 states), 7- and
    36-state alphabets and a dating chain that samples cov_delta;
-13. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11 and 12
-   run last, after every full-width path: the CPU float64 side of each
+13. the auxiliary tools (`aux_phase`): at 128 x 4096 through the CLI
+   (`-u tree -o lr`, the fit first), DNA `--ancestral --cv tip --ps
+   --alias_subpatt --mutmap`, DNA `--cv kfold.col` and `--cv kfold.pos`,
+   protein `--ancestral --cv tip`, each with the launch counters reset
+   just before and read just after (the fit's read as it returns: the
+   tools after it launch nothing but the k-fold refits), every tool
+   timed, its outputs parsed (the mutation map's events replayed
+   within their edges); `run_phytime(fastlk=True)` on the DNA problem
+   (lognormal clock, 10,000 iterations): its Hessian a float64 tensor
+   on the card, no kernel launched; a `<phytime mutmap="yes">` XML at
+   16 x 500;
+14. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11, 12
+   and 13 run last, after every full-width path: the CPU float64 side
+   of each
    in a worker process (spawned, one torch thread each, all started
    together, stopped before the script ends), the card's side in this
    process meanwhile.  The dating check holds the card's start
    chronogram to the CPU's, the card's lnL and log prior at its start
    and at its chain's final state to a CPU float64 recompute, and a
    chain checkpointed at half and resumed on the card to the
-   uninterrupted chain's final state.
+   uninterrupted chain's final state; the tools' check holds the
+   card's posteriors (within AUX_TOL, the same MAP states where the top
+   two differ by more than MAP_TIE), CV tip score (CV_TOL) and fastlk
+   Hessian (HESS_REL) to the CPU's, and replays the card's mutation map
+   from its sampled states.
 
 It prints a JSON line of the default runs' numbers, a JSON line of the
 supports' numbers, a JSON line of step 10's numbers, a JSON line of
 the phytime runs' numbers, a JSON line of step 12's numbers, a JSON
-line of
-per-kernel results (`launches` from the default run, `launches_fixed_fit`
-from step 6; the stacked forms' from the rapid bootstrap, by stack
-size; a cell's rows, named "[cell]", from that cell's runs), the card
-line, and as the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
-before that line; so does a machine without CUDA, or a directory
+line of step 13's (`aux_tools`: each tool's wall-clock, the fits'
+launches, the idle shares), a JSON line of per-kernel results
+(`launches` from the default run, `launches_fixed_fit` from step 6,
+`launches_aux_tools_fit` from step 13's tools run; the stacked forms'
+from the rapid bootstrap, by stack size; a cell's rows, named "[cell]",
+from that cell's runs), the card line, and as the last line {"ok":
+true, "device": {...}}.  Any failure exits nonzero before that line; so does a machine without CUDA, or a directory
 without the phyml_tpu_torch package.
 """
 
@@ -1824,7 +1841,8 @@ def small_checks(tmp):
     one torch thread each, the longest first), the card's side in this
     process meanwhile; then each comparison.  Returns (the supports
     check's aBayes gap, {slice check: numbers}, the dating check's
-    numbers, {state-count check: numbers})."""
+    numbers, {state-count check: numbers}, the tools' check's
+    numbers)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1837,6 +1855,7 @@ def small_checks(tmp):
     checks.append(("small_cov_chain", cov_chain_side, (), report_cov_chain))
     checks.append(("small_support", support_side, (), report_support))
     checks.append(("small_phytime", phytime_side, (), report_phytime))
+    checks.append(("small_aux", aux_side, (), report_aux))
     checks += [(label, slice_side, (label,), report_slice)
                for label in slice_labels]
     checks += [(f"small_{dt}", fit_side, (dt,), report_fit)
@@ -1857,7 +1876,7 @@ def small_checks(tmp):
         pool.shutdown(wait=True, cancel_futures=True)
     states = {k: out[k] for k in states_labels + ["small_cov_chain"]}
     return out["small_support"], {k: out[k] for k in slice_labels}, \
-        out["small_phytime"], states
+        out["small_phytime"], states, out["small_aux"]
 
 
 def mixture_rows(aln_path, tree_path, cuda, regs):
@@ -2642,6 +2661,496 @@ def report_phytime(gpu, cpu):
                 resume_same=g["resume_same"], gpu_s=g_s, cpu_s=c_s)
 
 
+# ----------------------------------------------------------------------
+# the auxiliary tools: ancestral states, mutation maps, cross-validation,
+# the PostScript drawing, subpattern aliasing, and the fastlk chain
+# ----------------------------------------------------------------------
+# runs of the CLI (`-u tree -o lr`, the fixed-topology fit first), on a
+# copy of the bench problem of their datatype: label -> (datatype, flags)
+AUX_RUNS = {
+    "nt tools": ("nt", ("--ancestral", "--cv", "tip", "--ps",
+                        "--alias_subpatt", "--mutmap")),
+    "nt kfold.col": ("nt", ("--cv", "kfold.col")),
+    "nt kfold.pos": ("nt", ("--cv", "kfold.pos")),
+    "aa tools": ("aa", ("--ancestral", "--cv", "tip")),
+}
+# the functions each run is timed in: (module, attribute, label); the
+# fit's probe also reads the launch counters as it returns
+AUX_PROBES = [
+    ("phyml_tpu_torch.optim.round", "round_optimize", "fit"),
+    ("phyml_tpu_torch.ops.ancestral", "marginal_posteriors", "marginals"),
+    ("phyml_tpu_torch.io.output", "write_ancestral", "write_ancestral"),
+    ("phyml_tpu_torch.ops.ancestral", "sample_ancestral", "sample_ancestral"),
+    ("phyml_tpu_torch.ops.ancestral", "map_mutations", "map_mutations"),
+    ("phyml_tpu_torch.ops.crossval", "tip_cv", "cv tip"),
+    ("phyml_tpu_torch.ops.crossval", "kfold_col_cv", "cv kfold.col"),
+    ("phyml_tpu_torch.ops.crossval", "kfold_pos_cv", "cv kfold.pos"),
+    ("phyml_tpu_torch.io.output", "write_cv", "write_cv"),
+    ("phyml_tpu_torch.io.draw", "write_postscript", "ps"),
+    ("phyml_tpu_torch.ops.alias", "alias_stats", "alias"),
+]
+FASTLK_ITERS = 10000
+AUX_TOL = 1e-3    # 16 x 500 posteriors, card f32 against CPU f64
+MAP_TIE = 1e-3    # MAP states must agree where the top two differ by more
+CV_TOL = 1e-4     # 16 x 500 CV tip score, card f32 against CPU f64
+HESS_REL = 1e-8   # fastlk Hessian (both float64), relative to max |H|
+
+
+@contextlib.contextmanager
+def aux_probes():
+    """Times every AUX_PROBES function (a synchronize on each side of
+    the call) and reads the launch counters when the fit returns;
+    yields {label: [calls, seconds]} with "fit launches" added, and
+    restores the functions on the way out."""
+    import importlib
+
+    import torch
+
+    # the modules that import round_optimize by name bind it before the
+    # probe replaces it: their refits are timed under their own label
+    importlib.import_module("phyml_tpu_torch.ops.crossval")
+    rec, saved = {}, []
+
+    def probe(fn, label):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            c = rec.setdefault(label, [0, 0.0])
+            c[0] += 1
+            c[1] += time.time() - t
+            if label == "fit":
+                rec["fit launches"] = {name: w.launches
+                                       for name, w in wrappers().items()}
+            return out
+        return run
+
+    for mod_name, attr, label in AUX_PROBES:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, probe(getattr(mod, attr), label))
+    try:
+        yield rec
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def replay_mutmap(events, blen, states=None, child=None, n_otu=None,
+                  t_tol=1e-5):
+    """Checks a mutation map: every event inside its edge (times within
+    t_tol relative of the lengths), the events of one (edge, site)
+    chained state to state; with the sampled states and the child table,
+    every edge's chain at every site (an empty one too) leads from the
+    parent's state to the node's.  Returns the number of (edge, site)
+    chains with events."""
+    by = {}
+    for (u, p, t, a, b) in events:
+        if not (0.0 < t <= blen[u] * (1 + t_tol) + 1e-12 and a != b):
+            fail(f"mutation map: event {(u, p, t, a, b)} outside edge "
+                 f"{u} (length {blen[u]})")
+        by.setdefault((u, p), []).append((t, a, b))
+    for evs in by.values():
+        evs.sort()
+        for (_, _, b), (_, a, _) in zip(evs, evs[1:]):
+            if a != b:
+                fail(f"mutation map: a jump from {a} follows one to {b}")
+    if child is None:
+        return len(by)
+    parent = {}
+    for i, (c0, c1) in enumerate(np.asarray(child)):
+        parent[int(c0)] = parent[int(c1)] = n_otu + i
+    for u, pa in parent.items():
+        if blen[u] <= 0:
+            continue
+        for p in range(states.shape[1]):
+            evs = by.get((u, p), [])
+            s = int(states[pa, p])
+            if evs and evs[0][1] != s:
+                fail(f"mutation map: edge {u} site {p} starts from "
+                     f"{evs[0][1]}, not from its parent's {s}")
+            end = evs[-1][2] if evs else s
+            if end != int(states[u, p]):
+                fail(f"mutation map: edge {u} site {p} ends in {end}, not "
+                     f"in the node's state {int(states[u, p])}")
+    return len(by)
+
+
+def read_mutmap(path):
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    if lines[0] != ("# sampled substitution history "
+                    "(node, site, time_from_parent, from, to)"):
+        fail(f"{path}: not a mutation map")
+    out = []
+    for ln in lines[1:]:
+        u, p, t, a, b = ln.split("\t")
+        out.append((int(u), int(p), float(t), int(a), int(b)))
+    return out
+
+
+def aux_outputs(label, aln_path, names, n_sites, counts):
+    """Checks one run's output files; returns their numbers."""
+    from phyml_tpu_torch.topology import Topology
+
+    out = {}
+    n = len(names)
+    seq = f"{aln_path}_phyml_ancestral_seq.txt"
+    if os.path.exists(seq):
+        rows, sums = 0, []
+        with open(seq) as fh:
+            for ln in fh:
+                f = ln.rstrip("\n").split("\t")
+                if len(f) > 3 and f[0].strip().isdigit():
+                    rows += 1
+                    sums.append(sum(float(x) for x in f[2:-1]))
+        with open(f"{aln_path}_phyml_ancestral_tree.txt") as fh:
+            anc_tree = fh.read()
+        out["ancestral_rows"] = rows
+        out["posterior_sum_gap"] = float(np.abs(np.asarray(sums) - 1).max())
+        # float32 posteriors sum to 1 within the card's gap to the CPU
+        if rows != (n - 2) * n_sites or out["posterior_sum_gap"] > AUX_TOL \
+                or not all(nm in anc_tree for nm in names):
+            fail(f"[{label}] the ancestral files are malformed ({rows} rows, "
+                 f"sums off by {out['posterior_sum_gap']})")
+    cv = f"{aln_path}_phyml_cv.txt"
+    if os.path.exists(cv):
+        with open(cv) as fh:
+            text = fh.read()
+        score = float(text.split(". Score:")[1].split()[0])
+        out["cv_score"] = score
+        out["cv_lines"] = text.count("\n")
+        if not (math.isfinite(score) and score < 0):
+            fail(f"[{label}] CV score {score}")
+    ps = f"{aln_path}_phyml_tree.ps"
+    if os.path.exists(ps):
+        with open(ps) as fh:
+            text = fh.read()
+        if not (text.startswith("%!PS-Adobe-3.0") and
+                text.rstrip().endswith("%%EOF")):
+            fail(f"[{label}] the PostScript drawing is malformed")
+        out["ps_bytes"] = len(text)
+    mm = f"{aln_path}_phyml_mutmap.txt"
+    if os.path.exists(mm):
+        events = read_mutmap(mm)
+        with open(f"{aln_path}_phyml_tree.txt") as fh:
+            rv = Topology.from_newick(fh.read(), names).rooted()
+        out["mutmap_events"] = len(events)
+        out["mutmap_chains"] = replay_mutmap(events, rv.node_blen)
+    return out
+
+
+def aux_run(label, aln_path, tree_path, cuda):
+    """One AUX_RUNS run through the CLI on the card, every launch counter
+    set to 0 just before and read just after, each tool timed, the
+    card's idle share and peak memory; the fit's kernels must launch
+    and nothing off its route, and the tools after the fit launch only
+    what the k-fold refits launch.  Returns its numbers."""
+    import torch
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+
+    dt, flags = AUX_RUNS[label]
+    argv = cli_argv(dt, aln_path, tree_path, "gpu") + list(flags)
+    aln = read_alignment(aln_path, datatype=dt)
+    model = cli._build_model(cli.build_parser().parse_args(argv), aln)
+    path = route_path(aln, model)
+    W = wrappers()
+    reset_counts()
+    out = io.StringIO()
+    with aux_probes() as rec, utilization_sampler() as util:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    if rc != 0:
+        fail(f"[aux {label}] the run returned {rc}")
+    counts = {name: fn.launches for name, fn in W.items()}
+    fit = rec.pop("fit launches")
+    after = {k: counts[k] - fit[k] for k in counts}
+    busy = statistics.mean(util) if util else None
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    res = dict(
+        n_taxa=aln.n_otu, n_patterns=aln.n_patterns, wall_s=wall,
+        tools_s={k: v[1] for k, v in rec.items()},
+        calls={k: v[0] for k, v in rec.items()},
+        fit_launches=fit, tool_launches=after,
+        idle_share=None if busy is None else 1 - busy,
+        nvml_samples=len(util), peak_gib=peak)
+    res.update(aux_outputs(label, aln_path, list(aln.names), aln.n_sites,
+                           counts))
+    alias = [ln for ln in out.getvalue().splitlines()
+             if "Subpattern aliasing" in ln]
+    if "--alias_subpatt" in flags:
+        if not alias:
+            fail(f"[aux {label}] no subpattern aliasing report")
+        res["alias"] = alias[0].split(": ", 1)[1]
+    print(f". [aux {label}] {aln.n_otu} taxa x {aln.n_sites} sites "
+          f"({aln.n_patterns} patterns), {' '.join(flags)}: wall "
+          f"{wall:.2f} s; " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                        res["tools_s"].items())
+          + f"; fit launches {fit}, after the fit {after}; idle share "
+          + ("not measured" if busy is None else f"{1 - busy:.3f}")
+          + f"; peak {peak:.2f} GiB"
+          + "".join(f"; {k} {res[k]}" for k in (
+              "cv_score", "ancestral_rows", "mutmap_events", "alias")
+              if k in res))
+    for name in W:
+        if name in path and fit[name] <= 0:
+            fail(f"[aux {label}] {name} never launched in the fit")
+        if name not in path and counts[name] != 0:
+            fail(f"[aux {label}] {name} launched {counts[name]} times off "
+                 "its route")
+    if "kfold" not in label and any(after.values()):
+        fail(f"[aux {label}] the tools launched kernels after the fit: "
+             f"{after}")
+    return res
+
+
+def fastlk_run(aln_path, tree_path, cuda):
+    """run_phytime(fastlk=True) on the DNA bench problem (GTR+G4, the
+    simulating tree as the chronogram's shape, a lognormal clock, the
+    birth-death prior), FASTLK_ITERS iterations, every launch counter set
+    to 0 just before and read just after: the Hessian must be a float64
+    tensor on the card, no pruning kernel may launch, and the cached lnL
+    must be the quadratic surface's at the final state.  Returns its
+    numbers."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.date import run_phytime
+    from phyml_tpu_torch.bayes.mcmc import MCMCSettings
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.optim import fastlk
+    from phyml_tpu_torch.topology import Topology
+
+    aln = read_alignment(aln_path, datatype="nt")
+    names = list(aln.names)
+    with open(tree_path) as fh:
+        tt = TimeTree.from_topology(Topology.from_newick(fh.read(), names),
+                                    names=names)
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    fits = []
+    real = fastlk.fit_normal_approx
+
+    def fit(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        na = real(*a, **k)
+        torch.cuda.synchronize()
+        fits.append((na, time.time() - t,
+                     (torch.cuda.max_memory_allocated() - base) / 2 ** 30))
+        return na
+
+    W = wrappers()
+    reset_counts()
+    fastlk.fit_normal_approx = fit
+    try:
+        with utilization_sampler() as util:
+            t1 = time.time()
+            res = run_phytime(
+                aln, tt, model=model, rate_kind="lognormal",
+                prior_kind="birthdeath", fastlk=True, device=cuda,
+                settings=MCMCSettings(n_iter=FASTLK_ITERS, burnin=2000,
+                                      batch=250, seed=7))
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+    finally:
+        fastlk.fit_normal_approx = real
+    counts = {name: fn.launches for name, fn in W.items()}
+    na, fit_s, fit_gib = fits[0]
+    st = res.state
+    gap = float(st.lnL) - float(res.mcmc._lnL(st))
+    busy = statistics.mean(util) if util else None
+    chain_s = wall - fit_s
+    # the surface's curvature over the free slots: a positive eigenvalue
+    # is a direction in which the chain's lnL grows without bound
+    ev = torch.linalg.eigvalsh(na.hess[:-1, :-1])
+    n_pos = int((ev > 1e-9 * float(ev.abs().max())).sum())
+    num = dict(
+        n_taxa=aln.n_otu, iterations=FASTLK_ITERS, wall_s=wall,
+        hessian_s=fit_s, hessian_peak_gib=fit_gib,
+        hessian_chunk=fastlk.hessian_chunk(res.mcmc.engine),
+        chain_s=chain_s, ms_per_iteration=1e3 * chain_s / FASTLK_ITERS,
+        launches=counts, idle_share=None if busy is None else 1 - busy,
+        nvml_samples=len(util), lnl0=float(na.lnL0),
+        final_lnl=float(st.lnL), cached_minus_surface=gap,
+        hess_dtype=str(na.hess.dtype), hess_device=str(na.hess.device),
+        max_abs_hess=float(na.hess.abs().max()),
+        hess_positive_eigenvalues=n_pos, hess_max_eigenvalue=float(ev.max()),
+        accept={k: v for k, v in res.summary["acceptance"].items() if v})
+    print(f". [aux fastlk] run_phytime(fastlk=True), {aln.n_otu} taxa, "
+          f"{FASTLK_ITERS} iterations: wall {wall:.2f} s; Hessian "
+          f"{fit_s:.2f} s ({na.hess.dtype} on {na.hess.device}, chunks of "
+          f"{num['hessian_chunk']}, peak {fit_gib:.2f} GiB); chain "
+          f"{chain_s:.2f} s ({num['ms_per_iteration']:.3f} ms an "
+          f"iteration); idle share "
+          + ("not measured" if busy is None else f"{1 - busy:.3f}")
+          + f"; launches {counts}; lnL0 {num['lnl0']:.4f}, final "
+          f"{num['final_lnl']:.4f}, cached - surface {gap:.2e}; the "
+          f"Hessian has {n_pos} positive eigenvalues of {len(ev)} (largest "
+          f"{num['hess_max_eigenvalue']:.4g})")
+    if na.hess.dtype != torch.float64 or na.hess.device.type != "cuda":
+        fail("[aux fastlk] the Hessian is not a float64 tensor on the card")
+    if any(counts.values()):
+        fail(f"[aux fastlk] the fastlk chain launched kernels: {counts}")
+    if not (abs(gap) <= 1e-6 * max(1.0, abs(float(st.lnL))) and
+            math.isfinite(float(st.lnL)) and
+            np.isfinite(res.trace).all()):
+        fail("[aux fastlk] the chain's lnL is not the surface's")
+    return num
+
+
+def xml_mutmap_run(tmp, cuda):
+    """A <phytime mutmap="yes"> XML on the 16 x 500 problem, 500
+    iterations: the mutation map of the final chronogram parses and its
+    events chain.  Returns its numbers."""
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.io.xmlcfg import run_xml
+
+    d = os.path.join(tmp, "aux_xml_mutmap")
+    aln_path, tree_path = write_problem(d, "nt", 16, 500, SEED + 1)
+    names = list(read_alignment(aln_path, datatype="nt").names)
+    xml = os.path.join(d, "phytime.xml")
+    phytime_xml(xml, "aln.phy", tree_path, "nt",
+                phytime_calibrations(tree_path, names), "lognormal", False)
+    with open(xml) as fh:
+        text = fh.read().replace("<phytime ", '<phytime mutmap="yes" ', 1)
+    with open(xml, "w") as fh:
+        fh.write(text)
+    t1 = time.time()
+    rc = run_xml(xml, quiet=True, device=cuda, mcmc_iter_cap=500)
+    wall = time.time() - t1
+    if rc != 0:
+        fail(f"[aux xml mutmap] run_xml returned {rc}")
+    events = read_mutmap(os.path.join(d, "out_phytime_phyml_mutmap.txt"))
+    chains = replay_mutmap(events, np.full(31, np.inf))
+    print(f". [aux xml mutmap] <phytime mutmap=\"yes\"> 16 x 500, 500 "
+          f"iterations on the card: {wall:.2f} s, {len(events)} events "
+          f"on {chains} (edge, site) chains")
+    if not events:
+        fail("[aux xml mutmap] no event in the mutation map")
+    return dict(wall_s=wall, events=len(events), chains=chains)
+
+
+def aux_phase(tmp, cuda):
+    """The auxiliary tools on the card (AUX_RUNS at 128 x 4096, DNA and
+    protein), the fastlk chain on the DNA problem and a <phytime
+    mutmap="yes"> XML at 16 x 500.  Returns their numbers, and each
+    datatype's fit launches of its tools run."""
+    import torch
+
+    out, fit_launches = {}, {}
+    t0 = time.time()
+    for label, (dt, _) in AUX_RUNS.items():
+        aln, tree = write_problem(os.path.join(tmp, "aux_" + label.replace(
+            " ", "_")), dt, N_TAXA, N_SITES, SEED)
+        out[label] = aux_run(label, aln, tree, cuda)
+        if label.endswith("tools"):
+            fit_launches[dt] = out[label]["fit_launches"]
+        torch.cuda.empty_cache()
+    aln, tree = write_problem(os.path.join(tmp, "aux_fastlk"), "nt", N_TAXA,
+                              N_SITES, SEED)
+    out["fastlk"] = fastlk_run(aln, tree, cuda)
+    torch.cuda.empty_cache()
+    out["xml mutmap"] = xml_mutmap_run(tmp, cuda)
+    out["wall_s"] = time.time() - t0
+    print(f". [aux] phase wall {out['wall_s']:.1f} s")
+    return out, fit_launches
+
+
+def aux_side(d, platform):
+    """The 16 x 500 check of the tools on one platform (GTR+G4 at the
+    simulation's parameters, the simulating tree): the marginal
+    posteriors (the root row included), the CV tip score, the fastlk
+    normal approximation (float64 on both) at the tree's lengths (at
+    least 0.01), and on the card one joint draw and its mutation map."""
+    import torch
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.ancestral import (
+        map_mutations, marginal_posteriors, sample_ancestral,
+    )
+    from phyml_tpu_torch.ops.crossval import tip_cv
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.optim.fastlk import fit_normal_approx
+    from phyml_tpu_torch.topology import Topology
+
+    device = torch.device("cuda" if platform == "gpu" else "cpu")
+    dtype = torch.float32 if platform == "gpu" else torch.float64
+    aln_path, tree_path = write_problem(d, "nt", 16, 500, SEED + 1)
+    aln = read_alignment(aln_path, datatype="nt")
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    params = true_params("nt", model.init_params(aln.obs_state_freqs))
+    eng = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+    with open(tree_path) as fh:
+        rv = Topology.from_newick(fh.read(), aln.names).rooted()
+    tree = tree_arrays(rv, dtype=dtype, device=device)
+    probs = marginal_posteriors(eng, params, tree, include_root=True)
+    blen = torch.as_tensor(rv.node_blen, dtype=torch.float64).clone()
+    blen[:-1] = blen[:-1].clamp(min=0.01)
+    na = fit_normal_approx(eng, params, tree._replace(blen=blen.to(device)))
+    out = dict(probs=probs.cpu().numpy(),
+               cv=tip_cv(eng, params, tree)["score"],
+               hess=na.hess.cpu().numpy(), lnl0=float(na.lnL0),
+               hess_on=str(na.hess.device), hess_dtype=str(na.hess.dtype))
+    if platform == "gpu":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(5)
+        cls, states = sample_ancestral(eng, params, tree, gen)
+        out.update(states=states.cpu().numpy(), child=np.asarray(rv.child),
+                   blen=np.asarray(rv.node_blen), n_otu=rv.n_otu,
+                   events=map_mutations(eng, params, tree, cls, states,
+                                        np.random.default_rng(6)))
+    return out
+
+
+def report_aux(gpu, cpu):
+    """The 16 x 500 check of the tools: posteriors within AUX_TOL and
+    the same MAP states wherever the CPU's top two differ by more than
+    MAP_TIE; the CV tip score within CV_TOL; the fastlk Hessian within
+    HESS_REL of max |H| (the root slot left out) and on the card in
+    float64; the card's mutation map consistent with its draw."""
+    (g, g_s), (c, c_s) = gpu, cpu
+    gap = float(np.abs(g["probs"] - c["probs"]).max())
+    top2 = np.sort(c["probs"], axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > MAP_TIE
+    map_same = bool((g["probs"].argmax(-1) == c["probs"].argmax(-1))[
+        clear].all())
+    cv_gap = g["cv"] - c["cv"]
+    k = g["hess"].shape[0] - 1
+    hc = c["hess"][:k, :k]
+    h_rel = float(np.abs(g["hess"][:k, :k] - hc).max() / np.abs(hc).max())
+    chains = replay_mutmap(g["events"], g["blen"], g["states"], g["child"],
+                           g["n_otu"], t_tol=1e-6)
+    print(f". [small] aux tools (16 x 500, GTR+G4): posteriors max|d| "
+          f"{gap:.2e} (tol {AUX_TOL}), MAP states equal where the top two "
+          f"differ by more than {MAP_TIE}: {map_same} ({int(clear.sum())} "
+          f"of {clear.size} cells); CV tip score gpu {g['cv']:.6f} cpu "
+          f"{c['cv']:.6f} diff {cv_gap:.2e} (tol {CV_TOL}); fastlk "
+          f"Hessian ({g['hess_dtype']} on {g['hess_on']}) relative gap "
+          f"{h_rel:.2e} (tol {HESS_REL}); mutation map {len(g['events'])} "
+          f"events on {chains} chains, endpoints consistent ({g_s:.1f} s "
+          f"card, {c_s:.1f} s CPU)")
+    if not (gap <= AUX_TOL and map_same):
+        fail("small aux: the card's posteriors are off the CPU's")
+    if not abs(cv_gap) <= CV_TOL:
+        fail("small aux: the card's CV tip score is off the CPU's")
+    if not (h_rel <= HESS_REL and g["hess_dtype"] == "torch.float64"
+            and g["hess_on"].startswith("cuda")):
+        fail("small aux: the card's fastlk Hessian is off the CPU's")
+    return dict(posterior_gap=gap, map_same=map_same, cv_gap=cv_gap,
+                hessian_rel_gap=h_rel, mutmap_events=len(g["events"]),
+                gpu_s=g_s, cpu_s=c_s)
+
+
 def main() -> int:
     import torch
 
@@ -2745,8 +3254,16 @@ def main() -> int:
         states["wall_s"] = time.time() - t_states
         rows += states_rows
         torch.cuda.empty_cache()
+        aux, aux_fit = aux_phase(tmp, cuda)
+        # the tools runs' fits beside each main row's launches
+        for r in rows:
+            kname = r["name"].split()[0]
+            if r.get("path") in aux_fit and "cell" not in r \
+                    and "launches_by_stack" not in r:
+                r["launches_aux_tools_fit"] = aux_fit[r["path"]][kname]
+        torch.cuda.empty_cache()
         supports["small_abayes_gap"], mix["small"], phytime["small"], \
-            states["small"] = small_checks(tmp)
+            states["small"], aux["small"] = small_checks(tmp)
 
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
@@ -2755,6 +3272,7 @@ def main() -> int:
     print(json.dumps({"mixtures_partitions_flags": mix}, default=str))
     print(json.dumps({"phytime": phytime}, default=str))
     print(json.dumps({"state_counts": states}, default=str))
+    print(json.dumps({"aux_tools": aux}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -92,9 +92,10 @@ def run_phytime(
     sample_topology=True adds the time-tree topology moves (narrow
     exchange + prune-regraft-on-times, ≙ the reference's
     MCMC_Prune_Regraft family) so the rooted topology is sampled
-    jointly with times and rates.  fastlk=True (the reference's
-    --fastlk) raises NotImplementedError: the normal approximation is
-    not ported yet."""
+    jointly with times and rates.  fastlk=True swaps the exact
+    likelihood for the quadratic normal approximation around the
+    starting branch lengths (the reference's --fastlk,
+    Lk_Normal_Approx lk.c:2521; optim/fastlk.py)."""
     from phyml_tpu_torch.models.substitution import SubstModel
     from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, default_device
 

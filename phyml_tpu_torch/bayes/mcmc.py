@@ -33,6 +33,13 @@ substitution scalars) needs the likelihood's gradient.  The kernels
 have no backward pass, so, as phyml_tpu does whenever a kernel serves
 the likelihood, its weight is 0 on the card; on the CPU its gradient
 is torch.autograd through the plain scan.
+
+fastlk=True (the reference's --fastlk) swaps the likelihood for the
+normal approximation fitted at the initial tree (optim/fastlk.py, on
+the engine's device in float64): the substitution moves and MALA get
+weight 0, and each lnL is a vector-matrix-vector product, no kernel
+launch.  It is refused under the Guindon clock and with topology
+moves, as in phyml_tpu.
 """
 
 from __future__ import annotations
@@ -47,15 +54,14 @@ import torch
 from phyml_tpu_torch.bayes.chrono import TimeTree
 from phyml_tpu_torch.bayes.rates import GUINDON, STRICT, RateModel
 from phyml_tpu_torch.bayes.times import TimePrior
-from phyml_tpu_torch.models.eigen import mgf_rates, pmat
+from phyml_tpu_torch.models.eigen import mgf_rates
 from phyml_tpu_torch.ops.likelihood import TreeArrays
 
 NEG_INF = -1e30
 F64 = torch.float64
 
-# ROADMAP.md Queue 1 items that port what this chain refuses
+# ROADMAP.md Queue 1 item that ports what this chain refuses
 _BAYES = "Queue 1, 'Bayesian tier'"
-_TOOLS = "Queue 1, 'Auxiliary tools'"
 
 
 class ChainState(NamedTuple):
@@ -136,12 +142,22 @@ class MCMC:
             raise NotImplementedError(
                 "MCMC(trait_x=...): the PhyREX trait and location models "
                 f"are not ported to phyml_tpu_torch yet (ROADMAP.md {_BAYES})")
-        if fastlk:
-            raise NotImplementedError(
-                "MCMC(fastlk=True): the normal approximation "
-                "(optim/fastlk.py) is not ported to phyml_tpu_torch yet "
-                f"(ROADMAP.md {_TOOLS})")
+        if fastlk and rate_model.kind == GUINDON:
+            # the quadratic lnL expansion is a function of expected
+            # branch lengths only; it cannot represent the Guindon-2012
+            # within-branch variance nu, so sampling nu against it
+            # would silently draw nu from the prior alone
+            raise ValueError(
+                "fastlk is incompatible with the Guindon (2012) "
+                "integrated relaxed clock: the normal approximation "
+                "ignores the within-branch rate variance nu. Use the "
+                "exact likelihood (fastlk=False) for this clock model."
+            )
+        if sample_topology and fastlk:
+            raise ValueError("fastlk expands around ONE topology; "
+                             "it cannot support tree moves")
         self.engine = engine
+        self._normal_approx = None
         self.model = model
         self.tt = time_tree
         self.rate_model = rate_model
@@ -202,12 +218,19 @@ class MCMC:
             # mala_times: one move updates ALL heights + the clock and
             # needs the likelihood's gradient: on the plain (CPU) path
             # only; the kernels have no backward pass
-            (0.5 * n) if engine.device.type == "cpu" else 0.0,
+            (0.5 * n) if engine.device.type == "cpu" and not fastlk
+            else 0.0,
         ])
         if "kappa" not in subst_params:
             w[7] = 0.0
         if "alpha" not in subst_params:
             w[8] = 0.0
+        if fastlk:
+            # expansion is only valid at the expansion-point model
+            w[7] = w[8] = 0.0
+            w[self.MOVE_NAMES.index("cov_switch")] = 0.0
+            w[self.MOVE_NAMES.index("cov_rates")] = 0.0
+            self._movable_subst = []
         self.move_w = w / w.sum()
         self._cum_w = np.cumsum(self.move_w)
         # fixed MALA metric: per-node height scales from the initial
@@ -223,6 +246,17 @@ class MCMC:
                 else h0[u] * 1.5 + 1e-6
             mh[u] = max(abs(hi - lo), 1e-4)
         self._mala_mh = _f64(mh)
+
+        if fastlk:
+            # expand at the initial time tree's durations (phyml_tpu's
+            # expansion point), on the engine's device in float64
+            from phyml_tpu_torch.optim.fastlk import fit_normal_approx
+            dt0 = h0[par0] - h0
+            dt0[self.root] = 0.0
+            tree0 = TreeArrays(child=self.child, blen=torch.as_tensor(
+                np.maximum(dt0, 0.0), device=engine.device))
+            self._normal_approx = fit_normal_approx(
+                engine, self.subst_fixed, tree0, engine.weights)
 
         # (variate kinds, apply) of every move, in MOVE_NAMES order:
         # "u" uniform [0, 1), "z" standard normal, (lo, hi) an integer
@@ -300,9 +334,15 @@ class MCMC:
     def _lnL(self, state: ChainState):
         """lnL (float64 0-d host tensor) through the engine: one pass
         of the single-pass kernel on the card, its plain version on the
-        CPU."""
+        CPU; with fastlk, the normal approximation's quadratic surface
+        (≙ Lk_Normal_Approx lk.c:2521), no tree traversal."""
         eng = self.engine
         blen, _ = self._blen(state)
+        if self._normal_approx is not None:
+            # only valid while substitution parameters stay at their
+            # expansion values, so fastlk chains hold them fixed (as
+            # the reference does)
+            return self._normal_approx.loglik(blen).detach().to("cpu")
         tree = TreeArrays(child=state.child,
                           blen=blen.to(eng.device, eng.dtype))
         sys = eng.system_of(self._params(state))
@@ -318,29 +358,16 @@ class MCMC:
 
     def _lnL_autograd(self, state: ChainState):
         """lnL differentiable in the state's heights, clock, rates and
-        substitution scalars: the plain scan (divide-by-max rescaling,
-        as LikelihoodEngine._up_pass) on the CPU engine's tips in
-        float64, built of new tensors so autograd can run back through
-        it."""
+        substitution scalars: the plain scan on the CPU engine's tips in
+        float64 (LikelihoodEngine.loglik_functional)."""
         eng = self.engine
         blen, _ = self._blen(state)
         lam, V, Vinv, pi, w, pinv = self.model.class_system(
             self._params(state))
         if self.rate_model.kind == GUINDON:
             lam = mgf_rates(lam, torch.exp(state.log_nu))
-        pm = pmat(lam, V, Vinv, blen[:, None].expand(self.n_nodes, eng.C))
-        tiny = torch.finfo(F64).tiny
-        n = self.n_otu
-        tips = eng.tips.to(F64)
-        pup = [torch.einsum("cxy,yp->cxp", pm[u], tips[u]) for u in range(n)]
-        sc = [tips.new_zeros((eng.C, eng.P))] * n
-        for i, (c0, c1) in enumerate(state.child.tolist()):
-            x = pup[c0] * pup[c1]
-            m = torch.clamp(torch.amax(x, dim=-2, keepdim=True), min=tiny)
-            sc.append(sc[c0] + sc[c1] + torch.log(m[..., 0, :]))
-            pup.append(torch.einsum("cxy,cyp->cxp", pm[n + i], x / m))
-        site = eng._root_site_loglik(pup, sc, pi, w, pinv)
-        return torch.sum(site * eng.weights)
+        return eng.loglik_functional((lam, V, Vinv, pi, w, pinv),
+                                     state.child, blen)
 
     def _log_prior(self, state: ChainState):
         dt = state.heights[state.parent] - state.heights

@@ -15,10 +15,13 @@ PAML rate file through `--aa_rate_file`): the start tree
 SH-aLRT and aBayes), the model and data flags (`--il`, `--codpos`,
 `--weights`, `--no_gap`, `-n` data sets), the covarion model (`--cov`,
 `--cov_delta`, `--cov_alpha`, `--cov_ncats`, `--cov_free`), custom
-alphabets (`-d generic`), `--checkpoint`, `--print_site_lnl`, and
-`--xml` analyses (io/xmlcfg.py: mixtures and partitions).  Every other
-analysis flag stops the run with a message naming the ROADMAP.md item
-that ports it.
+alphabets (`-d generic`), `--checkpoint`, `--print_site_lnl`, the
+auxiliary tools on the final tree (`--ps`, `--cv tip|kfold.col|
+kfold.pos`, `--ancestral`, `--mutmap`, `--alias_subpatt`), and `--xml`
+analyses (io/xmlcfg.py: mixtures, partitions and phytime).  With no
+arguments it opens the interactive menu (interface.py).  Only
+`--distributed` stops the run, with a message naming the ROADMAP.md
+item that ports it.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
@@ -32,7 +35,10 @@ that ports it.
         --cov_ncats 3 --cov_delta e -b 0 --platform gpu   # covarion
     python -m phyml_tpu_torch.cli -i binary.phy -d generic -c 4 -b 0 \\
         --platform gpu                       # a custom alphabet
+    python -m phyml_tpu_torch.cli -i aln.phy -u tree.nwk -m GTR -c 4 \\
+        -o lr --ancestral --cv tip --ps --platform gpu   # the tools
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
+    python -m phyml_tpu_torch.cli            # the interactive menu
 """
 
 from __future__ import annotations
@@ -156,9 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# ROADMAP.md Queue 1 items that port what this CLI does not run yet
+# ROADMAP.md Queue 1 item that ports what this CLI does not run yet
 _SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
-_TOOLS = "Queue 1, 'Auxiliary tools'"
 
 
 def _unported(args) -> list[tuple[str, str]]:
@@ -166,11 +171,6 @@ def _unported(args) -> list[tuple[str, str]]:
     not run yet."""
     checks = [
         (args.distributed, "--distributed", _SUPPORT),
-        (args.cv is not None, "--cv", _TOOLS),
-        (args.ancestral, "--ancestral", _TOOLS),
-        (args.ps, "--ps", _TOOLS),
-        (args.mutmap, "--mutmap", _TOOLS),
-        (args.alias_subpatt, "--alias_subpatt", _TOOLS),
     ]
     return [(flag, item) for hit, flag, item in checks if hit]
 
@@ -550,19 +550,95 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
         ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
         write_site_lnl(f"{side}_phyml_lk.txt", aln,
                        engine.site_logliks(params, ta))
+    _tools(args, engine, model, aln, params, topo, rng, seed, side)
     if not args.quiet:
         print(f". Log-likelihood: {lnl:.5f}")
         print(f". Results written to {tree_path} and {stats_path}")
     return 0
 
 
+def _tools(args, engine, model, aln, params, topo, rng, seed, side):
+    """The auxiliary outputs of the final tree (reference phyml_tpu/
+    cli.py:597-672), each on the engine's device: `--ps` the
+    PostScript drawing, `--cv tip|kfold.col|kfold.pos` cross-validation
+    (`_phyml_cv.txt`), `--ancestral` the marginal posteriors and MPEE
+    calls, `--mutmap` one joint draw of classes and ancestral states (a
+    torch.Generator on the device seeded with the run's seed) and the
+    substitution histories (numpy, seed + 31), `--alias_subpatt` the
+    subpattern-aliasing report."""
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+
+    device, dtype = engine.device, engine.dtype
+    if args.ps:
+        from phyml_tpu_torch.io.draw import write_postscript
+        write_postscript(f"{side}_phyml_tree.ps", topo, aln.names,
+                         title=args.input)
+    if args.cv:
+        from phyml_tpu_torch.io.output import write_cv
+        from phyml_tpu_torch.ops import crossval
+        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+        path = f"{side}_phyml_cv.txt"
+        if args.cv == "tip":
+            res = crossval.tip_cv(engine, params, ta)
+            write_cv(path, aln, model, "tip", res)
+            if not args.quiet:
+                print(f". CV score (mean log predictive prob): "
+                      f"{res['score']:.6f}")
+        elif args.cv == "kfold.col":
+            total, folds = crossval.kfold_col_cv(
+                engine, model, params, ta, rng=rng,
+                verbose=not args.quiet)
+            write_cv(path, aln, model, "kfold.col",
+                     dict(score=total, folds=folds))
+            if not args.quiet:
+                print(f". CV held-out log-likelihood: {total:.4f}")
+        else:
+            def factory(a):
+                return LikelihoodEngine(a, model, dtype=dtype, device=device)
+            score, n_masked = crossval.kfold_pos_cv(
+                factory, aln, model, params, ta, rng=rng)
+            write_cv(path, aln, model, "kfold.pos",
+                     dict(score=score, n_masked=n_masked))
+            if not args.quiet:
+                print(f". CV score at {n_masked} masked cells: "
+                      f"{score:.4f}")
+    if args.ancestral:
+        from phyml_tpu_torch.io.output import write_ancestral
+        from phyml_tpu_torch.ops.ancestral import marginal_posteriors
+        rv = topo.rooted()
+        ta = tree_arrays(rv, dtype=dtype, device=device)
+        probs = marginal_posteriors(engine, params, ta)
+        write_ancestral(side, aln, topo, rv, probs, aln.datatype)
+    if args.mutmap:
+        # one joint draw of (rate classes, ancestral states) then
+        # endpoint-conditioned path sampling per (edge, site)
+        # (Sample_Ancestral_Seq ancestral.c:15 + Map_Mutations :345)
+        from phyml_tpu_torch.ops.ancestral import (
+            map_mutations, sample_ancestral, write_mutmap,
+        )
+        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        classes, states = sample_ancestral(engine, params, ta, gen)
+        events = map_mutations(engine, params, ta, classes, states,
+                               np.random.default_rng(seed + 31))
+        write_mutmap(f"{side}_phyml_mutmap.txt", events)
+        if not args.quiet:
+            print(f". Mutation map written to {side}_phyml_mutmap.txt")
+    if args.alias_subpatt:
+        from phyml_tpu_torch.ops.alias import alias_stats
+        rep = alias_stats(aln, np.asarray(topo.rooted().child))
+        if not args.quiet:
+            print(f". Subpattern aliasing: {rep}")
+
+
 def main(argv=None) -> int:
     real_argv = sys.argv[1:] if argv is None else argv
     if not real_argv:
-        print("!! the interactive menu is not ported to phyml_tpu_torch "
-              f"yet (ROADMAP.md {_TOOLS}); give the options on the "
-              "command line", file=sys.stderr)
-        return 2
+        # no options: drop into the PHYLIP-style menu, exactly like
+        # the reference (Get_Input io.c:4373-4384 -> interface.c:15)
+        from phyml_tpu_torch.interface import launch_interface
+        return launch_interface()
     parser = build_parser()
     args = parser.parse_args(real_argv)
     if args.xml:

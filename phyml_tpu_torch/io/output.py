@@ -184,6 +184,87 @@ def write_site_lnl(path: str, aln, site_logliks) -> None:
             fh.write(f"{i + 1}\t{v:.6f}\n")
 
 
+def write_cv(path: str, aln, model, mode: str, res: dict) -> None:
+    """Cross-validation report (reference cv.c prints ###-prefixed
+    lines + a ROC table; here one structured text file, phyml_tpu's)."""
+    with open(path, "w") as fh:
+        fh.write(f". Cross-validation mode: {mode}\n")
+        fh.write(f". Model: {model.name}\n")
+        fh.write(f". Score: {res['score']:.6f}\n")
+        if "folds" in res:
+            for k, v in enumerate(res["folds"]):
+                fh.write(f"  - fold {k + 1} held-out lnL: {v:.6f}\n")
+        if "n_masked" in res:
+            fh.write(f". Masked cells: {res['n_masked']}\n")
+        if "probs" in res:
+            from phyml_tpu_torch.ops.crossval import roc_points
+            fpr, tpr = roc_points(res["probs"], res["truth"])
+            fh.write("\nROC (threshold, FPR, TPR):\n")
+            qs = np.linspace(0.0, 1.0, len(fpr))
+            for q, f, t in zip(qs, fpr, tpr):
+                fh.write(f"  {q:.2f}\t{f:.6f}\t{t:.6f}\n")
+            fh.write("\nSite\tTaxon\tlog predictive prob (truth)\n")
+            s2p = aln.site_to_pattern
+            lp = res["logpred"]
+            truth = res["truth"]
+            for site in range(aln.n_sites):
+                pat = s2p[site]
+                for t in range(aln.n_otu):
+                    if truth[t, pat] >= 0:
+                        fh.write(f"{site + 1}\t{aln.names[t]}\t"
+                                 f"{lp[t, pat]:.6f}\n")
+
+
+def write_ancestral(prefix: str, aln, topo, rv, probs,
+                    datatype: str) -> tuple[str, str]:
+    """Ancestral reconstruction outputs (reference:
+    Ancestral_Sequences ancestral.c:527-600 file conventions):
+    <prefix>_phyml_ancestral_seq.txt — per (site, internal node) the
+    marginal posterior state probabilities + the MPEE ambiguity-aware
+    state call; <prefix>_phyml_ancestral_tree.txt — the tree with
+    internal node labels matching the table's NodeLabel column.
+    `probs` [n_internal, P, ns] (ops/ancestral.marginal_posteriors, on
+    any device) is read as a float64 host copy."""
+    from phyml_tpu_torch.datatypes import state_alphabet
+    from phyml_tpu_torch.ops.ancestral import (
+        _host64, mask_to_char, mpee_decode,
+    )
+
+    probs = _host64(probs)                    # [n_internal, P, ns]
+    ns = probs.shape[-1]
+    chars = state_alphabet(datatype)
+    seq_path = f"{prefix}_phyml_ancestral_seq.txt"
+    tree_path = f"{prefix}_phyml_ancestral_tree.txt"
+
+    n = rv.n_otu
+    node_ids = [int(rv.unrooted_id[n + i])
+                for i in range(probs.shape[0])]
+    labels = {uid: str(uid) for uid in node_ids}
+    with open(tree_path, "w") as fh:
+        fh.write(topo.to_newick(aln.names, node_labels=labels) + "\n")
+
+    s2p = aln.site_to_pattern
+    masks = mpee_decode(probs[:, s2p, :])     # [n_internal, n_sites]
+    with open(seq_path, "w") as fh:
+        fh.write(". Marginal posterior probabilities of ancestral "
+                 "states at each site and each internal node.\n")
+        fh.write(". Node labels match those in "
+                 f"'{tree_path}'.\n")
+        fh.write(". State calls use the Minimum Posterior Expected "
+                 "Error (MPEE) criterion\n")
+        fh.write(". (Oliva et al. 2019, Bioinformatics 35(21)).\n\n")
+        fh.write("Site\tNodeLabel\t"
+                 + "\t".join(f"{c:>10}" for c in chars[:ns])
+                 + "\tMPEE\n")
+        for row, uid in enumerate(node_ids):
+            p_sites = probs[row][s2p]          # [n_sites, ns]
+            for site in range(aln.n_sites):
+                cells = "\t".join(f"{v:10g}" for v in p_sites[site])
+                fh.write(f"{site + 1:4d}\t{uid:9d}\t{cells}\t"
+                         f"{mask_to_char(int(masks[row, site]), datatype)}\n")
+    return seq_path, tree_path
+
+
 class TraceWriter:
     """Search-progress traces (≙ the reference's --print_trace newick
     stream, io.c fp_out_trace, and --json_trace JSON snapshots,

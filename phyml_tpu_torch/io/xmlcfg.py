@@ -12,10 +12,11 @@ of one engine).
 
 Multiple <partitionelem> blocks run as a shared-topology partitioned
 analysis (search/partitioned.py); a <phytime> root runs the Bayesian
-dating chain (_run_xml_bayes, bayes/date.py).  `parse_xml` is a copy
-of phyml_tpu's parser, which also reads the Bayesian roots' elements;
-a <phyrex> root, and mutmap="yes", stop the run naming the ROADMAP.md
-item that ports them.
+dating chain (_run_xml_bayes, bayes/date.py), and its mutmap="yes"
+attribute writes a mutation map of the final tree (_write_mutmap).
+`parse_xml` is a copy of phyml_tpu's parser, which also reads the
+Bayesian roots' elements; a <phyrex> root stops the run naming the
+ROADMAP.md item that ports it.
 
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
 """
@@ -257,10 +258,9 @@ def build_model_from_xml(cfg: dict, part: dict):
     return model, overrides
 
 
-# ROADMAP.md Queue 1 items that port the XML features this module does
+# ROADMAP.md Queue 1 item that ports the XML feature this module does
 # not run yet
 _BAYES = "Queue 1, 'Bayesian tier'"
-_TOOLS = "Queue 1, 'Auxiliary tools'"
 
 
 def _unported(cfg: dict) -> list[tuple[str, str]]:
@@ -268,7 +268,6 @@ def _unported(cfg: dict) -> list[tuple[str, str]]:
     does not run yet."""
     checks = [
         (cfg["kind"] == "phyrex", "<phyrex> root", _BAYES),
-        (cfg.get("mutmap", False), 'mutmap="yes"', _TOOLS),
     ]
     return [(what, item) for hit, what, item in checks if hit]
 
@@ -493,7 +492,45 @@ def _run_xml_bayes(path: str, cfg: dict, quiet: bool,
         print_summary(res, out=fh)
     with open(prefix + "_chronogram.txt", "w") as fh:
         fh.write(res.tree.to_newick() + "\n")
+    if cfg.get("mutmap"):
+        _write_mutmap(prefix + "_phyml_mutmap.txt", engine, params,
+                      res, cfg["r_seed"])
+        if not quiet:
+            print(f". Mutation map written to "
+                  f"{prefix}_phyml_mutmap.txt")
     if not quiet:
         print_summary(res)
         print(f". Trace written to {trace_path}")
     return 0
+
+
+def _write_mutmap(path: str, engine, params, res, seed: int) -> None:
+    """Sampled substitution histories on the posterior tree (the
+    reference's mutmap output: phyrex.c mutmap path feeding
+    Sample_Ancestral_Seq / ancestral.c:411), as phyml_tpu writes them:
+    one joint draw of (rate classes, ancestral states) on the engine's
+    device (a torch.Generator seeded with r.seed), then endpoint-
+    conditioned path sampling per (edge, site) on the host
+    (default_rng(seed + 31))."""
+    from phyml_tpu_torch.ops.ancestral import (
+        map_mutations, sample_ancestral, write_mutmap,
+    )
+    from phyml_tpu_torch.ops.likelihood import TreeArrays
+
+    tt = res.tree
+    par = np.asarray(tt.parent)
+    heights = np.asarray(tt.heights)
+    clock = float(res.summary.get("clock_rate", 1.0))
+    dt = np.where(par != np.arange(tt.n_nodes),
+                  heights[par] - heights, 0.0)
+    blen = np.maximum(clock * dt, 0.0)
+    tree = TreeArrays(
+        child=torch.as_tensor(np.asarray(tt.child, dtype=np.int32)),
+        blen=torch.as_tensor(blen, dtype=engine.dtype,
+                             device=engine.device))
+    gen = torch.Generator(device=engine.device)
+    gen.manual_seed(seed)
+    classes, states = sample_ancestral(engine, params, tree, gen)
+    events = map_mutations(engine, params, tree, classes, states,
+                           np.random.default_rng(seed + 31))
+    write_mutmap(path, events)

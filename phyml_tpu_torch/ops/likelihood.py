@@ -233,9 +233,10 @@ class LikelihoodEngine(nn.Module):
         self._sys_cache = (key, list(params.values()), sys)
         return sys
 
-    def _system(self, params):
+    def _system(self, params, dtype=None):
         """Eigensystem of params (batched when the params are; see
-        SubstModel.class_system), on the engine's device and dtype."""
+        SubstModel.class_system), on the engine's device, in its dtype
+        unless `dtype` is given."""
         params = {k: torch.as_tensor(v).detach().to("cpu", torch.float64)
                   for k, v in params.items()}
         lam, V, Vinv, pi, w, pinv = self.model.class_system(params)
@@ -251,7 +252,7 @@ class LikelihoodEngine(nn.Module):
             lam_il = -torch.log(torch.clamp(1.0 - lam * sig, min=1e-30)) \
                 / torch.clamp(sig, min=1e-30)
             lam = torch.where(sig > 1e-12, lam_il, lam)
-        return tuple(x.to(self.device, self.dtype).contiguous()
+        return tuple(x.to(self.device, dtype or self.dtype).contiguous()
                      for x in (lam, V, Vinv, pi, w, pinv))
 
     def _pmats(self, lam, V, Vinv, blen):
@@ -575,6 +576,29 @@ class LikelihoodEngine(nn.Module):
                             min=self._tiny)
         a = torch.log(w)[:, None] + sc[root] + torch.log(lroot)
         return self._mix_invar(torch.logsumexp(a, dim=0), pi, w, pinv)
+
+    def loglik_functional(self, sys, child, blen, weights=None):
+        """Weighted lnL differentiable in blen [n_nodes] and in the
+        system's tensors: the scan path (divide-by-max rescaling, as
+        _up_pass) in float64 on the engine's tips and device, built of
+        new tensors, with no write in place, so that torch.autograd and
+        torch.func (grad, jvp, vmap) run through it.  The kernels have
+        no backward pass; MALA's gradient and the fastlk Hessian come
+        from here."""
+        lam, V, Vinv, pi, w, pinv = sys
+        pm = pmat(lam, V, Vinv, blen[:, None].expand(self.n_nodes, self.C))
+        tiny = torch.finfo(torch.float64).tiny
+        n = self.n_otu
+        tips = self.tips.to(torch.float64)
+        pup = [torch.einsum("cxy,yp->cxp", pm[u], tips[u]) for u in range(n)]
+        sc = [tips.new_zeros((self.C, self.P))] * n
+        for i, (c0, c1) in enumerate(torch.as_tensor(child).tolist()):
+            x = pup[c0] * pup[c1]
+            m = torch.clamp(torch.amax(x, dim=-2, keepdim=True), min=tiny)
+            sc.append(sc[c0] + sc[c1] + torch.log(m[..., 0, :]))
+            pup.append(torch.einsum("cxy,cyp->cxp", pm[n + i], x / m))
+        site = self._root_site_loglik(pup, sc, pi, w, pinv)
+        return torch.sum(site * self._w(weights))
 
     def site_logliks_scan(self, sys, tree: TreeArrays):
         lam, V, Vinv, pi, w, pinv = sys

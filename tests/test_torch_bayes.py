@@ -24,7 +24,8 @@ tests/test_bayes.py:16-46), in float64, and are held:
 * the port's own invariants: the cached lnL equals a recompute within
   1e-6, one seed gives one chain, a checkpoint resume ends where the
   uninterrupted chain ends, the Guindon chain runs on the MGF path,
-  and the refusals (trait_x, fastlk) name their ROADMAP items.
+  the trait_x refusal names its ROADMAP item, and fastlk builds a
+  chain (tests/test_torch_fastlk.py holds it to phyml_tpu).
 """
 
 import jax
@@ -560,9 +561,11 @@ def test_guindon_chain_runs_on_the_mgf_path(problem, monkeypatch):
 
 @pytest.mark.parametrize("what", ["trait_x", "fastlk", "covarion"])
 def test_refusals_name_their_roadmap_items(problem, what):
-    """trait_x and fastlk stop naming their ROADMAP items; covarion,
-    refused until its port, now builds a chain whose covarion moves
-    are drawn (tests/test_torch_covarion.py holds them to phyml_tpu)."""
+    """trait_x stops naming its ROADMAP item; covarion and fastlk,
+    refused until their ports, now build chains: the covarion moves are
+    drawn (tests/test_torch_covarion.py holds them to phyml_tpu), and a
+    fastlk chain holds its substitution parameters and MALA off
+    (tests/test_torch_fastlk.py holds it to phyml_tpu)."""
     jtt, jaln, taln = problem
     tm = TModel(datatype="nt", name="HKY85", n_classes=4,
                 covarion=what == "covarion")
@@ -572,9 +575,13 @@ def test_refusals_name_their_roadmap_items(problem, what):
         mc = TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior())
         assert mc.move_w[TMCMC.MOVE_NAMES.index("cov_switch")] > 0
         return
-    kw, item = {
-        "trait_x": ({"trait_x": np.zeros((N_TAXA, 2))}, "Bayesian tier"),
-        "fastlk": ({"fastlk": True}, "Auxiliary tools"),
-    }[what]
-    with pytest.raises(NotImplementedError, match=f"Queue 1, '{item}'"):
-        TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(), **kw)
+    if what == "fastlk":
+        mc = TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(),
+                   fastlk=True)
+        for nm in ("subst_kappa", "subst_alpha", "mala_times"):
+            assert mc.move_w[TMCMC.MOVE_NAMES.index(nm)] == 0.0
+        assert mc._normal_approx is not None
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1, 'Bayesian tier'"):
+        TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(),
+              trait_x=np.zeros((N_TAXA, 2)))

@@ -1490,3 +1490,83 @@ def test_past_the_ladder_is_refused(cuda):
     model = SubstModel(datatype="generic", generic_ns=80, n_classes=1)
     with pytest.raises(NotImplementedError, match="More than 64 states"):
         LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+
+
+# ----------------------------------------------------------------------
+# the auxiliary tools on the card: the scan path's passes in the
+# engine's dtype, the fastlk Hessian in float64
+# ----------------------------------------------------------------------
+AUX_TOL = 1e-3    # posteriors and predictive probabilities, card f32 vs CPU
+HESS_REL = 1e-8   # fastlk Hessian, card f64 vs CPU f64, relative to max |H|
+
+
+def _aux_pair(cuda, datatype="nt", n=24, sites=300):
+    """(card float32 engine, CPU float64 engine, params, card tree, CPU
+    tree) on one simulated problem."""
+    from phyml_tpu_torch.interop import tree_arrays_from_numpy
+
+    rng = np.random.default_rng(31)
+    topo = Topology.random(n, rng, mean_blen=0.1)
+    eng, tree, _, _ = _simulated_setup(cuda, 4, n, sites, 31, datatype,
+                                       topo)
+    cpu = LikelihoodEngine(eng.aln, eng.model, dtype=torch.float64,
+                           device="cpu")
+    params = eng.model.init_params(eng.aln.obs_state_freqs)
+    params["alpha"] = torch.tensor(0.5, dtype=torch.float64)
+    rv = topo.rooted()
+    ctree = tree_arrays_from_numpy(rv.child, rv.node_blen, device="cpu",
+                                   dtype=torch.float64)
+    return eng, cpu, params, tree, ctree
+
+
+@pytest.mark.parametrize("datatype", ["nt", "aa"])
+def test_marginals_and_tip_predictive_card_against_cpu(cuda, datatype):
+    from phyml_tpu_torch.ops.ancestral import marginal_posteriors
+    from phyml_tpu_torch.ops.crossval import tip_predictive_probs
+
+    eng, cpu, params, tree, ctree = _aux_pair(cuda, datatype)
+    got = marginal_posteriors(eng, params, tree, include_root=True)
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    want = marginal_posteriors(cpu, params, ctree, include_root=True)
+    assert float((got.cpu() - want).abs().max()) < AUX_TOL
+    pg = tip_predictive_probs(eng, params, tree)
+    pc = tip_predictive_probs(cpu, params, ctree)
+    assert np.abs(pg - pc).max() < AUX_TOL
+
+
+def test_sampling_and_mutation_map_on_the_card(cuda):
+    from phyml_tpu_torch.ops.ancestral import map_mutations, sample_ancestral
+
+    eng, _, params, tree, _ = _aux_pair(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    cls, states = sample_ancestral(eng, params, tree, gen)
+    assert cls.device.type == states.device.type == "cuda"
+    st = states.cpu().numpy()
+    # the tips keep their data
+    assert (st[:eng.n_otu] == eng.aln.partials.argmax(-1)).all()
+    events = map_mutations(eng, params, tree, cls, states,
+                           np.random.default_rng(4), sites=np.arange(20))
+    blen = tree.blen.double().cpu().numpy()
+    assert events and all(0 < t <= blen[u] + 1e-6 for u, _, t, _, _ in events)
+
+
+def test_fastlk_hessian_card_against_cpu(cuda):
+    from phyml_tpu_torch.optim.fastlk import fit_normal_approx
+
+    eng, cpu, params, tree, ctree = _aux_pair(cuda)
+    blen = ctree.blen.clone()
+    blen[:-1] = blen[:-1].clamp(min=0.01)    # no zero-length edge
+    ga = fit_normal_approx(eng, params, tree._replace(
+        blen=blen.to(cuda)))
+    ca = fit_normal_approx(cpu, params, ctree._replace(blen=blen))
+    assert ga.hess.device.type == "cuda" and ga.hess.dtype == torch.float64
+    n = eng.n_nodes - 1
+    h, hc = ga.hess.cpu()[:n, :n], ca.hess[:n, :n]
+    assert float((h - hc).abs().max()) <= HESS_REL * float(hc.abs().max())
+    assert abs(float(ga.lnL0) - float(ca.lnL0)) <= HESS_REL * abs(
+        float(ca.lnL0))
+    gb = fit_normal_approx(eng, params, tree._replace(
+        blen=blen.to(cuda)), chunk_size=3)
+    assert float((gb.hess - ga.hess).abs().max()) <= HESS_REL * float(
+        hc.abs().max())

@@ -2,7 +2,8 @@
 
 The machine with the GPU has no JAX, so importing every module of the
 port must pull in neither.  The check runs in a subprocess because
-this test process already imported jax (tests/conftest.py).
+this test process already imported jax (tests/conftest.py).  The
+modules of the auxiliary tools are among those checked.
 """
 
 import os
@@ -50,6 +51,10 @@ def test_import_pulls_in_no_jax():
     assert {f"phyml_tpu_torch.search.{m}" for m in
             ("distances", "bionj", "nni", "spr", "driver", "support",
              "stepwise", "constraint")} <= set(mods)
+    # and so are the auxiliary tools
+    assert {f"phyml_tpu_torch.{m}" for m in
+            ("ops.ancestral", "ops.crossval", "ops.alias", "optim.fastlk",
+             "optim.brent", "io.draw", "evolve", "interface")} <= set(mods)
 
 
 def test_no_source_imports_jax():

@@ -17,8 +17,8 @@ through both packages in float64:
   tests/test_partitioned.py, here with `search="spr"`): the same
   trees, the same combined lnL within 1e-6, and the same numbers in
   every stats file (`_part{k}` for two partitions) but the run time;
-* a <phyrex> root and mutmap="yes" stop the run naming their ROADMAP
-  items (a <phytime> root runs: tests/test_torch_phytime.py).
+* a <phyrex> root stops the run naming its ROADMAP item (a <phytime>
+  root runs, mutmap="yes" too: tests/test_torch_phytime.py).
 """
 
 import importlib
@@ -297,8 +297,7 @@ def test_run_xml_matches_phyml_tpu(case, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("root, item", [
-    ('<phyrex r.seed="1">', "'Bayesian tier'"),
-    ('<phyml mutmap="yes">', "'Auxiliary tools'")])
+    ('<phyrex r.seed="1">', "'Bayesian tier'")])
 def test_xml_features_left_unported_stop_the_run(root, item, tmp_path,
                                                  capsys):
     tag = root[1:].split()[0].rstrip(">")

@@ -16,8 +16,12 @@ the XML default) at a fixed topology.  Both packages:
   the same trace header, rows and comment lines, the same stats
   labels, a chronogram of all taxa.
 
-A <phyrex> root and mutmap="yes" stop the port's run naming their
-ROADMAP items (tests/test_torch_partitioned.py).
+With mutmap="yes" on the root (the lognormal case at 100 iterations),
+both packages write a mutation map of the final tree in one format,
+and the port's events are consistent: each within its edge's length,
+each (edge, site)'s events chained state to state.  A <phyrex> root
+stops the port's run naming its ROADMAP item
+(tests/test_torch_partitioned.py).
 """
 
 import importlib
@@ -44,7 +48,8 @@ def _one_torch_thread():
 
 
 def dating_xml(d, aln_name, tree_path, names, root_h, clade, clade_h,
-               lineagerates=None, sample_topology=True, seed=3):
+               lineagerates=None, sample_topology=True, seed=3,
+               mutmap=False):
     """A <phytime> analysis: HKY85+G4 on aln_name, the user tree, a root
     calibration around root_h and one on `clade` around clade_h."""
     lr = (f'  <lineagerates model="{lineagerates}"/>\n'
@@ -52,7 +57,8 @@ def dating_xml(d, aln_name, tree_path, names, root_h, clade, clade_h,
     taxa = "".join(f'<taxon value="{t}"/>' for t in names)
     sub = "".join(f'<taxon value="{t}"/>' for t in clade)
     opt = "yes" if sample_topology else "no"
-    text = f"""<phytime run.id="dating" output.file="out" r.seed="{seed}"
+    mm = ' mutmap="yes"' if mutmap else ""
+    text = f"""<phytime run.id="dating" output.file="out" r.seed="{seed}"{mm}
   mcmc.chain.len="1e5" mcmc.sample.every="10" mcmc.burnin="100">
 {lr}  <topology><instance id="T1" init.tree="user" file.name="{tree_path}"
     optimise.tree="{opt}"/></topology>
@@ -169,3 +175,40 @@ def test_cli_runs_a_phytime_xml_on_the_cpu(tmp_path):
     for suffix in ("_phyml_trace.txt", "_phyml_stats.txt",
                    "_chronogram.txt"):
         assert (tmp_path / f"out_dating{suffix}").stat().st_size > 0
+
+
+def test_phytime_xml_writes_a_mutation_map(tmp_path):
+    jtt, _, _ = _problem(tmp_path)
+    tree_path = tmp_path / "tree.nwk"
+    tree_path.write_text(jtt.to_newick())
+    h = np.asarray(jtt.heights)
+    maps = {}
+    for pkg, mod, kw in (("phyml_tpu", jxml, {}),
+                         ("phyml_tpu_torch", txml, {"device": "cpu"})):
+        d = tmp_path / pkg
+        d.mkdir()
+        (d / "aln.phy").write_text((tmp_path / "aln7.phy").read_text())
+        xml = dating_xml(d, "aln.phy", str(tree_path), list(jtt.names),
+                         h[jtt.root], list(jtt.names[:2]), h[jtt.n_otu],
+                         "lognormal", False, mutmap=True)
+        assert mod.run_xml(xml, quiet=True, mcmc_iter_cap=100, **kw) == 0
+        maps[pkg] = (d / "out_dating_phyml_mutmap.txt").read_text() \
+            .splitlines()
+        chrono = (d / "out_dating_chronogram.txt").read_text()
+    for lines in maps.values():
+        assert lines[0] == ("# sampled substitution history "
+                            "(node, site, time_from_parent, from, to)")
+        assert len(lines) > 1
+    # the port's events on its final chronogram's edges
+    by = {}
+    for ln in maps["phyml_tpu_torch"][1:]:
+        u, p, t, a, b = ln.split("\t")
+        assert 0 <= int(u) < 2 * jtt.n_otu - 2 and float(t) > 0
+        assert 0 <= int(a) < 4 and 0 <= int(b) < 4 and a != b
+        by.setdefault((int(u), int(p)), []).append((float(t), int(a),
+                                                    int(b)))
+    for evs in by.values():
+        evs.sort()
+        for (_, _, b), (_, a, _) in zip(evs, evs[1:]):
+            assert a == b
+    assert chrono.strip().endswith(";")

@@ -155,10 +155,7 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag, item", [
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
-    (["--mutmap"], "'Auxiliary tools'"),
-    (["--ancestral"], "'Auxiliary tools'"),
-    (["--xml", "phyrex.xml"], "'Bayesian tier'"),
-    (["--cv", "tip"], "'Auxiliary tools'")])
+    (["--xml", "phyrex.xml"], "'Bayesian tier'")])
 def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
