@@ -99,8 +99,24 @@
    (lognormal clock, 10,000 iterations): its Hessian a float64 tensor
    on the card, no kernel launched; a `<phytime mutmap="yes">` XML at
    16 x 500;
-14. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11, 12
-   and 13 run last, after every full-width path: the CPU float64 side
+14. PhyREX, the joint phylogeography chain (`phyrex_phase`): three
+   `--xml` runs with a <phyrex> root on the DNA problem (taxa labelled
+   S|Name|; tip coordinates simulated as Brownian motion down the
+   simulating tree and written in the reference's coordinates format,
+   read back through read_coordinates): <spatialmodel
+   name="rrw+lognormal"> with a lognormal clock and topology moves,
+   5,000 iterations; "ibm" at a fixed topology under the XML's default
+   (Guindon) clock, 2,000 iterations with the posterior velocity
+   draws; no <spatialmodel> (the SLFV event-disk sampler), 200 sweeps.
+   Each with the launch counters reset just before and read just
+   after: wall, ms an iteration (a sweep), sequence lnL evaluations
+   and their ms, the location term's host ms, launches, idle share,
+   peak; every posterior lnL on K1 (K2 only for the start chronogram,
+   K3 never), its outputs parsed, its ancestral locations finite, its
+   heights feasible; K1 at each run's final tree against its plain
+   version;
+15. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11, 12,
+   13 and 14 run last, after every full-width path: the CPU float64 side
    of each
    in a worker process (spawned, one torch thread each, all started
    together, stopped before the script ends), the card's side in this
@@ -112,13 +128,19 @@
    card's posteriors (within AUX_TOL, the same MAP states where the top
    two differ by more than MAP_TIE), CV tip score (CV_TOL) and fastlk
    Hessian (HESS_REL) to the CPU's, and replays the card's mutation map
-   from its sampled states.
+   from its sampled states; the PhyREX check holds the card's start
+   chronogram to the CPU's, the lnL and log prior (the location term
+   included) at the final states of card rrw and ibm chains to a CPU
+   float64 recompute, the SLFV sampler's posterior at its final state
+   to `_loglik_np` + its prior + a float64 sequence lnL, and
+   GeoModel.loglik on the card to the CPU's.
 
 It prints a JSON line of the default runs' numbers, a JSON line of the
 supports' numbers, a JSON line of step 10's numbers, a JSON line of
 the phytime runs' numbers, a JSON line of step 12's numbers, a JSON
 line of step 13's (`aux_tools`: each tool's wall-clock, the fits'
-launches, the idle shares), a JSON line of per-kernel results
+launches, the idle shares), a JSON line of step 14's (`phyrex`), a
+JSON line of per-kernel results
 (`launches` from the default run, `launches_fixed_fit` from step 6,
 `launches_aux_tools_fit` from step 13's tools run; the stacked forms'
 from the rapid bootstrap, by stack size; a cell's rows, named "[cell]",
@@ -1842,7 +1864,7 @@ def small_checks(tmp):
     process meanwhile; then each comparison.  Returns (the supports
     check's aBayes gap, {slice check: numbers}, the dating check's
     numbers, {state-count check: numbers}, the tools' check's
-    numbers)."""
+    numbers, the PhyREX check's numbers)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1856,6 +1878,7 @@ def small_checks(tmp):
     checks.append(("small_support", support_side, (), report_support))
     checks.append(("small_phytime", phytime_side, (), report_phytime))
     checks.append(("small_aux", aux_side, (), report_aux))
+    checks.append(("small_phyrex", phyrex_side, (), report_phyrex))
     checks += [(label, slice_side, (label,), report_slice)
                for label in slice_labels]
     checks += [(f"small_{dt}", fit_side, (dt,), report_fit)
@@ -1876,7 +1899,7 @@ def small_checks(tmp):
         pool.shutdown(wait=True, cancel_futures=True)
     states = {k: out[k] for k in states_labels + ["small_cov_chain"]}
     return out["small_support"], {k: out[k] for k in slice_labels}, \
-        out["small_phytime"], states, out["small_aux"]
+        out["small_phytime"], states, out["small_aux"], out["small_phyrex"]
 
 
 def mixture_rows(aln_path, tree_path, cuda, regs):
@@ -3151,6 +3174,521 @@ def report_aux(gpu, cpu):
                 gpu_s=g_s, cpu_s=c_s)
 
 
+# ----------------------------------------------------------------------
+# PhyREX, the joint phylogeography chain: the movement models on the
+# chain's log prior, the SLFV event-disk sampler, the <phyrex> root
+# ----------------------------------------------------------------------
+# <phyrex> runs at full width: label -> (<spatialmodel> name or None for
+# the SLFV default, <lineagerates> model or None for the XML default
+# (the Guindon clock), optimise.tree, mcmc_iter_cap; SLFV sweeps are
+# the cap / 20)
+PHYREX_RUNS = {"rrw": ("rrw+lognormal", "lognormal", True, 5000),
+               "ibm": ("ibm", None, False, 2000),
+               "slfv": (None, None, True, 4000)}
+PHYREX_ROOT = (-95.0, 38.0)   # the tips' coordinates: Brownian motion
+PHYREX_S2 = 4.0               # from here, degrees^2 per unit of height
+GEO_REL = 1e-9    # GeoModel.loglik, card float64 against CPU float64
+
+
+def phyrex_labels(names):
+    """Taxon labels that carry the coordinate rows' '|Name|' token."""
+    return [f"S|{nm}|" for nm in names]
+
+
+def phyrex_problem(d, n_taxa, n_sites, seed):
+    """The DNA problem with its taxa relabelled S|Name| (alignment and
+    tree), and a coordinates file in the reference's format ('#
+    state.name lon lat', then '|Name| lon lat'): Brownian motion down
+    the simulating tree from PHYREX_ROOT, sigma^2 PHYREX_S2, from the
+    seed.  Returns (alignment path, tree path, coordinates path,
+    coordinates [n, 2] in taxon order)."""
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.topology import Topology
+
+    aln_path, tree_path = write_problem(d, "nt", n_taxa, n_sites, seed)
+    names = read_phylip_rows(aln_path)[0]
+    with open(tree_path) as fh:
+        topo = Topology.from_newick(fh.read(), names)
+    tt = TimeTree.from_topology(topo, names=names)
+    rng = np.random.default_rng(seed + 12)
+    par, dt = tt.parent, tt.edge_durations()
+    x = np.zeros((tt.n_nodes, 2))
+    x[tt.root] = PHYREX_ROOT
+    for u in range(tt.n_nodes - 2, -1, -1):
+        x[u] = x[par[u]] + rng.normal(size=2) * np.sqrt(PHYREX_S2 * dt[u])
+    labels = phyrex_labels(names)
+    with open(aln_path) as fh:
+        head, *rows = fh.read().splitlines()
+    with open(aln_path, "w") as fh:
+        fh.write(head + "\n" + "".join(
+            f"{lab}  {row.split()[1]}\n" for lab, row in zip(labels, rows)))
+    with open(tree_path, "w") as fh:
+        fh.write(topo.to_newick(labels) + "\n")
+    coord_path = os.path.join(d, "coords.txt")
+    with open(coord_path, "w") as fh:
+        fh.write("# state.name lon lat\n")
+        for nm, (a, b) in zip(names, x[:n_taxa]):
+            fh.write(f"|{nm}| {float(a)!r} {float(b)!r}\n")
+    return aln_path, tree_path, coord_path, x[:n_taxa]
+
+
+def phyrex_xml(path, aln_name, tree_path, coord_name, spatial, lineagerates,
+               sample_topology, seed=1):
+    """A <phyrex> analysis: GTR+G4 on aln_name, the user tree, the
+    coordinates, the <spatialmodel> (none: SLFV), outputs out_phyrex_*."""
+    sm = f'  <spatialmodel name="{spatial}"/>\n' if spatial else ""
+    lr = (f'  <lineagerates model="{lineagerates}"/>\n'
+          if lineagerates else "")
+    rates = "".join(f'<instance id="R{i}" init.value="1.0"/>'
+                    for i in range(1, 5))
+    with open(path, "w") as fh:
+        fh.write(f'''<phyrex run.id="phyrex" output.file="out" r.seed="{seed}"
+  mcmc.chain.len="1e6" mcmc.sample.every="50" mcmc.burnin="1000">
+{sm}{lr}  <topology><instance id="T1" init.tree="user" file.name="{tree_path}"
+    optimise.tree="{'yes' if sample_topology else 'no'}"/></topology>
+  <ratematrices><instance id="M1" model="GTR"/></ratematrices>
+  <siterates>{rates}<weights family="gamma" alpha="1.0"/></siterates>
+  <branchlengths><instance id="L1"/></branchlengths>
+  <partitionelem file.name="{aln_name}" data.type="nt" interleaved="no">
+    <mixtureelem list="T1,T1,T1,T1"/>
+    <mixtureelem list="M1,M1,M1,M1"/>
+    <mixtureelem list="R1,R2,R3,R4"/>
+    <mixtureelem list="L1,L1,L1,L1"/>
+  </partitionelem>
+  <coordinates file.name="{coord_name}"/>
+</phyrex>
+''')
+
+
+@contextlib.contextmanager
+def phyrex_probes():
+    """Counts and times the chain's lnL evaluations (MCMC._lnL, each
+    one slot-kernel pass and a read-back), the location term
+    (traits.location_loglik), the topology proposals, the SLFV
+    sampler's sweeps and its sequence lnL calls, and keeps each
+    run_phyrex's result with the launch counts at its start (after
+    the start chronogram's fit); restores the functions on the way
+    out."""
+    from phyml_tpu_torch.bayes import phyrex, slfv, traits
+    from phyml_tpu_torch.bayes.mcmc import MCMC
+
+    rec = {"results": [], "at_start": []}
+    inside = []
+
+    def timed_fn(fn, key):
+        def run(*a, **k):
+            k_ = "topology lnL" if key == "lnL" and any(inside) else key
+            inside.append(key == "topology")
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.pop()
+                got = rec.setdefault(k_, [0, 0.0])
+                got[0] += 1
+                got[1] += time.perf_counter() - t
+        return run
+
+    def seq_fn_factory(engine, params):
+        rec["seq_system"] = (engine, engine.system_of(params))
+        return timed_fn(make_seq(engine, params), "seq lnL")
+
+    def run_phyrex(*a, **k):
+        rec["at_start"].append({n: f.launches for n, f in wrappers().items()})
+        rec["results"].append(real_run(*a, **k))
+        return rec["results"][-1]
+
+    saved = [(MCMC, "_lnL", MCMC._lnL),
+             (MCMC, "topology_step", MCMC.topology_step),
+             (MCMC, "run", MCMC.run),
+             (traits, "location_loglik", traits.location_loglik),
+             (slfv.SLFVJointSampler, "sweep", slfv.SLFVJointSampler.sweep),
+             (slfv, "make_seq_loglik_fn", slfv.make_seq_loglik_fn),
+             (phyrex, "run_phyrex", phyrex.run_phyrex)]
+    make_seq, real_run = slfv.make_seq_loglik_fn, phyrex.run_phyrex
+    MCMC._lnL = timed_fn(MCMC._lnL, "lnL")
+    MCMC.topology_step = timed_fn(MCMC.topology_step, "topology")
+    MCMC.run = timed_fn(MCMC.run, "run")
+    traits.location_loglik = timed_fn(traits.location_loglik, "location")
+    slfv.SLFVJointSampler.sweep = timed_fn(slfv.SLFVJointSampler.sweep,
+                                           "sweep")
+    slfv.make_seq_loglik_fn = seq_fn_factory
+    phyrex.run_phyrex = run_phyrex
+    try:
+        yield rec
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def phyrex_outputs(tag, prefix, names, rows, slfv):
+    """The trace (its header, `rows` rows of finite numbers, the MCMC
+    chain's ESS line), the stats (the PhyREX summary) and the
+    chronogram (every taxon, finite non-negative durations) parse."""
+    from phyml_tpu_torch.io.newick import parse_newick
+
+    with open(prefix + "_phyml_trace.txt") as fh:
+        lines = fh.read().splitlines()
+    head = ("sweep\tposterior\tlbda\tmu\trad\tn_disks\troot_height\tclock"
+            if slfv else "iter\tposterior\tlnL\troot_height\tclock\tnu")
+    if lines[0] != head:
+        fail(f"[{tag}] trace header {lines[0]!r}")
+    got = [[float(x) for x in ln.split("\t")] for ln in lines[1:]
+           if not ln.startswith("#")]
+    if len(got) != rows or not np.isfinite(got).all() or not (
+            slfv or any(ln.startswith("# ESS:") for ln in lines)):
+        fail(f"[{tag}] the trace does not parse: {len(got)} rows")
+    with open(prefix + "_phyml_stats.txt") as fh:
+        stats = fh.read()
+    if "PhyREX" not in stats or "root location" not in stats:
+        fail(f"[{tag}] the stats file lacks the PhyREX summary")
+    with open(prefix + "_chronogram.txt") as fh:
+        root = parse_newick(fh.read().strip())
+    leaves, lengths, stack = [], [], [root]
+    while stack:
+        nd = stack.pop()
+        stack += nd.children
+        if nd.is_leaf:
+            leaves.append(nd.name)
+        if nd is not root:
+            lengths.append(nd.length)
+    if sorted(leaves) != sorted(names) or not all(
+            x is not None and math.isfinite(x) and x >= 0 for x in lengths):
+        fail(f"[{tag}] the chronogram does not parse to the taxa with "
+             "finite non-negative durations")
+
+
+def slfv_kernel_row(cell, res, seq_system, launches):
+    """K1 at the SLFV sampler's final state (its collapsed tree, the
+    strict clock's branch lengths, the sequence term's engine and
+    system) against its plain version, timed, with its bound; launches
+    are the run's."""
+    import torch
+    from phyml_tpu_torch.bayes.slfv import state_to_timetree
+    from phyml_tpu_torch.ops import clv_slots
+
+    smp = res.sampler
+    eng, (lam, V, Vinv, pi, w, _) = seq_system
+    tt = state_to_timetree(smp.state)
+    dt = tt.edge_durations()
+    blen = np.maximum(smp.clock * dt, 1e-10)
+    blen[tt.root] = 0.0
+    pm = eng._pmats(lam, V, Vinv, torch.as_tensor(
+        blen, dtype=eng.dtype, device=eng.device))
+    _, sched, n_slots = eng._topology(torch.as_tensor(
+        tt.child.astype(np.int32)))
+    args = (sched, eng.slot_tips, pm, pi, eng._logw(w))
+    fn = wrappers()[eng.lnl_route]
+    ref, pms = timed(lambda: clv_slots.uppass_site_lse_slots_plain(
+        *args, n_slots=n_slots), 1)
+    out, ms = timed(lambda: fn(*args, n_slots=n_slots))
+    err = float((out - ref).abs().max())
+    n, C, ns, k = eng.n_otu, eng.C, eng.ns, eng.P
+    b_ms, b_by = bound(pruning_flops(n, C, ns, k),
+                       nbytes(sched, eng.tips, pm, pi, args[4]) + k * 4)
+    kname = eng.lnl_route
+    print(f". [{cell}] {kname} {fn.__name__} at the SLFV sampler's final "
+          f"tree: max|d|={err:.3e} (tol {site_tol('nt', ns):g})  kernel "
+          f"{ms:.4f} ms  plain {pms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
+          f"launches {launches}")
+    if not err <= site_tol("nt", ns):
+        fail(f"[{cell}] {kname} disagrees with its plain version at the "
+             f"SLFV sampler's final tree: {err}")
+    return dict(name=f"{kname} {fn.__name__} [{cell}]", route="cuda",
+                source=f"phyml_tpu_torch/csrc/{SOURCE[kname]}",
+                replaces=TPU_KERNEL[kname], launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, ns=ns, path="nt", cell=cell,
+                launches_from="the phyrex slfv run")
+
+
+def phyrex_run(label, d, cuda):
+    """One <phyrex> XML run through run_xml on the card (PHYREX_RUNS) on
+    the relabelled DNA problem, with every launch counter set to 0 just
+    before and read just after, the chain's lnL evaluations, location
+    terms, topology proposals and SLFV sweeps counted and timed, the
+    card's idle share and peak memory.  Checks every posterior lnL ran
+    on K1 (K2 only before the chain: the start chronogram), K3 never,
+    the outputs, finite ancestral locations and feasible heights.
+    Returns (counts, result, numbers, the SLFV sequence term's
+    (engine, system) or None)."""
+    import torch
+    from phyml_tpu_torch.io.xmlcfg import run_xml
+
+    spatial, lineagerates, topo_moves, cap = PHYREX_RUNS[label]
+    tag = f"phyrex {label}"
+    aln, tree, coords, _ = phyrex_problem(d, N_TAXA, N_SITES, SEED)
+    names = read_phylip_rows(aln)[0]
+    xml = os.path.join(d, "phyrex.xml")
+    phyrex_xml(xml, os.path.basename(aln), tree, os.path.basename(coords),
+               spatial, lineagerates, topo_moves)
+    W = wrappers()
+    reset_counts()
+    with phyrex_probes() as rec, utilization_sampler() as util:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.time()
+        rc = run_xml(xml, quiet=True, device=cuda, mcmc_iter_cap=cap)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    counts = {name: fn.launches for name, fn in W.items()}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    busy = statistics.mean(util) if util else None
+    if rc != 0:
+        fail(f"[{tag}] run_xml returned {rc}")
+    res, at_start = rec["results"][0], rec["at_start"][0]
+    slfv = spatial is None
+    n_lnl, lnl_s = rec.get("seq lnL" if slfv else "lnL", (0, 0.0))
+    n_loc, loc_s = rec.get("location", (0, 0.0))
+    n_topo, topo_s = rec.get("topology", (0, 0.0))
+    n_tlnl, tlnl_s = rec.get("topology lnL", (0, 0.0))
+    steps = res.summary["n_iter"]
+    chain_s = rec["sweep"][1] if slfv else rec["run"][1]
+    chain_k1 = counts["K1"] - at_start["K1"]
+    num = dict(
+        n_taxa=len(names), iterations=steps, unit="sweep" if slfv else
+        "iteration", wall_s=wall, chain_s=chain_s, setup_s=wall - chain_s,
+        ms_per_step=1e3 * chain_s / steps, lnl_evaluations=n_lnl + n_tlnl,
+        lnl_ms=1e3 * (lnl_s + tlnl_s) / max(1, n_lnl + n_tlnl),
+        location_terms=n_loc, location_ms=1e3 * loc_s / max(1, n_loc),
+        host_ms_per_step=1e3 * (chain_s - lnl_s - topo_s) / steps,
+        launches=counts, launches_before_chain=at_start,
+        k1_launches_per_step=chain_k1 / steps,
+        idle_share=None if busy is None else 1 - busy,
+        nvml_samples=len(util), peak_gib=peak,
+        final_posterior=float(res.summary["posterior_final"]),
+        final_lnl=float(res.summary["lnL_final"]),
+        sigma2=float(res.sigma2), clock=float(res.summary["clock_rate"]),
+        root_location=res.summary["root_location"])
+    if slfv:
+        smp = res.sampler
+        num.update(n_disks=int(smp.state.n_disks), lbda=smp.params.lbda,
+                   mu=smp.params.mu, rad=smp.params.rad,
+                   accepts=dict(smp.accepts), tries=dict(smp.tries))
+    else:
+        mcmc = res.sampler
+        num.update(topology_tries=mcmc.topo_tries,
+                   topology_accepts=mcmc.topo_accepts,
+                   topology_ms=1e3 * topo_s / max(1, n_topo),
+                   mala_weight=float(mcmc.move_w[-1]),
+                   ess={k: float(v) for k, v in mcmc.ess.items()})
+        if res.velocity_samples is not None:
+            num.update(velocity_ess=res.summary["velocity_ess"],
+                       velocity_draws=res.summary["n_velocity_samples"])
+    print(f". [{tag}] {len(names)} taxa, {steps} {num['unit']}s: wall "
+          f"{wall:.2f} s (chain {chain_s:.2f} s, {num['ms_per_step']:.3f} ms "
+          f"a {num['unit']}; set-up {wall - chain_s:.2f} s); "
+          f"{num['lnl_evaluations']} sequence lnL evaluations x "
+          f"{num['lnl_ms']:.3f} ms (with the read-back); {n_loc} location "
+          f"terms x {num['location_ms']:.3f} ms (host); host "
+          f"{num['host_ms_per_step']:.3f} ms a {num['unit']}; K1 "
+          f"{num['k1_launches_per_step']:.3f} launches a {num['unit']}; "
+          "idle share " + ("not measured" if busy is None else
+                           f"{1 - busy:.3f}")
+          + f"; peak {peak:.3f} GiB; launches {counts} ({at_start} before "
+          "the chain)")
+    print(f". [{tag}] final posterior {num['final_posterior']:.4f}, lnL "
+          f"{num['final_lnl']:.4f}, sigma^2 {num['sigma2']:.6g}, clock "
+          f"{num['clock']:.6g}, root location {num['root_location']}")
+    if not (math.isfinite(num["final_posterior"])
+            and math.isfinite(num["final_lnl"])):
+        fail(f"[{tag}] the final posterior or lnL is not finite")
+    if counts["K3"] != 0 or any(counts[k] for k in ("K4", "K5")):
+        fail(f"[{tag}] a kernel off the DNA route or K3 launched: {counts}")
+    if counts["K2"] != at_start["K2"] or at_start["K2"] <= 0:
+        fail(f"[{tag}] K2 launched {counts['K2'] - at_start['K2']} times "
+             f"in the chain (the start chronogram's {at_start['K2']})")
+    if chain_k1 < num["lnl_evaluations"] or num["lnl_evaluations"] <= 0:
+        fail(f"[{tag}] {num['lnl_evaluations']} lnL evaluations but "
+             f"{chain_k1} K1 launches in the chain")
+    if not slfv and num["mala_weight"] != 0.0:
+        fail(f"[{tag}] MALA has weight {num['mala_weight']} on the card")
+    if topo_moves and not slfv and res.sampler.topo_tries == 0:
+        fail(f"[{tag}] no topology move was tried")
+    if not np.isfinite(res.anc_locations).all():
+        fail(f"[{tag}] the ancestral locations are not finite")
+    if slfv:
+        s = res.state
+        kids = np.nonzero(s.parent >= 0)[0]
+        gap = float((s.h_node[s.parent[kids]] - s.h_node[kids]).min())
+        if not gap > 0:
+            fail(f"[{tag}] an ldsk is older than its parent ({gap})")
+        num["min_duration"] = gap
+    else:
+        num["min_duration"] = chain_state_checks(tag, res, [])
+    thin = max(1, steps // 200) if slfv else 50
+    phyrex_outputs(tag, os.path.join(d, "out_phyrex"), names,
+                   -(-steps // thin), slfv)
+    return counts, res, num, rec.get("seq_system")
+
+
+def phyrex_phase(tmp, cuda):
+    """The three <phyrex> runs at full width (PHYREX_RUNS), each on its
+    own copy of the problem, and K1's rows at each run's final state.
+    Returns (numbers by run, kernel rows)."""
+    import torch
+
+    runs, rows = {}, []
+    t0 = time.time()
+    for label in PHYREX_RUNS:
+        counts, res, runs[label], seq_system = phyrex_run(
+            label, os.path.join(tmp, f"phyrex_{label}"), cuda)
+        cell = f"phyrex-{label}"
+        launches = counts["K1"] - runs[label]["launches_before_chain"]["K1"]
+        if label == "slfv":
+            rows.append(slfv_kernel_row(cell, res, seq_system, launches))
+        else:
+            rows.append(chain_kernel_row(
+                label, cell, res.sampler, res.state, "nt", launches,
+                mgf=res.sampler.rate_model.kind == "guindon"))
+        del res
+        torch.cuda.empty_cache()
+    runs["wall_s"] = time.time() - t0
+    print(f". [phyrex] phase wall {runs['wall_s']:.1f} s")
+    return runs, rows
+
+
+def phyrex_side(d, platform):
+    """The 16 x 500 PhyREX check's side on one platform: the start
+    chronogram of an rrw <phyrex> run (the user tree's branch lengths
+    fitted) and, on the card, the final states of a 500-iteration rrw
+    chain, a 500-iteration ibm chain and 50 SLFV sweeps; and
+    GeoModel.loglik at three labelings on the simulating tree (the CPU
+    side too)."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.geo import GeoModel
+    from phyml_tpu_torch.bayes.mcmc import MCMCSettings
+    from phyml_tpu_torch.bayes.phyrex import run_phyrex
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths
+    from phyml_tpu_torch.search.nni import _host_blen
+    from phyml_tpu_torch.topology import Topology
+
+    device = torch.device("cuda" if platform == "gpu" else "cpu")
+    dtype = torch.float32 if platform == "gpu" else torch.float64
+    aln_path, tree_path, _, x = phyrex_problem(d, 16, 500, SEED + 1)
+    aln = read_alignment(aln_path, datatype="nt")
+    names = list(aln.names)
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    params = model.init_params(aln.obs_state_freqs)
+    eng = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+    with open(tree_path) as fh:
+        topo = Topology.from_newick(fh.read(), names)
+    sim_tree = TimeTree.from_topology(topo.copy(), names=names)
+    rv = topo.rooted()
+    ta, _ = optimize_branch_lengths(eng, params, tree_arrays(
+        rv, dtype=dtype, device=device))
+    topo.set_blen_from_rooted(rv, _host_blen(ta))
+    tt = TimeTree.from_topology(topo, names=names)
+    out = dict(dir=d, child=tt.child, heights=tt.heights, coords=x)
+    if platform == "gpu":
+        for kind in ("rrw", "ibm", "slfv"):
+            res = run_phyrex(aln, x, tt, model=model, trait_kind=kind,
+                             settings=MCMCSettings(n_iter=500, burnin=250,
+                                                   batch=250, seed=3),
+                             engine=eng)
+            if kind == "slfv":
+                smp = res.sampler
+                s = smp.state
+                out[kind] = dict(
+                    state={f: getattr(s, f) for f in (
+                        "n_otu", "coord", "h_node", "parent", "h_disk",
+                        "centr", "hit")},
+                    params=dict(vars(smp.params)), clock=smp.clock,
+                    lp=smp.lp, seq_lnl=smp.seq_lnl)
+            else:
+                st = res.state
+                out[kind] = {k: ({k2: v2.numpy() for k2, v2 in v.items()}
+                                 if isinstance(v, dict) else v.numpy())
+                             for k, v in st._asdict().items()}
+    rng = np.random.default_rng(SEED + 2)
+    land = rng.uniform(0.0, 10.0, size=(6, 2))
+    geo = GeoModel(land, sim_tree, rng.integers(0, 6, size=16),
+                   device=device)
+    out["geo"] = [float(geo.loglik(geo.init_locations(rng), s, lb, ta))
+                  for s, lb, ta in ((1.0, 1.0, 1.0), (2.0, 0.4, 0.8),
+                                    (0.7, 1.5, 1.2))]
+    return out
+
+
+def report_phyrex(gpu, cpu):
+    """The 16 x 500 PhyREX check: the same start chronogram (heights
+    within HEIGHT_TOL); at each card chain's final state a CPU float64
+    chain's lnL (within F64_TOL) and log prior, the location term
+    included (within PRIOR_REL); the SLFV sampler's posterior at its
+    final state against a CPU recompute (_loglik_np + the parameter
+    prior + the float64 sequence lnL, within F64_TOL); GeoModel.loglik
+    card against CPU within GEO_REL."""
+    import torch
+    from phyml_tpu_torch.bayes.chrono import TimeTree
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.slfv import (
+        SLFVJointSampler, _loglik_np, make_seq_loglik_fn,
+    )
+    from phyml_tpu_torch.bayes.times import TimePrior
+    from phyml_tpu_torch.interop import (
+        chain_state_from_numpy, slfv_params_from_numpy,
+        slfv_state_from_numpy,
+    )
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine
+
+    (g, g_s), (c, c_s) = gpu, cpu
+    same_tree = np.array_equal(g["child"], c["child"])
+    dh = float(np.abs(g["heights"] - c["heights"]).max())
+    aln = read_alignment(os.path.join(g["dir"], "aln.phy"), datatype="nt")
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    params = model.init_params(aln.obs_state_freqs)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float64, device="cpu")
+    tt = TimeTree(n_otu=16, child=g["child"], heights=g["heights"],
+                  names=list(aln.names))
+    gaps = {}
+    for kind in ("rrw", "ibm"):
+        mcmc = MCMC(eng, model, params, tt, RateModel(kind="lognormal"),
+                    TimePrior(kind="coalescent"), MCMCSettings(seed=3),
+                    trait_x=g["coords"], trait_kind=kind)
+        s = g[kind]
+        st = chain_state_from_numpy(s)
+        gaps[kind] = (float(s["lnL"]) - float(mcmc._lnL(st)),
+                      float(s["lp"]) - float(mcmc._log_prior(st)),
+                      float(s["lp"]))
+    sl = g["slfv"]
+    state = slfv_state_from_numpy(sl["state"])
+    p = slfv_params_from_numpy(sl["params"])
+    seq = make_seq_loglik_fn(eng, params)(state, sl["clock"])
+    lp_cpu = _loglik_np(state, p) + SLFVJointSampler._lprior(p) + seq
+    gaps["slfv"] = (sl["seq_lnl"] - seq, sl["lp"] - lp_cpu, sl["lp"])
+    geo_gap = max(abs(a - b) / max(1.0, abs(b))
+                  for a, b in zip(g["geo"], c["geo"]))
+    print(f". [small] phyrex: start chronogram card against CPU: same "
+          f"topology {same_tree}, heights max|d| {dh:.2e} (tol "
+          f"{HEIGHT_TOL:g}); card lnL - CPU f64 at the final states: "
+          + ", ".join(f"{k} {v[0]:.3e}" for k, v in gaps.items())
+          + f" (tol {F64_TOL}); log prior (rrw, ibm) / SLFV posterior: "
+          + ", ".join(f"{k} {v[1]:.2e}" for k, v in gaps.items())
+          + f"; GeoModel.loglik relative gap {geo_gap:.2e} (tol {GEO_REL:g})"
+          f" ({g_s:.1f} s card, {c_s:.1f} s CPU)")
+    if not (same_tree and dh <= HEIGHT_TOL):
+        fail("small phyrex: the start chronograms differ")
+    for kind, (dl, dp, lp) in gaps.items():
+        ok_p = (abs(dp) <= F64_TOL if kind == "slfv"
+                else abs(dp) <= PRIOR_REL * max(1.0, abs(lp)))
+        if not (abs(dl) <= F64_TOL and ok_p):
+            fail(f"small phyrex: the card's {kind} final state off the "
+                 f"CPU's recompute: lnL {dl}, log prior/posterior {dp}")
+    if not geo_gap <= GEO_REL:
+        fail(f"small phyrex: GeoModel.loglik card against CPU {geo_gap}")
+    return dict(height_gap=dh, lnl_gaps={k: v[0] for k, v in gaps.items()},
+                prior_gaps={k: v[1] for k, v in gaps.items()},
+                geo_rel_gap=geo_gap, gpu_s=g_s, cpu_s=c_s)
+
+
 def main() -> int:
     import torch
 
@@ -3262,8 +3800,12 @@ def main() -> int:
                     and "launches_by_stack" not in r:
                 r["launches_aux_tools_fit"] = aux_fit[r["path"]][kname]
         torch.cuda.empty_cache()
+        phyrex, phyrex_rows = phyrex_phase(tmp, cuda)
+        rows += phyrex_rows
+        torch.cuda.empty_cache()
         supports["small_abayes_gap"], mix["small"], phytime["small"], \
-            states["small"], aux["small"] = small_checks(tmp)
+            states["small"], aux["small"], phyrex["small"] = \
+            small_checks(tmp)
 
     print(f". chip_smoke: {time.time() - t_all:.0f} s in all, the kernels' "
           "build included")
@@ -3273,6 +3815,7 @@ def main() -> int:
     print(json.dumps({"phytime": phytime}, default=str))
     print(json.dumps({"state_counts": states}, default=str))
     print(json.dumps({"aux_tools": aux}, default=str))
+    print(json.dumps({"phyrex": phyrex}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,12 @@ have no backward pass, so, as phyml_tpu does whenever a kernel serves
 the likelihood, its weight is 0 on the card; on the CPU its gradient
 is torch.autograd through the plain scan.
 
+trait_x (PhyREX: tip coordinates under the rw/rrw/ibm/iwn/iou movement
+models of bayes/traits.py) adds the location term to the log prior and
+the trait moves (sigma^2, the RRW edge scalers); the term is float64
+host arithmetic on the CPU tensors of the chain state, differentiable
+for MALA.
+
 fastlk=True (the reference's --fastlk) swaps the likelihood for the
 normal approximation fitted at the initial tree (optim/fastlk.py, on
 the engine's device in float64): the substitution moves and MALA get
@@ -59,9 +65,6 @@ from phyml_tpu_torch.ops.likelihood import TreeArrays
 
 NEG_INF = -1e30
 F64 = torch.float64
-
-# ROADMAP.md Queue 1 item that ports what this chain refuses
-_BAYES = "Queue 1, 'Bayesian tier'"
 
 
 class ChainState(NamedTuple):
@@ -136,12 +139,14 @@ class MCMC:
     def __init__(self, engine, model, subst_params, time_tree: TimeTree,
                  rate_model: RateModel, time_prior: TimePrior,
                  settings: MCMCSettings | None = None, trait_x=None,
+                 trait_kind: str = "rrw", trait_nu: float = 1.0,
                  fastlk: bool = False, sample_topology: bool = False,
                  topo_moves_per_batch: int | None = None):
-        if trait_x is not None:
-            raise NotImplementedError(
-                "MCMC(trait_x=...): the PhyREX trait and location models "
-                f"are not ported to phyml_tpu_torch yet (ROADMAP.md {_BAYES})")
+        """trait_x [n_otu, D] (optional): observed tip coordinates /
+        continuous traits; when given, the chain jointly samples the
+        movement model (trait_kind in rw/rrw/ibm/iwn/iou) — the
+        phyrex posterior (PHYREX_MCMC phyrex.c:1234) with the
+        genealogy informed by both sequences and locations."""
         if fastlk and rate_model.kind == GUINDON:
             # the quadratic lnL expansion is a function of expected
             # branch lengths only; it cannot represent the Guindon-2012
@@ -165,6 +170,10 @@ class MCMC:
         self.time_prior = time_prior.resolve(time_tree)
         self._priors = {}        # resolved time prior per child table
         self.s = settings or MCMCSettings()
+        self.trait_x = (None if trait_x is None
+                        else torch.as_tensor(np.asarray(trait_x), dtype=F64))
+        self.trait_kind = trait_kind
+        self.trait_nu = trait_nu
         self.sample_topology = sample_topology
         self.topo_moves_per_batch = (
             topo_moves_per_batch if topo_moves_per_batch is not None
@@ -194,14 +203,16 @@ class MCMC:
             0.01,
         ])
         relaxed = rate_model.kind != STRICT
+        has_tr = trait_x is not None
         w = np.array([
             3.0 * (n - 2), 2.0, 2.0, 2.0,
             (1.5 * (2 * n - 2)) if relaxed else 0.0,
             2.0 if relaxed else 0.0,
             2.0 * len(self.hyper_names), 7.0, 7.0,
             6.0 if relaxed else 0.0,
-            0.0,                    # trait_s2 (no trait data)
-            0.0,                    # trait_scaler
+            2.0 if has_tr else 0.0,  # trait_s2
+            (1.5 * (2 * n - 2)) if has_tr and trait_kind == "rrw"
+            else 0.0,               # trait_scaler
             6.0,                    # tree_clock_swap (lnL-invariant)
             1.0 * max(n - 3, 0),    # subtree_scale
             6.0,                    # updown_root_clock
@@ -391,7 +402,22 @@ class MCMC:
         lp = lp - nu
         z = ((state.log_clock - self.s.clock_prior_mean_log)
              / self.s.clock_prior_sd_log)
-        return lp - 0.5 * z * z
+        lp = lp - 0.5 * z * z
+        if self.trait_x is not None:
+            # location/trait likelihood rides in the prior slot so it
+            # is recomputed for every move touching heights or the
+            # movement parameters (float64 host arithmetic, kept
+            # differentiable for MALA); state.child, so genealogy moves
+            # re-derive the integrated kinds' MRCA table, and only rrw
+            # reads the edge scalers and nu
+            from phyml_tpu_torch.bayes.traits import location_loglik
+            s2x = torch.exp(state.log_s2x)
+            lk_x = location_loglik(
+                self.trait_kind, self.trait_x, state.child,
+                torch.clamp(dt, min=0.0), s2x, log_scalers=state.trait_lr,
+                nu=self.trait_nu)
+            lp = lp + lk_x - s2x  # Exp(1) hyperprior on sigma^2
+        return lp
 
     # ------------------------------------------------------------------
     # moves: apply(state, step, *variates) -> (proposal, log Hastings,

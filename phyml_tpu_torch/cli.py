@@ -18,7 +18,7 @@ SH-aLRT and aBayes), the model and data flags (`--il`, `--codpos`,
 alphabets (`-d generic`), `--checkpoint`, `--print_site_lnl`, the
 auxiliary tools on the final tree (`--ps`, `--cv tip|kfold.col|
 kfold.pos`, `--ancestral`, `--mutmap`, `--alias_subpatt`), and `--xml`
-analyses (io/xmlcfg.py: mixtures, partitions and phytime).  With no
+analyses (io/xmlcfg.py: mixtures, partitions, phytime and phyrex).  With no
 arguments it opens the interactive menu (interface.py).  Only
 `--distributed` stops the run, with a message naming the ROADMAP.md
 item that ports it.

@@ -60,3 +60,28 @@ def chain_state_from_numpy(state: dict):
         else:
             out[name] = f64(v)
     return ChainState(**out)
+
+
+def slfv_state_from_numpy(state: dict):
+    """The port's SLFVState from phyml_tpu's numpy fields (`{f:
+    getattr(jax_state, f) for f in (...)}` or `vars(jax_state)`): float64
+    coordinates, heights and centers, int64 parent and hit ids."""
+    from phyml_tpu_torch.bayes.slfv import SLFVState
+
+    f64 = lambda v: np.array(v, dtype=np.float64)
+    i64 = lambda v: np.array(v, dtype=np.int64)
+    return SLFVState(n_otu=int(state["n_otu"]), coord=f64(state["coord"]),
+                     h_node=f64(state["h_node"]), parent=i64(state["parent"]),
+                     h_disk=f64(state["h_disk"]), centr=f64(state["centr"]),
+                     hit=i64(state["hit"]))
+
+
+def slfv_params_from_numpy(params: dict):
+    """The port's SLFVParams from phyml_tpu's fields (`vars(jax_params)`)."""
+    from phyml_tpu_torch.bayes.slfv import SLFVParams
+
+    return SLFVParams(lbda=float(params["lbda"]), mu=float(params["mu"]),
+                      rad=float(params["rad"]),
+                      lim_lo=tuple(float(x) for x in params["lim_lo"]),
+                      lim_up=tuple(float(x) for x in params["lim_up"]),
+                      dist_type=str(params["dist_type"]))

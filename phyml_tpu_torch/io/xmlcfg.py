@@ -12,11 +12,12 @@ of one engine).
 
 Multiple <partitionelem> blocks run as a shared-topology partitioned
 analysis (search/partitioned.py); a <phytime> root runs the Bayesian
-dating chain (_run_xml_bayes, bayes/date.py), and its mutmap="yes"
-attribute writes a mutation map of the final tree (_write_mutmap).
-`parse_xml` is a copy of phyml_tpu's parser, which also reads the
-Bayesian roots' elements; a <phyrex> root stops the run naming the
-ROADMAP.md item that ports it.
+dating chain (_run_xml_bayes, bayes/date.py) and a <phyrex> root the
+joint phylogeography chain (bayes/phyrex.py: the <spatialmodel>'s
+movement model, SLFV when it is absent, on the tip coordinates of
+<coordinates>); the root's mutmap="yes" attribute writes a mutation
+map of the final tree (_write_mutmap).  `parse_xml` is a copy of
+phyml_tpu's parser.
 
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
 """
@@ -24,7 +25,6 @@ ROADMAP.md item that ports it.
 from __future__ import annotations
 
 import os
-import sys
 import time
 import xml.etree.ElementTree as ET
 
@@ -258,20 +258,6 @@ def build_model_from_xml(cfg: dict, part: dict):
     return model, overrides
 
 
-# ROADMAP.md Queue 1 item that ports the XML feature this module does
-# not run yet
-_BAYES = "Queue 1, 'Bayesian tier'"
-
-
-def _unported(cfg: dict) -> list[tuple[str, str]]:
-    """(feature, ROADMAP item) of every requested XML feature the port
-    does not run yet."""
-    checks = [
-        (cfg["kind"] == "phyrex", "<phyrex> root", _BAYES),
-    ]
-    return [(what, item) for hit, what, item in checks if hit]
-
-
 def _partition_setup(cfg: dict, part: dict, device, dtype, names=None):
     """(alignment, Partition) of one <partitionelem>: its alignment
     (rows in `names` order when given), model, starting parameters and
@@ -305,12 +291,12 @@ def _prefix(path: str, cfg: dict) -> str:
 
 def run_xml(path: str, quiet: bool = False, device=None,
             mcmc_iter_cap: int | None = None) -> int:
-    """Run the analysis a <phyml> or <phytime> root describes on
-    `device` (the CUDA device unless given), float32 on the card and
-    float64 on the CPU; returns the exit code (2 for a feature not
-    ported yet).  mcmc_iter_cap bounds a chain's length below the
-    XML's mcmc.chain.len (tests and smoke runs; an analysis runs the
-    XML's value, as the reference does)."""
+    """Run the analysis a <phyml>, <phytime> or <phyrex> root
+    describes on `device` (the CUDA device unless given), float32 on
+    the card and float64 on the CPU; returns the exit code.
+    mcmc_iter_cap bounds a chain's length below the XML's
+    mcmc.chain.len (tests and smoke runs; an analysis runs the XML's
+    value, as the reference does)."""
     from phyml_tpu_torch.io.output import format_stats, write_results
     from phyml_tpu_torch.ops.likelihood import default_device, tree_arrays
     from phyml_tpu_torch.optim.round import round_optimize
@@ -321,17 +307,11 @@ def run_xml(path: str, quiet: bool = False, device=None,
 
     t0 = time.time()
     cfg = parse_xml(path)
-    unported = _unported(cfg)
-    if unported:
-        for what, item in unported:
-            print(f"!! --xml {what}: not ported to phyml_tpu_torch yet "
-                  f"(ROADMAP.md {item})", file=sys.stderr)
-        return 2
     if not cfg["partitions"]:
         raise ValueError(f"{path}: no <partitionelem> found")
     device = default_device(device)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
-    if cfg["kind"] == "phytime":
+    if cfg["kind"] in ("phytime", "phyrex"):
         return _run_xml_bayes(path, cfg, quiet, mcmc_iter_cap, device,
                               dtype)
     if len(cfg["partitions"]) > 1:
@@ -436,17 +416,51 @@ def _run_xml_partitioned(path: str, cfg: dict, t0: float, quiet: bool,
     return 0
 
 
+def read_coordinates(path: str, names: list[str]) -> np.ndarray:
+    """Parse a phyrex coordinates file (usa_coord.txt format:
+    '# state.name lon lat' header then '|Name| lon lat' rows) and map
+    each taxon to its row.  The reference matches a row when its name
+    token appears in the taxon label (PHYREX_XML's coordinate lookup);
+    exact taxon-name rows also match."""
+    rows: dict[str, tuple[float, float]] = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            try:
+                xy = (float(parts[-2]), float(parts[-1]))
+            except ValueError:
+                continue
+            rows[" ".join(parts[:-2])] = xy
+    out = np.zeros((len(names), 2))
+    for i, nm in enumerate(names):
+        hit = rows.get(nm)
+        if hit is None:
+            for key, xy in rows.items():
+                if key and key in nm:
+                    hit = xy
+                    break
+        if hit is None:
+            raise ValueError(f"no coordinates for taxon {nm!r} "
+                             f"in {path}")
+        out[i] = hit
+    return out
+
+
 def _run_xml_bayes(path: str, cfg: dict, quiet: bool,
                    mcmc_iter_cap: int | None, device, dtype) -> int:
-    """<phytime> execution: build the model from the same schema
-    elements as <phyml>, construct a starting chronogram (the user tree
-    or BioNJ, its branch lengths fitted, rooted on its last edge), read
-    the calibrations, run the joint MCMC, write trace + stats +
-    chronogram (≙ DATE_XML date.c:37)."""
+    """<phytime> / <phyrex> execution: build the model from the same
+    schema elements as <phyml>, construct a starting chronogram (the
+    user tree or BioNJ, its branch lengths fitted, rooted on its last
+    edge), read the calibrations (the coordinates for phyrex), run the
+    joint MCMC, write trace + stats + chronogram (≙ DATE_XML date.c:37
+    and PHYREX_XML phyrex.c:37)."""
     from phyml_tpu_torch.bayes.chrono import TimeTree
-    from phyml_tpu_torch.bayes.date import (
-        calibrations_from_xml, print_summary, run_phytime,
-    )
+    from phyml_tpu_torch.bayes.date import calibrations_from_xml
     from phyml_tpu_torch.bayes.mcmc import MCMCSettings
     from phyml_tpu_torch.ops.likelihood import tree_arrays
     from phyml_tpu_torch.optim.blen import optimize_branch_lengths
@@ -477,16 +491,32 @@ def _run_xml_bayes(path: str, cfg: dict, quiet: bool,
         thin=max(1, cfg["mcmc"]["sample_every"]),
         seed=cfg["r_seed"],
     )
+    rate_kind = cfg["lineagerates"] or "lognormal"
+    sample_topo = tcfg.get("optimise", True)
     base = os.path.dirname(os.path.abspath(path))
     prefix = os.path.join(base, cfg["output_file"] or "phyml_tpu_out")
     if cfg["run_id"]:
         prefix += f"_{cfg['run_id']}"
     trace_path = prefix + "_phyml_trace.txt"
-    res = run_phytime(
-        aln, tt, model=model, rate_kind=cfg["lineagerates"] or "lognormal",
-        prior_kind="birthdeath", calibrations=calibrations_from_xml(path),
-        settings=settings, trace_path=trace_path, verbose=not quiet,
-        sample_topology=tcfg.get("optimise", True), engine=engine)
+    if cfg["kind"] == "phyrex":
+        # the substitution parameters are the model's initial ones, as
+        # in phyml_tpu's run_phyrex (the XML's overrides fit only the
+        # start chronogram); the node-time prior is the coalescent
+        from phyml_tpu_torch.bayes.phyrex import print_summary, run_phyrex
+        coords = read_coordinates(cfg["coordinates"], list(aln.names))
+        res = run_phyrex(
+            aln, coords, tt, model=model,
+            trait_kind=cfg["spatialmodel"], rate_kind=rate_kind,
+            settings=settings, trace_path=trace_path, verbose=not quiet,
+            sample_topology=sample_topo, spatial_dist=cfg["spatial_dist"],
+            engine=engine)
+    else:
+        from phyml_tpu_torch.bayes.date import print_summary, run_phytime
+        res = run_phytime(
+            aln, tt, model=model, rate_kind=rate_kind,
+            prior_kind="birthdeath", calibrations=calibrations_from_xml(path),
+            settings=settings, trace_path=trace_path, verbose=not quiet,
+            sample_topology=sample_topo, engine=engine)
 
     with open(prefix + "_phyml_stats.txt", "w") as fh:
         print_summary(res, out=fh)

@@ -24,8 +24,9 @@ tests/test_bayes.py:16-46), in float64, and are held:
 * the port's own invariants: the cached lnL equals a recompute within
   1e-6, one seed gives one chain, a checkpoint resume ends where the
   uninterrupted chain ends, the Guindon chain runs on the MGF path,
-  the trait_x refusal names its ROADMAP item, and fastlk builds a
-  chain (tests/test_torch_fastlk.py holds it to phyml_tpu).
+  and trait_x, covarion and fastlk chains build (trait_x with
+  phyml_tpu's move weights; tests/test_torch_phyrex.py and
+  tests/test_torch_fastlk.py hold them to phyml_tpu).
 """
 
 import jax
@@ -561,11 +562,12 @@ def test_guindon_chain_runs_on_the_mgf_path(problem, monkeypatch):
 
 @pytest.mark.parametrize("what", ["trait_x", "fastlk", "covarion"])
 def test_refusals_name_their_roadmap_items(problem, what):
-    """trait_x stops naming its ROADMAP item; covarion and fastlk,
-    refused until their ports, now build chains: the covarion moves are
-    drawn (tests/test_torch_covarion.py holds them to phyml_tpu), and a
+    """trait_x, covarion and fastlk, each refused until its port, now
+    build chains: with trait_x the trait moves get phyml_tpu's weights
+    (tests/test_torch_phyrex.py holds the chain to phyml_tpu), the
+    covarion moves are drawn (tests/test_torch_covarion.py), and a
     fastlk chain holds its substitution parameters and MALA off
-    (tests/test_torch_fastlk.py holds it to phyml_tpu)."""
+    (tests/test_torch_fastlk.py)."""
     jtt, jaln, taln = problem
     tm = TModel(datatype="nt", name="HKY85", n_classes=4,
                 covarion=what == "covarion")
@@ -582,6 +584,14 @@ def test_refusals_name_their_roadmap_items(problem, what):
             assert mc.move_w[TMCMC.MOVE_NAMES.index(nm)] == 0.0
         assert mc._normal_approx is not None
         return
-    with pytest.raises(NotImplementedError, match="Queue 1, 'Bayesian tier'"):
-        TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(),
-              trait_x=np.zeros((N_TAXA, 2)))
+    jm = JModel(datatype="nt", name="HKY85", n_classes=4)
+    jp = jm.init_params(jaln.obs_state_freqs)
+    x = np.random.default_rng(2).normal(size=(N_TAXA, 2))
+    jmc = JMCMC(JEngine(jaln, jm, dtype=jnp.float64), jm, jp, jtt, JRates(),
+                JPrior(), trait_x=x)
+    mc = TMCMC(eng, tm, tp, _tt_port(jtt), TRates(), TPrior(), trait_x=x)
+    np.testing.assert_allclose(mc.move_w, np.asarray(jmc.move_w), rtol=1e-15)
+    for nm in ("trait_s2", "trait_scaler"):
+        assert mc.move_w[TMCMC.MOVE_NAMES.index(nm)] > 0
+    st = mc.init_state()
+    assert np.isfinite(float(st.lp)) and np.isfinite(float(st.lnL))

@@ -1570,3 +1570,60 @@ def test_fastlk_hessian_card_against_cpu(cuda):
         blen=blen.to(cuda)), chunk_size=3)
     assert float((gb.hess - ga.hess).abs().max()) <= HESS_REL * float(
         hc.abs().max())
+
+
+# ----------------------------------------------------------------------
+# PhyREX: the joint phylogeography chain
+# ----------------------------------------------------------------------
+PHYREX_F64_TOL = 0.5  # PhyREX chain lnL, card f32 against CPU f64
+
+
+@pytest.mark.parametrize("kind", ["rrw", "slfv"])
+def test_phyrex_chain_lnl_card_against_cpu(cuda, kind):
+    """run_phyrex on the card (an rrw chain of 500 iterations with
+    topology moves, or 25 SLFV sweeps): every posterior lnL through K1,
+    none through K3, and the lnL at the final state recomputed by the
+    CPU in float64 within PHYREX_F64_TOL; the rrw chain's log prior,
+    the location term included, equal to the CPU's."""
+    from phyml_tpu_torch.bayes.mcmc import MCMC, MCMCSettings
+    from phyml_tpu_torch.bayes.phyrex import run_phyrex
+    from phyml_tpu_torch.bayes.rates import RateModel
+    from phyml_tpu_torch.bayes.slfv import make_seq_loglik_fn
+    from phyml_tpu_torch.bayes.times import TimePrior
+    from phyml_tpu_torch.interop import chain_state_from_numpy
+
+    card, tt = _chain_setup(cuda)
+    cpu, _ = _chain_setup("cpu")
+    rng = np.random.default_rng(3)
+    par, dt = tt.parent, tt.edge_durations()
+    x = np.zeros((tt.n_nodes, 2))
+    for u in range(tt.n_nodes - 2, -1, -1):
+        x[u] = x[par[u]] + rng.normal(size=2) * np.sqrt(dt[u])
+    x = x[:tt.n_otu]
+    n1 = clv_slots.uppass_site_lse_slots.launches
+    n3 = clv.uppass_site_lse.launches
+    res = run_phyrex(card.engine.aln, x, tt, model=card.engine.model,
+                     trait_kind=kind, settings=MCMCSettings(
+                         n_iter=500, burnin=250, batch=250, seed=4),
+                     engine=card.engine)
+    torch.cuda.synchronize()
+    assert clv.uppass_site_lse.launches == n3
+    assert clv_slots.uppass_site_lse_slots.launches - n1 > 20
+    assert np.isfinite(res.anc_locations).all()
+    params = cpu.engine.model.init_params(cpu.engine.aln.obs_state_freqs)
+    if kind == "slfv":
+        smp = res.sampler
+        want = make_seq_loglik_fn(cpu.engine, params)(smp.state, smp.clock)
+        assert abs(smp.seq_lnl - want) <= PHYREX_F64_TOL
+        return
+    st = res.state
+    mc = MCMC(cpu.engine, cpu.engine.model, params, tt,
+              RateModel(kind="lognormal"), TimePrior(kind="coalescent"),
+              MCMCSettings(seed=4), trait_x=x, trait_kind=kind)
+    st_cpu = chain_state_from_numpy({
+        k: ({k2: v2.numpy() for k2, v2 in v.items()}
+            if isinstance(v, dict) else v.numpy())
+        for k, v in st._asdict().items()})
+    assert res.sampler.move_w[-1] == 0.0
+    assert abs(float(st.lnL) - float(mc._lnL(st_cpu))) <= PHYREX_F64_TOL
+    assert float(st.lp) == float(mc._log_prior(st_cpu))

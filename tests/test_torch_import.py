@@ -3,7 +3,7 @@
 The machine with the GPU has no JAX, so importing every module of the
 port must pull in neither.  The check runs in a subprocess because
 this test process already imported jax (tests/conftest.py).  The
-modules of the auxiliary tools are among those checked.
+modules of the auxiliary tools and of PhyREX are among those checked.
 """
 
 import os
@@ -55,6 +55,9 @@ def test_import_pulls_in_no_jax():
     assert {f"phyml_tpu_torch.{m}" for m in
             ("ops.ancestral", "ops.crossval", "ops.alias", "optim.fastlk",
              "optim.brent", "io.draw", "evolve", "interface")} <= set(mods)
+    # and PhyREX's
+    assert {f"phyml_tpu_torch.bayes.{m}" for m in
+            ("traits", "geo", "phyrex", "slfv")} <= set(mods)
 
 
 def test_no_source_imports_jax():

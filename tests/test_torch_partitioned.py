@@ -17,8 +17,10 @@ through both packages in float64:
   tests/test_partitioned.py, here with `search="spr"`): the same
   trees, the same combined lnL within 1e-6, and the same numbers in
   every stats file (`_part{k}` for two partitions) but the run time;
-* a <phyrex> root stops the run naming its ROADMAP item (a <phytime>
-  root runs, mutmap="yes" too: tests/test_torch_phytime.py).
+* a <phyrex> root with neither <coordinates> nor a <partitionelem>
+  fails as phyml_tpu's does, naming no ROADMAP item (<phytime> and
+  <phyrex> roots run: tests/test_torch_phytime.py,
+  tests/test_torch_phyrex_xml.py).
 """
 
 import importlib
@@ -298,10 +300,16 @@ def test_run_xml_matches_phyml_tpu(case, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("root, item", [
     ('<phyrex r.seed="1">', "'Bayesian tier'")])
-def test_xml_features_left_unported_stop_the_run(root, item, tmp_path,
-                                                 capsys):
+def test_xml_features_left_unported_stop_the_run(root, item, tmp_path):
+    """A <phyrex> root is ported: without <coordinates> or a
+    <partitionelem> both packages' run_xml raise the same ValueError,
+    and no message names the ROADMAP item that ported it."""
     tag = root[1:].split()[0].rstrip(">")
     (tmp_path / "run.xml").write_text(f"{root}</{tag}>")
-    assert txml.run_xml(str(tmp_path / "run.xml"), device="cpu") == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    errs = []
+    for mod, kw in ((jxml, {}), (txml, {"device": "cpu"})):
+        with pytest.raises(ValueError) as exc:
+            mod.run_xml(str(tmp_path / "run.xml"), **kw)
+        errs.append(str(exc.value))
+    assert errs[0] == errs[1] and "no <partitionelem> found" in errs[1]
+    assert item not in errs[1] and "ROADMAP" not in errs[1]

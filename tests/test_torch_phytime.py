@@ -19,9 +19,8 @@ the XML default) at a fixed topology.  Both packages:
 With mutmap="yes" on the root (the lognormal case at 100 iterations),
 both packages write a mutation map of the final tree in one format,
 and the port's events are consistent: each within its edge's length,
-each (edge, site)'s events chained state to state.  A <phyrex> root
-stops the port's run naming its ROADMAP item
-(tests/test_torch_partitioned.py).
+each (edge, site)'s events chained state to state.  The <phyrex> root
+runs too (tests/test_torch_phyrex_xml.py).
 """
 
 import importlib

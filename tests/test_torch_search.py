@@ -15,7 +15,8 @@ in float64:
   SPR escapes and probes) and `-s SPR`, against phyml_tpu.cli on the
   same files (protein at 8 taxa x 150 sites): the same tree and the
   final lnL within 1e-6;
-* the flags still unported stop the run naming their ROADMAP item, and
+* `--distributed` (still unported) stops the run naming its ROADMAP
+  item; `--xml` of an empty <phyrex> root fails as phyml_tpu.cli's does;
   the SPR block size follows the reference's rule.
 """
 
@@ -157,12 +158,24 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
     (["--xml", "phyrex.xml"], "'Bayesian tier'")])
 def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
+    """--distributed stops the run naming its ROADMAP item.  An XML
+    analysis with an empty <phyrex> root (ported) raises the same
+    ValueError through both packages' CLIs and names no ROADMAP item."""
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
     if flag[0] == "--xml":
-        # an XML analysis with a <phyrex> root (the Bayesian tier)
         (tmp_path / flag[1]).write_text("<phyrex></phyrex>\n")
-        flag = [flag[0], str(tmp_path / flag[1])]
+        argv = ["-i", str(aln), "--xml", str(tmp_path / flag[1])]
+        jcli = importlib.import_module("phyml_tpu.cli")
+        errs = []
+        for main, extra in ((jcli.main, []), (tcli.main, ["--platform",
+                                                          "cpu"])):
+            with pytest.raises(ValueError) as exc:
+                main(argv + extra)
+            errs.append(str(exc.value))
+        assert errs[0] == errs[1] and "no <partitionelem> found" in errs[1]
+        assert item not in errs[1] + capsys.readouterr().err
+        return
     assert tcli.main(["-i", str(aln), "--platform", "cpu", *flag]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and flag[0] in err
