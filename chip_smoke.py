@@ -56,8 +56,9 @@
    BioNJ and the NNI search) at full width; a two-matrix DNA mixture
    (HKY85 and GTR classes, each its own pi) fitted through the
    library, with K1, K2 and K3 against their plain versions at its
-   system; LG4X at 128 x 4096 protein (`-m LG4X`: the fixed fit and the
-   default run, K4, K5 and K3 at the LG4X system, K3 at the batch sizes
+   system; LG4X on the protein problem (`-m LG4X`: the fixed fit at 128
+   x 4096 and the default run at 64 taxa, K4, K5 and K3 at the LG4X
+   system, K3 at the batch sizes
    those runs launched, on the line search's extreme grid points), each
    run with the launch counters reset just before and read just after;
    then 16 x 500 card-against-CPU runs of the LG4X fit, a one-partition
@@ -69,7 +70,7 @@
    topology proposals counted and timed): the DNA problem under GTR+G4
    with the simulating tree as the user tree, a lognormal clock,
    topology moves, the birth-death prior, a root and a clade
-   calibration, 10,000 iterations; the same under the Guindon clock
+   calibration, 5,000 iterations; the same under the Guindon clock
    (no <lineagerates>: the Gamma-MGF P-matrices) at a fixed topology,
    5,000; the 64-taxon protein problem under LG+G4, 2,000.  Each must
    run every posterior lnL through the route's slot kernel (K1 / K4;
@@ -95,8 +96,8 @@
    just before and read just after (the fit's read as it returns: the
    tools after it launch nothing but the k-fold refits), every tool
    timed, its outputs parsed (the mutation map's events replayed
-   within their edges); `run_phytime(fastlk=True)` on the DNA problem
-   (lognormal clock, 10,000 iterations): its Hessian a float64 tensor
+   within their edges); `run_phytime(fastlk=True)` on the DNA problem at
+   64 taxa (lognormal clock, 10,000 iterations): its Hessian a float64 tensor
    on the card, no kernel launched; a `<phytime mutmap="yes">` XML at
    16 x 500;
 14. PhyREX, the joint phylogeography chain (`phyrex_phase`): three
@@ -105,7 +106,7 @@
    simulating tree and written in the reference's coordinates format,
    read back through read_coordinates): <spatialmodel
    name="rrw+lognormal"> with a lognormal clock and topology moves,
-   5,000 iterations; "ibm" at a fixed topology under the XML's default
+   3,000 iterations; "ibm" at a fixed topology under the XML's default
    (Guindon) clock, 2,000 iterations with the posterior velocity
    draws; no <spatialmodel> (the SLFV event-disk sampler), 200 sweeps.
    Each with the launch counters reset just before and read just
@@ -115,7 +116,21 @@
    K3 never), its outputs parsed, its ancestral locations finite, its
    heights feasible; K1 at each run's final tree against its plain
    version;
-15. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11, 12,
+15. --distributed (`distributed_phase`): DIST_RANKS ranks on the one
+   card (gloo; NCCL refuses two ranks on one device), launched with
+   `torchrun` after the kernels are built, each rerunning this script
+   as `--rank-worker`: the sharded engine (1 x 2 sites mesh) at 128 x
+   4096 against the unsharded one on the same card (the gathered site
+   lnL against K3 at B = 1 on the whole pattern axis, the lnL against
+   the host lnL, one branch-length round), the launch counters reset
+   just before the sharded path and read just after (K3 at B = 1 and K2
+   on every rank, K1 never), ms a sharded lnL (the all_reduce included)
+   and an all_reduce beside the unsharded lnL's, K3 on a rank's shard
+   against its plain version (the "K3 per shard" row); the farmed `-u
+   final -o lr -b 4` on the DNA default run's final tree (wall, each
+   rank's launches, supports in [0, 4]); and a 16 x 500 `--distributed
+   -b 4` whose counts must equal the single-process `-b 4` on the card;
+16. the 16 x 500 card-against-CPU checks of steps 5, 7, 9, 10, 11, 12,
    13 and 14 run last, after every full-width path: the CPU float64 side
    of each
    in a worker process (spawned, one torch thread each, all started
@@ -140,11 +155,13 @@ supports' numbers, a JSON line of step 10's numbers, a JSON line of
 the phytime runs' numbers, a JSON line of step 12's numbers, a JSON
 line of step 13's (`aux_tools`: each tool's wall-clock, the fits'
 launches, the idle shares), a JSON line of step 14's (`phyrex`), a
-JSON line of per-kernel results
+JSON line of step 15's (`distributed`), a JSON line of per-kernel
+results
 (`launches` from the default run, `launches_fixed_fit` from step 6,
 `launches_aux_tools_fit` from step 13's tools run; the stacked forms'
 from the rapid bootstrap, by stack size; a cell's rows, named "[cell]",
-from that cell's runs), the card line, and as the last line {"ok":
+from that cell's runs; the "K3 per shard" row's from the sharded
+path, on each rank), the card line, and as the last line {"ok":
 true, "device": {...}}.  Any failure exits nonzero before that line; so does a machine without CUDA, or a directory
 without the phyml_tpu_torch package.
 """
@@ -166,9 +183,9 @@ import numpy as np
 
 SEED = 20260817
 N_TAXA, N_SITES = 128, 4096
-# taxa of the default run's and the supports' problem: the protein run
-# at 64 taxa keeps the script inside half its time limit since the LG4X
-# default run joined it at 128 (PERF.md section 4)
+# taxa of the default run's and the supports' problem: the protein runs
+# (LG+G4, and LG4X's since PR 13) at 64 taxa keep the script inside its
+# time limit (PERF.md section 4)
 DEFAULT_RUN_TAXA = {"nt": 128, "aa": 64}
 # the bench problems of tools/gen_bench_problem.py:38-51
 FREQS = np.array([0.3, 0.2, 0.3, 0.2])           # DNA: GTR+G4
@@ -1922,10 +1939,11 @@ def mixture_rows(aln_path, tree_path, cuda, regs):
     return rows
 
 
-def lg4x_phase(aln_path, tree_path, cuda, regs, out):
+def lg4x_phase(aln_path, tree_path, run_aln, run_tree, cuda, regs, out):
     """LG4X at full width on the protein problem (its own directory):
-    the fixed-topology fit (`-u tree -o lr -m LG4X`) and the default run
-    (BioNJ, then the NNI search), each with every launch counter set to
+    the fixed-topology fit (`-u tree -o lr -m LG4X`) and, on the protein
+    default run's problem (run_aln, DEFAULT_RUN_TAXA: a depth cut), the
+    default run (BioNJ, then the NNI search), each with every launch counter set to
     0 just before and read just after (K4, K5 and K3 launch, nothing off
     the route); then K4, K5 and K3 (at every batch size the two runs
     launched, on the line search's first zoom level: its extreme grid
@@ -1935,13 +1953,16 @@ def lg4x_phase(aln_path, tree_path, cuda, regs, out):
     import torch
     from phyml_tpu_torch.models.substitution import lg4x_model
 
-    lg_aln, lg_tree = copy_problem(aln_path, tree_path, os.path.join(
-        os.path.dirname(os.path.dirname(aln_path)), "lg4x"))
+    root = os.path.dirname(os.path.dirname(aln_path))
+    lg_aln, lg_tree = copy_problem(aln_path, tree_path,
+                                   os.path.join(root, "lg4x"))
     extra = ("-m", "LG4X")
     fit_counts, fit_k3, out["lg4x_fit"] = main_path(
         "aa", lg_aln, lg_tree, cuda, extra=extra, runs=1, tag="aa LG4X")
-    batch_k = scorer_block("aa", lg_aln, extra, cuda)
-    counts, res = default_run("aa", lg_aln, lg_tree, cuda, batch_k,
+    run_aln, run_tree = copy_problem(run_aln, run_tree,
+                                     os.path.join(root, "lg4x_run"))
+    batch_k = scorer_block("aa", run_aln, extra, cuda)
+    counts, res = default_run("aa", run_aln, run_tree, cuda, batch_k,
                               extra=extra, tag="aa LG4X")
     out["lg4x_default_run"] = res
     # the kernels at the system the fit found
@@ -2149,7 +2170,7 @@ def report_cov_chain(gpu, cpu):
 # ----------------------------------------------------------------------
 # iterations of each run (mcmc_iter_cap; batches of 250 between the
 # topology sweeps, MCMCSettings.batch)
-PHYTIME_RUNS = {"lognormal": ("nt", 10000, "lognormal", True),
+PHYTIME_RUNS = {"lognormal": ("nt", 5000, "lognormal", True),
                 "guindon": ("nt", 5000, None, False),
                 "protein": ("aa", 2000, "lognormal", True)}
 # cached lnL against a recompute on the card: both are one K1/K4 pass on
@@ -3079,8 +3100,10 @@ def aux_phase(tmp, cuda):
         if label.endswith("tools"):
             fit_launches[dt] = out[label]["fit_launches"]
         torch.cuda.empty_cache()
-    aln, tree = write_problem(os.path.join(tmp, "aux_fastlk"), "nt", N_TAXA,
-                              N_SITES, SEED)
+    # the fastlk chain at the default run's depth of the protein problem
+    # (64 taxa; a depth cut, as its Hessian grows with the edges squared)
+    aln, tree = write_problem(os.path.join(tmp, "aux_fastlk"), "nt",
+                              DEFAULT_RUN_TAXA["aa"], N_SITES, SEED)
     out["fastlk"] = fastlk_run(aln, tree, cuda)
     torch.cuda.empty_cache()
     out["xml mutmap"] = xml_mutmap_run(tmp, cuda)
@@ -3182,7 +3205,7 @@ def report_aux(gpu, cpu):
 # the SLFV default, <lineagerates> model or None for the XML default
 # (the Guindon clock), optimise.tree, mcmc_iter_cap; SLFV sweeps are
 # the cap / 20)
-PHYREX_RUNS = {"rrw": ("rrw+lognormal", "lognormal", True, 5000),
+PHYREX_RUNS = {"rrw": ("rrw+lognormal", "lognormal", True, 3000),
                "ibm": ("ibm", None, False, 2000),
                "slfv": (None, None, True, 4000)}
 PHYREX_ROOT = (-95.0, 38.0)   # the tips' coordinates: Brownian motion
@@ -3689,9 +3712,304 @@ def report_phyrex(gpu, cpu):
                 geo_rel_gap=geo_gap, gpu_s=g_s, cpu_s=c_s)
 
 
+# ---------------------------------------------------------------------------
+# --distributed: the site-sharded engine and the farmed bootstrap
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2          # ranks on the one card (gloo: NCCL refuses two
+#                         ranks on one device)
+FARM_REPLICATES = 4     # -b 4 farmed over the ranks: 2 replicates a rank
+DIST_TIMEOUT_S = 420    # the ranks' world, killed past this
+
+
+def farm_run(argv):
+    """One CLI run in a rank, its launch counters set to 0 just before and
+    read just after: {rc, wall_s, launches, k3_by_batch}."""
+    import torch
+    from phyml_tpu_torch import cli
+
+    W = wrappers()
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return dict(rc=rc, wall_s=time.time() - t,
+                launches={k: fn.launches for k, fn in W.items()},
+                k3_by_batch=dict(W["K3"].launches_by_batch))
+
+
+def sharded_checks(spec, rank, world):
+    """In every rank: the 1 x world sharded engine at full width against
+    the unsharded one on the same card.  The launch counters are set to 0
+    just before the sharded path (gathered site lnL, host lnL, one
+    branch-length round) and read just after; then K3 at B = 1 on the
+    full pattern axis against the gathered site lnL, the host lnL (K1)
+    and the unsharded round, the ms of a sharded lnL (both ranks at once,
+    the all_reduce included) and of one all_reduce; rank 0 alone (the
+    other waiting) times the unsharded lnL and K3 at B = 1 on its shard
+    against its plain version."""
+    import torch
+    import torch.distributed as dist
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.models.substitution import SubstModel
+    from phyml_tpu_torch.ops import clv
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths
+    from phyml_tpu_torch.parallel.mesh import make_mesh, sharded_engine
+    from phyml_tpu_torch.topology import Topology
+
+    cuda = torch.device("cuda")
+    aln = read_alignment(spec["aln"], datatype="nt")
+    model = SubstModel(datatype="nt", name="GTR", n_classes=4)
+    params = true_params("nt", model.init_params(aln.obs_state_freqs))
+    with open(spec["tree"]) as fh:
+        topo = Topology.from_newick(fh.read(), aln.names)
+    tree = tree_arrays(topo.rooted(), device=cuda)
+    mesh = make_mesh(1, world)
+    seng = sharded_engine(aln, model, mesh, device=cuda)
+    ueng = LikelihoodEngine(aln, model, device=cuda)
+    W = wrappers()
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    site = seng.site_logliks(params, tree)
+    lnl_s = float(seng.loglik(params, tree))
+    _, round_s = optimize_branch_lengths(seng, params, tree, max_rounds=1)
+    torch.cuda.synchronize()
+    out = dict(launches={k: fn.launches for k, fn in W.items()},
+               k3_by_batch=dict(W["K3"].launches_by_batch),
+               P=seng.n_patterns, P_padded=seng.n_padded, P_local=seng.P,
+               lnl_sharded=lnl_s, round_sharded=round_s)
+
+    sys_ = ueng.system_of(params)
+    child, sched, n_slots = ueng._topology(tree.child)
+    pm = ueng._pmats_cached(sys_, tree)
+    lse = clv.uppass_site_lse(child, ueng.tips, pm, sys_[3],
+                              ueng._logw(sys_[4]), sched=sched,
+                              n_slots=n_slots)
+    out["site_max_abs_diff"] = float((site - lse).abs().max())
+    out["lnl_unsharded"] = float(ueng.loglik(params, tree))
+    out["round_unsharded"] = optimize_branch_lengths(
+        ueng, params, tree, max_rounds=1)[1]
+    _, out["ms_sharded_lnl"] = timed(lambda: seng.loglik(params, tree))
+    zero = torch.zeros((), dtype=torch.float64, device=cuda)
+    _, out["ms_all_reduce"] = timed(lambda: seng._sum_sites(zero))
+    dist.barrier()
+    if rank == 0:
+        _, out["ms_unsharded_lnl"] = timed(lambda: ueng.loglik(params, tree))
+        ssys = seng.system_of(params)
+        schild, ssched, sn = seng._topology(tree.child)
+        spm = seng._pmats_cached(ssys, tree)
+        args = (schild, seng.tips, spm, ssys[3], seng._logw(ssys[4]))
+        got, ms = timed(lambda: clv.uppass_site_lse(*args, sched=ssched,
+                                                    n_slots=sn))
+        ref, pms = timed(lambda: clv.uppass_site_lse_plain(
+            schild, seng.tips, spm[None], ssys[3][None],
+            seng._logw(ssys[4])[None])[0], 1)
+        b_ms, b_by = bound(pruning_flops(aln.n_otu, 4, 4, seng.P),
+                           nbytes(ssched, *args[1:]) + seng.P * 4)
+        out["k3_shard"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                               bound_by=b_by,
+                               max_abs_err=float((got - ref).abs().max()))
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def rank_worker(spec_path) -> int:
+    """One rank of the distributed phase (`torchrun ... chip_smoke.py
+    --rank-worker spec.json`): join the group from torchrun's
+    environment, run the sharded checks, the farmed bootstrap on the
+    final 128 x 4096 tree and the 16 x 500 one, and write the results to
+    spec["out"].<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    from phyml_tpu_torch.parallel.boot import initialize_distributed
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = initialize_distributed()
+    try:
+        out = dict(rank=rank, world=world, backend=dist.get_backend(),
+                   device=torch.cuda.current_device())
+        out["sharded"] = sharded_checks(spec, rank, world)
+        out["farm"] = farm_run(support_argv(
+            "nt", spec["aln"], spec["tree"], "gpu", FARM_REPLICATES,
+            "--distributed", "--quiet"))
+        small = default_argv("nt", spec["small"], "gpu") + [
+            "--distributed", "--quiet"]
+        small[small.index("-b") + 1] = str(FARM_REPLICATES)
+        out["small"] = farm_run(small)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{spec['out']}.{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def distributed_phase(tmp, cuda):
+    """--distributed on the card: DIST_RANKS ranks on the one card (gloo),
+    launched with torchrun after the kernels are built (rank_worker),
+    each on a copy of the DNA problem and the default run's final tree.
+    Checks: the sharded engine's site lnL against the unsharded K3 at
+    B = 1 (SITE_TOL), its lnL against the host lnL (F64_TOL), one
+    branch-length round against the unsharded one (E2E_TOL), K3 at B = 1
+    launched on every rank and K1 never by the sharded path; the farmed
+    `-u final -o lr -b 4` with supports in [0, 4]; and at 16 x 500 the
+    farmed default run with `-b 4` equal, count for count, to the
+    single-process `-b 4` on the card.  Returns (numbers, K3 per shard
+    row)."""
+    import shutil
+    import signal
+
+    import torch
+    from phyml_tpu_torch import cli
+
+    t0 = time.time()
+    d = os.path.join(tmp, "dist")
+    os.makedirs(d)
+    for name in ("aln.phy", "final_tree.nwk"):
+        shutil.copy(os.path.join(tmp, "nt", name), os.path.join(d, name))
+    aln_path = os.path.join(d, "aln.phy")
+    small = {tag: write_problem(os.path.join(tmp, f"dist_small_{tag}"),
+                                "nt", 16, 500, SEED + 2)[0]
+             for tag in ("single", "farmed")}
+    argv = default_argv("nt", small["single"], "gpu") + ["--quiet"]
+    argv[argv.index("-b") + 1] = str(FARM_REPLICATES)
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    single_s = time.time() - t
+    if rc != 0:
+        fail(f"the 16 x 500 -b {FARM_REPLICATES} run returned {rc}")
+
+    spec_path = os.path.join(d, "spec.json")
+    spec = dict(aln=aln_path, tree=os.path.join(d, "final_tree.nwk"),
+                small=small["farmed"], out=os.path.join(d, "rank"))
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DIST_RANKS), os.path.abspath(__file__),
+           "--rank-worker", spec_path]
+    log_path = os.path.join(d, "ranks.log")
+    t = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    world_s = time.time() - t
+    if rc != 0:
+        with open(log_path) as fh:
+            sys.stderr.write(fh.read()[-6000:])
+        fail(f"the {DIST_RANKS}-rank world ended with {rc}")
+    res = []
+    for r in range(DIST_RANKS):
+        with open(f"{spec['out']}.{r}.json") as fh:
+            res.append(json.load(fh))
+
+    names = [f"T{i:04d}" for i in range(16)]
+    labels = {tag: tree_labels(f"{small[tag]}_phyml_tree.txt", names)
+              for tag in small}
+    big_names = [f"T{i:04d}" for i in range(N_TAXA)]
+    vals = np.asarray([int(v) for v in tree_labels(
+        f"{aln_path}_phyml_tree.txt", big_names).values()])
+    sh = [x["sharded"] for x in res]
+    k3 = sh[0]["k3_shard"]
+    out = dict(
+        ranks=DIST_RANKS, backend=res[0]["backend"],
+        devices=[x["device"] for x in res], world_wall_s=world_s,
+        P=sh[0]["P"], P_padded=sh[0]["P_padded"], P_local=sh[0]["P_local"],
+        site_max_abs_diff=max(x["site_max_abs_diff"] for x in sh),
+        lnl_sharded=sh[0]["lnl_sharded"],
+        lnl_unsharded=sh[0]["lnl_unsharded"],
+        round_sharded=sh[0]["round_sharded"],
+        round_unsharded=sh[0]["round_unsharded"],
+        ms_sharded_lnl=[x["ms_sharded_lnl"] for x in sh],
+        ms_all_reduce=[x["ms_all_reduce"] for x in sh],
+        ms_unsharded_lnl=sh[0]["ms_unsharded_lnl"],
+        sharded_launches=[x["launches"] for x in sh],
+        sharded_k3_by_batch=[x["k3_by_batch"] for x in sh],
+        farm=dict(replicates=FARM_REPLICATES,
+                  wall_s=[x["farm"]["wall_s"] for x in res],
+                  launches=[x["farm"]["launches"] for x in res],
+                  supports_min=int(vals.min()), supports_max=int(vals.max())),
+        small_farm=dict(single_wall_s=single_s,
+                        farmed_wall_s=[x["small"]["wall_s"] for x in res],
+                        counts_equal=labels["farmed"] == labels["single"],
+                        single=sorted(labels["single"].values()),
+                        farmed=sorted(labels["farmed"].values())))
+    print(f". [dist] {DIST_RANKS} ranks ({out['backend']}, devices "
+          f"{out['devices']}), world {world_s:.1f} s; 128 x 4096: "
+          f"{out['P']} patterns padded to {out['P_padded']}, "
+          f"{out['P_local']} a rank")
+    print(f". [dist] sharded site lnL vs unsharded K3 B=1: max|d|="
+          f"{out['site_max_abs_diff']:.3e} (tol {SITE_TOL['nt']:g}); lnL "
+          f"{out['lnl_sharded']:.6f} vs host {out['lnl_unsharded']:.6f} "
+          f"(tol {F64_TOL:g}); one round {out['round_sharded']:.6f} vs "
+          f"{out['round_unsharded']:.6f} (tol {E2E_TOL:g})")
+    print(f". [dist] ms a sharded lnL {out['ms_sharded_lnl']} (all_reduce "
+          f"alone {out['ms_all_reduce']}), unsharded {out['ms_unsharded_lnl']:.4f}"
+          f"; sharded launches {out['sharded_launches']}, K3 by batch "
+          f"{out['sharded_k3_by_batch']}")
+    print(f". [dist] farmed -u final -o lr -b {FARM_REPLICATES}: wall "
+          f"{out['farm']['wall_s']} s, launches {out['farm']['launches']}, "
+          f"supports {out['farm']['supports_min']}..."
+          f"{out['farm']['supports_max']}")
+    print(f". [dist] 16 x 500 -b {FARM_REPLICATES}: single {single_s:.1f} s, "
+          f"farmed {out['small_farm']['farmed_wall_s']} s, counts equal "
+          f"{out['small_farm']['counts_equal']} ({out['small_farm']['single']}"
+          f" / {out['small_farm']['farmed']})")
+    if not out["site_max_abs_diff"] <= SITE_TOL["nt"]:
+        fail("the sharded site lnL disagrees with the unsharded K3")
+    if not abs(out["lnl_sharded"] - out["lnl_unsharded"]) <= F64_TOL:
+        fail("the sharded lnL disagrees with the host lnL")
+    if not abs(out["round_sharded"] - out["round_unsharded"]) <= E2E_TOL:
+        fail("the sharded branch-length round disagrees with the unsharded")
+    for r, (c, kb) in enumerate(zip(out["sharded_launches"],
+                                    out["sharded_k3_by_batch"])):
+        if not kb.get("1", 0) or c["K1"] or c["K4"] or not c["K2"]:
+            fail(f"rank {r}: the sharded path launched {c} (K3 by batch "
+                 f"{kb}): K3 at B = 1 and K2 expected, K1 and K4 never")
+    if not k3["max_abs_err"] <= SITE_TOL["nt"]:
+        fail(f"K3 on the shard disagrees with its plain version: "
+             f"{k3['max_abs_err']}")
+    if any(x["farm"]["rc"] or x["small"]["rc"] for x in res):
+        fail("a rank's farmed CLI run returned nonzero")
+    if len(vals) != N_TAXA - 3 or vals.min() < 0 or \
+            vals.max() > FARM_REPLICATES:
+        fail(f"farmed supports outside [0, {FARM_REPLICATES}]")
+    if not out["small_farm"]["counts_equal"]:
+        fail("the farmed 16 x 500 counts differ from the single process's")
+    out["wall_s"] = time.time() - t0
+    print(f". [dist] phase wall {out['wall_s']:.1f} s")
+    row = dict(
+        name="K3 uppass_site_lse (B=1, per shard)", route="cuda",
+        source=f"phyml_tpu_torch/csrc/{SOURCE['K3']}",
+        replaces=TPU_KERNEL["K3"],
+        launches=out["sharded_k3_by_batch"][0]["1"],
+        launches_per_rank=[kb["1"] for kb in out["sharded_k3_by_batch"]],
+        max_abs_err=k3["max_abs_err"], ms=k3["ms"], plain_ms=k3["plain_ms"],
+        bound_ms=k3["bound_ms"], bound_by=k3["bound_by"], library_ms=None,
+        ns=4, path="nt", B=1, P_local=out["P_local"], cell="distributed")
+    return out, row
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2])
     t_all = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs "
@@ -3782,7 +4100,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
                 rows += mixture_rows(aln_path, tree_path, cuda, regs)
             else:
-                rows += lg4x_phase(aln_path, tree_path, cuda, regs, mix)
+                rows += lg4x_phase(aln_path, tree_path, run_aln, run_tree,
+                                   cuda, regs, mix)
             torch.cuda.empty_cache()
         phytime, phytime_rows = phytime_phase(tmp, cuda)
         rows += phytime_rows
@@ -3803,6 +4122,9 @@ def main() -> int:
         phyrex, phyrex_rows = phyrex_phase(tmp, cuda)
         rows += phyrex_rows
         torch.cuda.empty_cache()
+        distributed, dist_row = distributed_phase(tmp, cuda)
+        rows.append(dist_row)
+        torch.cuda.empty_cache()
         supports["small_abayes_gap"], mix["small"], phytime["small"], \
             states["small"], aux["small"], phyrex["small"] = \
             small_checks(tmp)
@@ -3816,6 +4138,7 @@ def main() -> int:
     print(json.dumps({"state_counts": states}, default=str))
     print(json.dumps({"aux_tools": aux}, default=str))
     print(json.dumps({"phyrex": phyrex}, default=str))
+    print(json.dumps({"distributed": distributed}, default=str))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

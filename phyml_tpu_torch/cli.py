@@ -19,9 +19,10 @@ alphabets (`-d generic`), `--checkpoint`, `--print_site_lnl`, the
 auxiliary tools on the final tree (`--ps`, `--cv tip|kfold.col|
 kfold.pos`, `--ancestral`, `--mutmap`, `--alias_subpatt`), and `--xml`
 analyses (io/xmlcfg.py: mixtures, partitions, phytime and phyrex).  With no
-arguments it opens the interactive menu (interface.py).  Only
-`--distributed` stops the run, with a message naming the ROADMAP.md
-item that ports it.
+arguments it opens the interactive menu (interface.py).  `--distributed`
+joins the process group `torchrun` describes (parallel/boot.py): every
+rank runs the analysis, `-b N` farms the replicates over the ranks, and
+rank 0 alone prints and writes the outputs.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
@@ -39,6 +40,8 @@ item that ports it.
         -o lr --ancestral --cv tip --ps --platform gpu   # the tools
     python -m phyml_tpu_torch.cli --xml run.xml --platform gpu
     python -m phyml_tpu_torch.cli            # the interactive menu
+    torchrun --nproc_per_node 2 -m phyml_tpu_torch.cli --distributed \
+        -i aln.phy -m GTR -c 4 -b 100 --platform gpu   # farmed bootstrap
 """
 
 from __future__ import annotations
@@ -111,7 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", choices=["cpu", "gpu"], default="gpu",
                    help="device to run on (default gpu: one CUDA "
                         "device; cpu runs float64 unless --float32)")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process run via torch.distributed (the "
+                        "environment torchrun sets): bootstrap replicates "
+                        "farmed over the ranks, rank 0 writes")
     p.add_argument("--weights", default=None,
                    help="site-weight file")
     # covarion (M4) family; the reference's --cov CLI (cl.c:69-74) is
@@ -160,19 +166,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=300,
                    help="checkpoint interval, seconds")
     return p
-
-
-# ROADMAP.md Queue 1 item that ports what this CLI does not run yet
-_SUPPORT = "Queue 1, 'Supports, bootstrap and multi-GPU'"
-
-
-def _unported(args) -> list[tuple[str, str]]:
-    """(flag, ROADMAP item) for every requested feature this port does
-    not run yet."""
-    checks = [
-        (args.distributed, "--distributed", _SUPPORT),
-    ]
-    return [(flag, item) for hit, flag, item in checks if hit]
 
 
 def _build_model(args, aln):
@@ -278,15 +271,33 @@ def _device(args):
 
 
 def run_analysis(args) -> int:
-    unported = _unported(args)
-    if unported:
-        for flag, item in unported:
-            print(f"!! {flag}: not ported to phyml_tpu_torch yet "
-                  f"(ROADMAP.md {item})", file=sys.stderr)
-        return 2
     device = _device(args)
     if device is None:
         return 1
+    if not args.distributed:
+        return _run_all(args, device)
+    import torch.distributed as dist
+
+    from phyml_tpu_torch.parallel.boot import initialize_distributed
+
+    # before the alignment is read (phyml_tpu/cli.py:308-314); a group
+    # the caller already joined is used as it is
+    owned = not dist.is_initialized()
+    pid, nproc = initialize_distributed(on_card=device.type == "cuda")
+    if pid != 0:
+        args.quiet = True
+    if not args.quiet:
+        print(f". Distributed run: process {pid} of {nproc}.")
+        if dist.is_initialized():
+            print(f". Collective backend: {dist.get_backend()}.")
+    try:
+        return _run_all(args, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_all(args, device) -> int:
     # dtype rule: float32 on the card, float64 on the CPU unless
     # --float32
     dtype = torch.float32 if (args.float32 or device.type == "cuda") \
@@ -363,10 +374,15 @@ def _search(args, engine, model, params, topo, rng, seed, opt_rates,
 def _supports(args, engine, model, params, topo, seed):
     """Branch supports of the final tree (reference phyml_tpu/cli.py:
     518-556): `-b N` bootstraps N replicates (serial, each re-running
-    the search, SPR for `-s SPR|BEST`; or `--rapid_boot`, all
-    replicates batched with the parameters frozen), reported as
-    replicate counts; `-b -1/-2/-3/-4/-5` the aLRT statistic, its chi2
-    support, SH-aLRT and aBayes.  Returns (support or None, format)."""
+    the search, SPR for `-s SPR|BEST`; farmed over the ranks of a
+    `--distributed` run of several processes, which takes precedence;
+    or `--rapid_boot`, all replicates batched with the parameters
+    frozen), reported as replicate counts; `-b -1/-2/-3/-4/-5` the
+    aLRT statistic, its chi2 support, SH-aLRT and aBayes.  Returns
+    (support or None, format)."""
+    from phyml_tpu_torch.parallel.boot import (
+        process_layout, run_bootstrap_distributed,
+    )
     from phyml_tpu_torch.search import support as sup
 
     b = args.bootstrap
@@ -374,14 +390,16 @@ def _supports(args, engine, model, params, topo, seed):
         kw = dict(n_replicates=b, seed=seed,
                   bayesian=args.bayesian_bootstrap, tbe=args.tbe,
                   verbose=not args.quiet)
-        if args.rapid_boot:
+        search = "spr" if args.search in ("SPR", "BEST") else "nni"
+        if args.distributed and process_layout()[1] > 1:
+            support = run_bootstrap_distributed(
+                engine, model, params, topo, search=search, **kw)
+        elif args.rapid_boot:
             support = sup.bootstrap_supports_batched(
                 engine, model, params, topo, **kw)
         else:
             support = sup.bootstrap_supports(
-                engine, model, params, topo,
-                search="spr" if args.search in ("SPR", "BEST") else "nni",
-                **kw)
+                engine, model, params, topo, search=search, **kw)
         return {eid: v * b for eid, v in support.items()}, "%.0f"
     if b < 0:
         method = {-1: "alrt-stat", -2: "alrt-chi2", -3: "alrt-chi2",
@@ -521,6 +539,11 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
                                      seed)
 
     # ---- outputs ------------------------------------------------------
+    from phyml_tpu_torch.parallel.boot import process_layout
+    if args.distributed and process_layout()[0] != 0:
+        # rank 0 writes (mpi_boot.c:282-314); every rank took part in
+        # the count reduction above
+        return 0
     il_lines = []
     if "il_sigma" in params:
         il_lines = [

@@ -13,7 +13,8 @@ kernels avx.c/sse.c).  Design:
       - host `loglik` / `site_logliks`, and `_loglik_sys` with one
         system (the branch-length probes) -> K1, or K4 when streamed
         (ops/clv_slots.py), one pass for one parameter set; K3 at B = 1
-        where K4's block does not fit (`single_pass_kernel`)
+        where K4's block does not fit (`single_pass_kernel`), and on a
+        sharded engine
       - `_loglik_sys` / `loglik_batch` with a batch of systems -> K3
         (ops/clv.py), the slot schedule batched over parameter sets
         for the line search
@@ -46,6 +47,15 @@ kernels avx.c/sse.c).  Design:
 Sites (patterns) are the last axis of every array.  The engine's
 device and dtype are fixed when it is built; the device is the CUDA
 device unless the caller passes another (`default_device`).
+
+A sharded engine (parallel/mesh.py:sharded_engine, `attach_mesh`)
+holds one slice of the padded pattern axis per rank of the mesh's
+sites axis and takes and returns what an unsharded one does: weights
+are global and cut to the rank's slice inside (`_w`), lnL and edge
+terms are global sums (`_sum_sites`, one all_reduce over the sites
+group), `site_logliks` is the global [P] (`gather_sites`).  Its single
+pass runs K3 at B = 1 on the shard, as phyml_tpu runs its dense kernel
+per shard (phyml_tpu/ops/likelihood.py:476-479, 766-799).
 """
 
 from __future__ import annotations
@@ -171,7 +181,9 @@ class LikelihoodEngine(nn.Module):
         self.C = model.n_classes
         self.n_nodes = 2 * self.n_otu - 1
         self.n_internal = self.n_otu - 1
-        self.P = aln.n_patterns
+        # patterns held here (a shard's, once attach_mesh cuts them),
+        # the alignment's, and the padded count the shards split
+        self.P = self.n_patterns = self.n_padded = aln.n_patterns
         # Sethi-Ullman bound of the slot schedule (build_slot_schedule)
         self.slot_count = int(math.ceil(math.log2(max(self.n_otu, 2)))) + 2
         self.lnl_route, self.edotp_route = kernel_route(self.n_otu, self.C,
@@ -211,9 +223,69 @@ class LikelihoodEngine(nn.Module):
         self._pm_cache: collections.OrderedDict = collections.OrderedDict()
         self._topo_cache: collections.OrderedDict = \
             collections.OrderedDict()
+        # the mesh of a sharded engine (attach_mesh), else None
+        self._mesh = None
+        self._shard_axis = None
+        self._cols = slice(None)
+
+    def attach_mesh(self, mesh, axis: str, n_padded: int, cols: slice):
+        """Shard the pattern axis over `axis` of `mesh`: pad it to
+        n_padded with zero-weight patterns (tips 1, not invariant) and
+        keep the columns `cols` of tips, weights, invar_state and
+        invar_ok (parallel/mesh.py:shard_pattern_arrays).  Returns the
+        engine."""
+        self._mesh, self._shard_axis = mesh, axis
+        self.n_padded, self._cols = n_padded, cols
+        for name, fill in (("tips", 1.0), ("weights", 0.0),
+                           ("invar_state", 0), ("invar_ok", 0.0)):
+            setattr(self, name, self._columns(getattr(self, name), fill))
+        self.register_buffer("slot_tips", padded_tips(self.tips))
+        self.P = self.tips.shape[-1]
+        self._pm_cache.clear()
+        return self
+
+    def _columns(self, x, fill=0.0):
+        """This rank's columns of a global array [..., n_patterns] (or
+        already padded, [..., n_padded]), padded with `fill`."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.shape[-1] not in (self.n_patterns, self.n_padded):
+            raise ValueError(f"{x.shape[-1]} patterns: expected "
+                             f"{self.n_patterns} or {self.n_padded}")
+        pad = self.n_padded - x.shape[-1]
+        if pad:
+            x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), fill)], -1)
+        return x[..., self._cols].contiguous()
 
     def _w(self, weights):
-        return self.weights if weights is None else weights
+        """The pattern weights an entry point applies: the engine's own
+        when None.  On a sharded engine, weights of the global length
+        (the alignment's, or padded) are cut to this rank's columns;
+        weights of the local length pass as they are (no global length
+        equals it, parallel/mesh.py:padded_pattern_count)."""
+        if weights is None:
+            return self.weights
+        if self._mesh is None or weights.shape[-1] == self.P:
+            return weights
+        return self._columns(weights)
+
+    def _sum_sites(self, *sums):
+        """Complete per-rank sums over the pattern axis: the identity on
+        an unsharded engine; on a sharded one, one all_reduce over the
+        sites group for all of them (equal shapes).  Every weighted sum
+        over the patterns goes through here."""
+        if self._mesh is not None:
+            sums = self._mesh.all_reduce(torch.stack(sums),
+                                         self._shard_axis).unbind(0)
+        return sums[0] if len(sums) == 1 else tuple(sums)
+
+    def gather_sites(self, x):
+        """A per-pattern array [..., P] of every rank's shard, joined
+        into the global [..., n_patterns] (the padding dropped); the
+        identity on an unsharded engine."""
+        if self._mesh is None:
+            return x
+        parts = self._mesh.all_gather(x, self._shard_axis)
+        return torch.cat(parts, dim=-1)[..., :self.n_patterns]
 
     # ------------------------------------------------------------------
     # model plumbing
@@ -314,11 +386,11 @@ class LikelihoodEngine(nn.Module):
     def _slot_site_lse(self, tree, pm, pi, w):
         """The variable-rate site lse [P] of one parameter set through
         the kernel single_pass_kernel names, on the schedule's own slot
-        count."""
+        count; K3 at B = 1 on a sharded engine."""
         child, sched, n_slots = self._topology(tree.child)
         logw = self._logw(w)
-        kernel = single_pass_kernel(self.lnl_route, self.ns, self.C,
-                                    self.n_otu, n_slots)
+        kernel = "K3" if self._mesh is not None else single_pass_kernel(
+            self.lnl_route, self.ns, self.C, self.n_otu, n_slots)
         if kernel == "K3":
             return uppass_site_lse(child, self.tips, pm[None], pi[None],
                                    logw[None], sched=sched,
@@ -336,10 +408,11 @@ class LikelihoodEngine(nn.Module):
     def loglik(self, params, tree: TreeArrays, weights=None):
         """Weighted lnL (float64 0-d tensor on the engine's device)."""
         site = self._site_logliks_slots(self.system_of(params), tree)
-        return torch.sum(site.double() * self._w(weights))
+        return self._sum_sites(torch.sum(site.double() * self._w(weights)))
 
     def site_logliks(self, params, tree: TreeArrays):
-        return self._site_logliks_slots(self.system_of(params), tree)
+        return self.gather_sites(
+            self._site_logliks_slots(self.system_of(params), tree))
 
     # ------------------------------------------------------------------
     # systems: one (K1/K4) or a batch (K3, batched over systems)
@@ -365,9 +438,29 @@ class LikelihoodEngine(nn.Module):
     def _loglik_sys(self, sys, tree: TreeArrays, weights=None):
         """Weighted lnL: 0-d for one system and tree, [B] for a batch
         of systems, [R] for a stack of trees (weights [R, P], each
-        tree's own pattern weights applied after the kernel)."""
+        tree's own pattern weights applied after the kernel).  On a mesh
+        with a boot axis, weights [R, P] are split by rows over the boot
+        groups (parallel/mesh.py:boot_sharding): each sums its rows, and
+        the lnL [R] is gathered over the boot axis."""
         site = self._site_logliks_sys(sys, tree)
-        return torch.sum(site.double() * self._w(weights), dim=-1)
+        w = self._w(weights)
+        if w.dim() == 2 and self._mesh is not None \
+                and self._mesh.shape["boot"] > 1:
+            return self._boot_rows_lnl(site, w)
+        return self._sum_sites(torch.sum(site.double() * w, dim=-1))
+
+    def _boot_rows_lnl(self, site, w):
+        """lnL [R] of weights [R, P] (site [P], or [R, P] for a stack of
+        trees), each boot group summing its block of rows."""
+        from phyml_tpu_torch.parallel.mesh import boot_sharding
+
+        R, n_boot = w.shape[0], self._mesh.shape["boot"]
+        rows = boot_sharding(self._mesh, R)
+        mine = site[rows] if site.dim() == 2 else site
+        part = self._sum_sites(torch.sum(mine.double() * w[rows], dim=-1))
+        step = -(-R // n_boot)
+        part = torch.cat([part, part.new_zeros(step - part.shape[0])])
+        return torch.cat(self._mesh.all_gather(part, "boot"))[:R]
 
     # lnL [B] of a batch of systems (leading axis B, from _system of
     # batched params) on one tree: batched P-matrices, then one
@@ -598,7 +691,7 @@ class LikelihoodEngine(nn.Module):
             sc.append(sc[c0] + sc[c1] + torch.log(m[..., 0, :]))
             pup.append(torch.einsum("cxy,cyp->cxp", pm[n + i], x / m))
         site = self._root_site_loglik(pup, sc, pi, w, pinv)
-        return torch.sum(site * self._w(weights))
+        return self._sum_sites(torch.sum(site * self._w(weights)))
 
     def site_logliks_scan(self, sys, tree: TreeArrays):
         lam, V, Vinv, pi, w, pinv = sys
@@ -722,6 +815,6 @@ class LikelihoodEngine(nn.Module):
         [n_edges] with d_n [n_edges, C, ns, P]."""
         site, dln, d2ln = self.edge_site_terms(d_n, sc_n, aux, t)
         wts = aux["weights"]
-        return (torch.sum(site.double() * wts, dim=-1),
-                torch.sum(dln.double() * wts, dim=-1),
-                torch.sum(d2ln.double() * wts, dim=-1))
+        return self._sum_sites(torch.sum(site.double() * wts, dim=-1),
+                               torch.sum(dln.double() * wts, dim=-1),
+                               torch.sum(d2ln.double() * wts, dim=-1))

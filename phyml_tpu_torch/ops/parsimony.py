@@ -32,9 +32,10 @@ def parsimony_score(engine, topo, weights=None) -> int:
     Pars pars.c:20 with site weights)."""
     masks = getattr(engine, "_pars_masks", None)
     if masks is None:
-        masks = engine._pars_masks = torch.as_tensor(
-            _tip_masks(engine.aln, engine.P), device=engine.device)
-    w = engine.weights if weights is None else weights
+        # a sharded engine keeps its own columns (LikelihoodEngine._columns)
+        masks = engine._pars_masks = engine._columns(
+            _tip_masks(engine.aln, engine.n_padded))
+    w = engine._w(weights)
     n = engine.n_otu
     state = list(masks)
     steps = torch.zeros_like(w)
@@ -45,4 +46,4 @@ def parsimony_score(engine, topo, weights=None) -> int:
         state.append(torch.where(miss, m0 | m1, inter))
         steps = steps + miss.to(w.dtype) * w
     assert len(state) == 2 * n - 1
-    return int(torch.sum(steps))
+    return int(engine._sum_sites(torch.sum(steps)))

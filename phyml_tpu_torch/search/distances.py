@@ -133,8 +133,8 @@ def ml_pairwise_distances(engine, params, weights=None) -> np.ndarray:
         return x[:1].to(engine.device, engine.dtype).contiguous()
 
     lam, V, Vinv, pi = c(lam), c(V), c(Vinv), c(pi)
-    weights = engine.weights if weights is None else weights
-    F = _all_pair_counts(engine.tips, weights)
+    F = engine._sum_sites(_all_pair_counts(engine.tips,
+                                           engine._w(weights)))
 
     # grid scan (log-spaced) for a robust start
     grid = torch.as_tensor(

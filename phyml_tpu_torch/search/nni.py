@@ -164,7 +164,8 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     d = dots(Q1 * Q2, Gb * Q3)
     sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
     site, _, _ = engine.edge_site_terms(d, sc_d, aux, tc)
-    lnl = torch.sum(site.double() * aux["weights"], dim=-1)  # [E, 3]
+    lnl = engine._sum_sites(torch.sum(site.double() * aux["weights"],
+                                      dim=-1))                # [E, 3]
     return lnl.reshape(lead + (3,)), \
         tuple(t.reshape(lead + (3,)) for t in (t1, t2, t3, tc)), \
         site.reshape(lead + (3, -1))
@@ -176,12 +177,13 @@ def nni_scores(engine, params, tree: TreeArrays, cand: np.ndarray,
     likelihood of the current config (col 0) and both NNI alternatives
     (cols 1, 2) of every internal edge, the four local branch lengths
     optimized, as numpy.  return_site=True adds the per-site
-    log-likelihoods (the reference's log_lks_aLRT)."""
+    log-likelihoods (the reference's log_lks_aLRT; a sharded engine's
+    gathered over its ranks)."""
     lnl, ts, site = _nni_scorer(engine, engine.system_of(params), tree,
                                 cand, engine._w(weights))
     out = (lnl.cpu().numpy(), tuple(t.cpu().numpy() for t in ts))
     if return_site:
-        out = out + (site.cpu().numpy(),)
+        out = out + (engine.gather_sites(site).cpu().numpy(),)
     return out
 
 

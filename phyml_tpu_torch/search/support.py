@@ -92,7 +92,7 @@ def alrt_supports(
     cand = candidate_arrays(rv)
     lnl_cfg, _, site = nni_scores(engine, params, ta, cand,
                                   weights=weights, return_site=True)
-    w = np.asarray(engine._w(weights).cpu())
+    w = np.asarray(engine.gather_sites(engine._w(weights)).cpu())
     out: dict[int, float] = {}
 
     if method in ("sh", "rell"):

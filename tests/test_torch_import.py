@@ -3,7 +3,8 @@
 The machine with the GPU has no JAX, so importing every module of the
 port must pull in neither.  The check runs in a subprocess because
 this test process already imported jax (tests/conftest.py).  The
-modules of the auxiliary tools and of PhyREX are among those checked.
+modules of the auxiliary tools, of PhyREX and of --distributed are
+among those checked.
 """
 
 import os
@@ -58,6 +59,9 @@ def test_import_pulls_in_no_jax():
     # and PhyREX's
     assert {f"phyml_tpu_torch.bayes.{m}" for m in
             ("traits", "geo", "phyrex", "slfv")} <= set(mods)
+    # and --distributed's
+    assert {f"phyml_tpu_torch.parallel{m}" for m in
+            ("", ".mesh", ".boot")} <= set(mods)
 
 
 def test_no_source_imports_jax():

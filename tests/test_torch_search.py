@@ -15,9 +15,9 @@ in float64:
   SPR escapes and probes) and `-s SPR`, against phyml_tpu.cli on the
   same files (protein at 8 taxa x 150 sites): the same tree and the
   final lnL within 1e-6;
-* `--distributed` (still unported) stops the run naming its ROADMAP
-  item; `--xml` of an empty <phyrex> root fails as phyml_tpu.cli's does;
-  the SPR block size follows the reference's rule.
+* `--distributed` (ported) runs without naming its ROADMAP item;
+  `--xml` of an empty <phyrex> root fails as phyml_tpu.cli's does; the
+  SPR block size follows the reference's rule.
 """
 
 import importlib
@@ -157,10 +157,12 @@ def test_cli_search_matches_phyml_tpu(dt, flags, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag, item", [
     (["--distributed"], "'Supports, bootstrap and multi-GPU'"),
     (["--xml", "phyrex.xml"], "'Bayesian tier'")])
-def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
-    """--distributed stops the run naming its ROADMAP item.  An XML
-    analysis with an empty <phyrex> root (ported) raises the same
-    ValueError through both packages' CLIs and names no ROADMAP item."""
+def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys,
+                                         monkeypatch):
+    """Both flags are ported and name no ROADMAP item: --distributed
+    with no distributed environment runs the default run and writes its
+    tree; an XML analysis with an empty <phyrex> root raises the same
+    ValueError through both packages' CLIs."""
     aln = tmp_path / "aln.phy"
     aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
     if flag[0] == "--xml":
@@ -176,10 +178,13 @@ def test_flags_left_unported_stop_the_run(flag, item, tmp_path, capsys):
         assert errs[0] == errs[1] and "no <partitionelem> found" in errs[1]
         assert item not in errs[1] + capsys.readouterr().err
         return
-    assert tcli.main(["-i", str(aln), "--platform", "cpu", *flag]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and flag[0] in err
-    assert item in err
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert tcli.main(["-i", str(aln), "--platform", "cpu", "-b", "0",
+                      "--r_seed", "1", *flag]) == 0
+    said = capsys.readouterr()
+    assert item not in said.out + said.err
+    assert ". Distributed run: process 0 of 1." in said.out
+    assert (tmp_path / "aln.phy_phyml_tree.txt").exists()
 
 
 @pytest.mark.parametrize("ns, P, want", [

@@ -104,12 +104,22 @@ def test_gpu_platform_without_cuda_names_cpu(tmp_path, capsys,
     assert "--platform cpu" in capsys.readouterr().err
 
 
-def test_unported_flags_stop_the_run(tmp_path, capsys):
-    """Flags of later slices stop the port's CLI with a pointer to the
-    ROADMAP item that ports them."""
-    aln = tmp_path / "aln.phy"
-    aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
-    assert tcli.main(["-i", str(aln), "--distributed", "--platform",
-                      "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "--distributed" in err
+def test_unported_flags_stop_the_run(tmp_path, monkeypatch):
+    """--distributed, once refused, now runs: with no distributed
+    environment (no WORLD_SIZE, no process group) it is the plain run,
+    the same tree file and lnL."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    out = {}
+    for tag, extra in (("plain", []), ("distributed", ["--distributed"])):
+        d = tmp_path / tag
+        d.mkdir()
+        aln = d / "aln.phy"
+        aln.write_text(" 4 4\nA  ACGT\nB  ACGA\nC  ACTT\nD  AGGT\n")
+        tree = d / "tree.nwk"
+        tree.write_text("((A,B),C,D);\n")
+        assert tcli.main(["-i", str(aln), "-u", str(tree), "-o", "l",
+                          "--platform", "cpu", "--r_seed", "1", "--quiet",
+                          *extra]) == 0
+        out[tag] = (open(f"{aln}_phyml_tree.txt").read(),
+                    _stats(str(aln))["lnl"])
+    assert out["distributed"] == out["plain"]
