@@ -86,9 +86,16 @@
    every kernel of its route against its plain version and the padding's
    cost, its fixed fit and (DNA covarion, binary) its default run at 64
    taxa, the launch counters reset just before and read just after;
+   past the ladder, protein covarion `--cov_ncats 4` (80 states, 64
+   taxa: the big bodies, csrc/big.cuh, ptxas checked for spills) with
+   every kernel of its route against its plain version, K3 at the line
+   search's B = 13 and 2, and its fixed fit, which must launch K3 at
+   both; the kernels alone at 160 states (`--cov_ncats 8`, 32 taxa);
    then at 16 x 500 the covarion fits in the 'alpha' and 'free' modes,
-   amino-acid covarion at two hidden classes (40 states), 7- and
-   36-state alphabets and a dating chain that samples cov_delta;
+   amino-acid covarion at two hidden classes (40 states) and at four
+   (80: the fit and the default run), 7- and 36-state alphabets, the
+   36-state alphabet at three hidden classes (108 states) and a dating
+   chain that samples cov_delta;
 13. the auxiliary tools (`aux_phase`): at 128 x 4096 through the CLI
    (`-u tree -o lr`, the fit first), DNA `--ancestral --cv tip --ps
    --alias_subpatt --mutmap`, DNA `--cv kfold.col` and `--cv kfold.pos`,
@@ -225,6 +232,18 @@ TPU_KERNEL = {
 }
 SOURCE = {"K1": "clv_slots.cu", "K2": "edotp.cu", "K3": "clv.cu",
           "K4": "clv_slots_stream.cu", "K5": "edotp_stream.cu"}
+# past the ladder (more than 64 states) each entry runs a big body
+# (csrc/big.cuh): K1's and K4's the K4 body, K2's and K5's the K5 body
+BIG_SOURCE = {"K1": "big_slots.cu", "K2": "big_edotp.cu",
+              "K3": "big_slots.cu", "K4": "big_slots.cu",
+              "K5": "big_edotp.cu"}
+
+
+def source_of(kname, NS):
+    """The source file of the body kname's entry runs at NS states."""
+    from phyml_tpu_torch.ops import _build
+
+    return BIG_SOURCE[kname] if _build.is_big(NS) else SOURCE[kname]
 
 
 def fail(msg: str) -> None:
@@ -360,20 +379,26 @@ PTXAS_KERNEL = {"K1": "slot_site_lse_kernel",
                 "K2": "edge_dotprods_kernel", "K3": "batched_uppass_kernel",
                 "K4": "slot_site_lse_stream_kernel",
                 "K5": "edge_dotprods_stream_kernel"}
+# ... and of the big body each entry runs past the ladder (one
+# instantiation each, whose state count is a run-time argument)
+BIG_PTXAS_KERNEL = {"K1": "big_slot_kernel", "K2": "big_edotp_kernel",
+                    "K3": "big_uppass_kernel", "K4": "big_slot_kernel",
+                    "K5": "big_edotp_kernel"}
 
 
 def ptxas_report(log_path, fragment):
     """One kernel's ptxas report from the build log: state count ->
-    (registers, spill bytes stored + loaded) of each instantiation."""
+    (registers, spill bytes stored + loaded) of each instantiation; a
+    kernel that is no template (the big bodies) under the key "big"."""
     import re
 
     out, ns = {}, None
     with open(log_path) as fh:
         for line in fh:
             m = re.search(r"(?:entry function|properties for) '?"
-                          rf"\S*{fragment}ILi(\d+)E", line)
+                          rf"\S*{fragment}(?:ILi(\d+)E|E)", line)
             if m:
-                ns = int(m.group(1))
+                ns = int(m.group(1)) if m.group(1) else "big"
                 continue
             if ns is None:
                 continue
@@ -387,6 +412,44 @@ def ptxas_report(log_path, fragment):
                 out[ns] = (int(m.group(1)), out.get(ns, (None, 0))[1])
                 ns = None
     return out
+
+
+def ptxas_regs(log_path):
+    """{kernel: {state count: (registers, spill bytes)}} of every
+    instantiation of K1-K5 on the ladder and, under "big", of the big
+    body each entry runs past it; fails on a missing report or a
+    spill."""
+    from phyml_tpu_torch.ops import _build
+
+    regs = {}
+    for kname, fragment in PTXAS_KERNEL.items():
+        regs[kname] = ptxas_report(log_path, fragment)
+        print(f". {kname} ptxas (ns: registers, spill bytes): "
+              f"{regs[kname]}")
+        for ns in _build.LADDER:
+            if ns not in regs[kname] or regs[kname][ns][0] is None:
+                fail(f"no ptxas report for {kname} at ns={ns}")
+            if regs[kname][ns][1] != 0:
+                fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
+    # the big bodies past the ladder: one instantiation each
+    for kname, fragment in BIG_PTXAS_KERNEL.items():
+        big = ptxas_report(log_path, fragment).get("big", (None, 0))
+        print(f". {kname} past the ladder, {fragment} ptxas: {big[0]} "
+              f"registers, {big[1]} B spilled")
+        if big[0] is None:
+            fail(f"no ptxas report for {fragment}")
+        if big[1] != 0:
+            fail(f"{fragment} spills {big[1]} bytes")
+        regs[kname]["big"] = big
+    return regs
+
+
+def regs_at(regs, kname, NS):
+    """(registers, spill bytes) of the body kname's entry runs at NS
+    states: its rung's instantiation, or past the ladder its big body."""
+    from phyml_tpu_torch.ops import _build
+
+    return regs[kname]["big" if _build.is_big(NS) else NS]
 
 
 def peak_mib(fn):
@@ -537,7 +600,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
                 label, extra["cell"] = f"{label} [{cell}]", cell
             rows.append(dict(
                 name=f"{kname} {label}", route="cuda",
-                source=f"phyml_tpu_torch/csrc/{SOURCE[kname]}",
+                source=f"phyml_tpu_torch/csrc/{source_of(kname, NS)}",
                 replaces=TPU_KERNEL[kname], launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, ns=ns, path=dt, kernel=kname, **extra))
@@ -571,13 +634,15 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
             if kname == lnl_k:
                 fail(f"[{tag}] the route's {kname} refuses its shape")
             continue
-        s_regs, spill = regs[kname][NS]
+        s_regs, spill = regs_at(regs, kname, NS)
         blocks = clv_slots.blocks_per_sm(ns, C, n, n_slots, not resident)
         peak = peak_mib(lambda: W[kname](*args1, n_slots=n_slots))
         print(f". [{tag}] {kname}: {s_regs} registers, {spill} B spilled, "
               f"{geo['blocks']} blocks of {geo['warps_per_block']} warps "
               f"({geo['tile']} patterns, "
-              + ("a warp per class" if geo["warps_per_block"] == C else
+              + (f"K4's big body: its warps over the {NS // 16} state "
+                 "panels, the classes in turn" if _build.is_big(NS) else
+                 "a warp per class" if geo["warps_per_block"] == C else
                  "one warp for the classes in turn") + ", "
               f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
               f"{blocks} per SM granted "
@@ -614,11 +679,13 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     # launch each, through the topology's slot schedule
     slots = free_scalar_slots(model, params)
     rng = np.random.default_rng(SEED)
-    k3_w = 1 if NS >= _build.WIDE_NS else C   # K3's warps a block
+    # K3's warps a block
+    k3_w = _build.big_warps(NS) if _build.is_big(NS) else \
+        1 if NS >= _build.WIDE_NS else C
     tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
     for B in k3_batches or (1, 2, 13 * len(slots)):
         blocks = clv.blocks_per_sm(ns, C, n_slots)
-        k3_regs, spill = regs["K3"][NS]
+        k3_regs, spill = regs_at(regs, "K3", NS)
         print(f". [{tag}] K3 B={B}: {n_slots} slots, {k3_regs} registers, "
               f"{spill} B spilled, {blocks} blocks of {32 * k3_w} threads "
               f"per SM ({blocks * k3_w} warps)")
@@ -675,11 +742,13 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for kname in ("K2", "K5"):
         blocks = edotp.blocks_per_sm(ns, kname == "K5")
-        e_regs, spill = regs[kname][NS]
+        e_regs, spill = regs_at(regs, kname, NS)
         peak = peak_mib(lambda: W[kname](*args2))
+        ew = geo["warps_per_block"]
         print(f". [{tag}] {kname}: {e_regs} registers, {spill} B spilled, "
-              f"{geo['blocks']} blocks of one warp ({geo['tile']} patterns "
-              f"x 1 class), {blocks} per SM granted ({blocks} warps), "
+              f"{geo['blocks']} blocks of {ew} warp(s) ({geo['tile']} "
+              f"patterns x 1 class), {blocks} per SM granted "
+              f"({blocks * ew} warps), "
               f"{geo['blocks'] / sms:.1f} per SM on {sms} SMs; peak "
               f"{peak:.2f} MiB beyond its inputs (outputs "
               f"{out_bytes / 2 ** 20:.2f} + workspace "
@@ -694,7 +763,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
             float((site_k[mask] - site_p[mask]).abs().max()), ms, pms,
             EDGE_TOL, edotp_flops(n, C, ns, k), edge_bytes,
             on_path=kname == edge_k, registers=e_regs, spill_bytes=spill,
-            blocks_per_sm=blocks, warps_per_sm=blocks, peak_mib=peak)
+            blocks_per_sm=blocks, warps_per_sm=blocks * ew, peak_mib=peak)
     del site_p
     if NS != ns:
         # the padding a K1/K4 launch between rungs pays: its tips,
@@ -1994,33 +2063,56 @@ STATES_CELLS = {
     "DNA covarion": ("nt", ("--cov", "--cov_ncats", "3"), N_TAXA, 64),
     "protein covarion": ("aa", ("--cov", "--cov_ncats", "3"), 64, None),
     "binary generic": ("generic", (), N_TAXA, 64),
+    # past the ladder: 80 states, the big bodies
+    "protein covarion 4": ("aa", ("--cov", "--cov_ncats", "4"), 64, None),
+}
+# the K3 batch sizes of a cell's rows where not (1, 2, 13 per free
+# scalar): the line search's grid of its one free scalar (alpha) and the
+# pair probe
+STATES_K3_BATCHES = {"protein covarion 4": (1, 2, 13)}
+# cells whose kernels only are held against their plain versions, no
+# run: 160 states (`--cov_ncats 8`) at 32 taxa, a depth cut; cell: (datatype, CLI
+# flags, taxa, the cell whose runs launch the same bodies)
+STATES_KERNEL_CELLS = {
+    "protein covarion 8": ("aa", ("--cov", "--cov_ncats", "8"), 32,
+                           "protein covarion 4"),
 }
 
 
 def states_phase(tmp, cuda, regs):
     """The state-count cells (STATES_CELLS): DNA covarion GTR+G4 `--cov
     --cov_ncats 3` (12 states), protein covarion LG+G4 (60 states, the
-    wide rung's design) and binary `-d generic` (2 states, padded to 4),
-    each on a problem of its own simulated from the script's seed:
-    every kernel of its route (and the one beside it) and K3 at the line
-    search's batch against their plain versions, the fixed-topology fit
-    (`-u tree -o lr`) and, where the cell has one, the default run, each
-    with every launch counter set to 0 just before and read just after.
-    Returns (kernel rows, launches from the cell's default run or else
-    its fit; the runs' numbers)."""
+    wide rung's design), binary `-d generic` (2 states, padded to 4) and,
+    past the ladder, protein covarion `--cov_ncats 4` (80 states, the big
+    bodies), each on a problem of its own simulated from the script's
+    seed: every kernel of its route (and the one beside it) and K3 at the
+    line search's batch against their plain versions, the fixed-topology
+    fit (`-u tree -o lr`) and, where the cell has one, the default run,
+    each with every launch counter set to 0 just before and read just
+    after (the 80-state fit must launch K3 at B = 13 and 2); then the
+    kernels alone at 160 states (STATES_KERNEL_CELLS).  Returns (kernel
+    rows, launches from the cell's default run or else its fit; the
+    runs' numbers)."""
     import torch
 
-    rows, out = [], {}
+    rows, out, counts_of = [], {}, {}
     for cell, (dt, extra, fit_n, run_n) in STATES_CELLS.items():
         tag = f"{dt} {cell}"
         d = os.path.join(tmp, "states_" + cell.replace(" ", "_"))
         aln, tree = write_problem(d, dt, fit_n, N_SITES, SEED)
+        t_cell = time.time()
         cell_rows = kernel_phases(dt, aln, tree, cuda, regs, cell=cell,
-                                  extra=extra)
+                                  extra=extra,
+                                  k3_batches=STATES_K3_BATCHES.get(cell))
         torch.cuda.empty_cache()
         fit_counts, fit_k3, out[f"{cell} fit"] = main_path(
             dt, aln, tree, cuda, extra=extra, runs=1, tag=tag)
         torch.cuda.empty_cache()
+        if cell in STATES_K3_BATCHES:
+            missing = [B for B in (2, 13) if not fit_k3.get(B)]
+            if missing:
+                fail(f"[{tag}] the fit launched K3 at no B = {missing} "
+                     f"(by batch size: {fit_k3})")
         counts, k3_by_b, src = fit_counts, fit_k3, "the fixed-topology fit"
         if run_n:
             run_aln, run_tree = write_problem(f"{d}_{run_n}", dt, run_n,
@@ -2040,6 +2132,25 @@ def states_phase(tmp, cuda, regs):
                 r["launches_at_B"] = k3_by_b.get(r["B"], 0)
                 r["launches_at_B_fixed_fit"] = fit_k3.get(r["B"], 0)
         rows += cell_rows
+        counts_of[cell] = (counts, k3_by_b, src)
+        out[f"{cell} wall_s"] = time.time() - t_cell
+    for cell, (dt, extra, n_taxa, runs_of) in STATES_KERNEL_CELLS.items():
+        d = os.path.join(tmp, "states_" + cell.replace(" ", "_"))
+        aln, tree = write_problem(d, dt, n_taxa, N_SITES, SEED)
+        t_cell = time.time()
+        cell_rows = kernel_phases(dt, aln, tree, cuda, regs, cell=cell,
+                                  extra=extra, k3_batches=(2, 13))
+        torch.cuda.empty_cache()
+        counts, k3_by_b, src = counts_of[runs_of]
+        for r in cell_rows:
+            kname = r.pop("kernel")
+            r["launches"] = counts[kname]
+            r["launches_from"] = (f"{src} of the {runs_of} cell, the same "
+                                  "big body (no run at this cell)")
+            if "B" in r:
+                r["launches_at_B"] = k3_by_b.get(r["B"], 0)
+        rows += cell_rows
+        out[f"{cell} wall_s"] = time.time() - t_cell
     return rows, out
 
 
@@ -2047,25 +2158,36 @@ def states_runs():
     """{check: run(d, platform)}: the state-count paths on 16 x 500
     problems, each run returning (final lnL, trees): covarion fits in
     the 'alpha' and 'free' modes, amino-acid covarion at two hidden
-    classes (40 states), and custom alphabets of 7 states (the default
-    run) and 36 (the fit)."""
+    classes (40 states), custom alphabets of 7 states (the default
+    run) and 36 (the fit); past the ladder, amino-acid covarion at four
+    hidden classes (80 states: the fit, and the default run on 8 x 500)
+    and the 36-state alphabet at three (108 states, the fit)."""
     from phyml_tpu_torch import cli
 
-    names = [f"T{i:04d}" for i in range(16)]
-
-    def by_cli(dt, extra, default=False, generic_ns=2):
+    def by_cli(dt, extra, default=False, generic_ns=2, size=(16, 500)):
         def run(d, platform):
-            aln, tree = write_problem(d, dt, 16, 500, SEED + 1,
+            aln, tree = write_problem(d, dt, *size, SEED + 1,
                                       generic_ns=generic_ns)
             argv = (default_argv(dt, aln, platform) if default
                     else cli_argv(dt, aln, tree, platform))
             if cli.main(argv + list(extra) + ["--quiet"]) != 0:
                 fail(f"small {dt} {extra} run on {platform} failed")
+            names = [f"T{i:04d}" for i in range(size[0])]
             return (stats_lnls(aln),
                     tree_lines(f"{aln}_phyml_tree.txt", names))
         return run
 
     return {
+        # past the kernels' ladder (the big bodies): 80 and 108 states;
+        # the 80-state default run at 8 taxa, a depth cut: its CPU
+        # float64 side on one thread ran past 10 minutes at 16 x 500 and
+        # took 196 s at 8 x 500, so it comes first, among the workers
+        # that start at once
+        "aa_cov_4_hidden_default_run_8_taxa": by_cli(
+            "aa", ["--cov", "--cov_ncats", "4"], default=True, size=(8, 500)),
+        "aa_cov_4_hidden_fit": by_cli("aa", ["--cov", "--cov_ncats", "4"]),
+        "generic_36_cov_3_fit": by_cli(
+            "generic", ["--cov", "--cov_ncats", "3"], generic_ns=36),
         "cov_alpha_fit": by_cli("nt", ["--cov_alpha", "e", "--cov_ncats",
                                        "2"]),
         "cov_free_fit": by_cli("nt", ["--cov_free"]),
@@ -4043,16 +4165,7 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  ptxas: {line.strip()}")
-    regs = {}
-    for kname, fragment in PTXAS_KERNEL.items():
-        regs[kname] = ptxas_report(log_path, fragment)
-        print(f". {kname} ptxas (ns: registers, spill bytes): "
-              f"{regs[kname]}")
-        for ns in _build.LADDER:
-            if ns not in regs[kname] or regs[kname][ns][0] is None:
-                fail(f"no ptxas report for {kname} at ns={ns}")
-            if regs[kname][ns][1] != 0:
-                fail(f"{kname} spills {regs[kname][ns][1]} bytes at ns={ns}")
+    regs = ptxas_regs(log_path)
 
     rows, runs, supports, mix = [], {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:

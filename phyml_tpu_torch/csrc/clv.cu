@@ -98,6 +98,7 @@
 // class log-sum-exp stays in this kernel.  The tip rows are copied
 // again for each class (from L2).
 #include "common.cuh"
+#include "big_launch.cuh"
 
 namespace phyml {
 
@@ -345,7 +346,9 @@ int occupancy(int C, int n_slots, int* blocks_per_sm) {
   case NS:                              \
     return phyml::occupancy<NS>(C, n_slots, blocks_per_sm);
 
-// A case per rung of ladder.cuh; -1 for another ns.
+// A case per rung of ladder.cuh, and past its top K3's big body
+// (big_slots.cu: a state count padded to a multiple of 16); -1 for
+// another ns.
 extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
                                     const float* pmats, const float* pi,
                                     const float* logw, float* out, int n_otu,
@@ -360,8 +363,10 @@ extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
     PHYML_LADDER(PHYML_BATCHED_CASE)
-    default:
-      return phyml::kUnsupported;
+    default:  // past the ladder: K3's big body (big_slots.cu)
+      return phyml::big_pass_launch(true, sched, tips, pmats, pi, logw, out,
+                                    n_otu, n_int, n_slots, ns, C, P, P, B,
+                                    sched_stride, param_stride, st);
   }
 }
 
@@ -373,6 +378,6 @@ extern "C" int phyml_batched_uppass_occupancy(int ns, int C, int n_slots,
   switch (ns) {
     PHYML_LADDER(PHYML_BATCHED_OCC_CASE)
     default:
-      return phyml::kUnsupported;
+      return phyml::big_pass_occupancy(true, ns, C, n_slots, blocks_per_sm);
   }
 }

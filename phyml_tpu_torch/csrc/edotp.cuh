@@ -80,6 +80,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "big_launch.cuh"
 
 namespace phyml {
 
@@ -470,10 +471,12 @@ int edotp_occupancy(K* kernel, int* blocks_per_sm) {
 }  // namespace phyml
 
 // One extern "C" launcher and one occupancy query per kernel, a case per
-// rung of ladder.cuh (-1 for another ns, or a pattern width Pw that is
-// not P rounded up to the tile); R stacked trees (1 for one tree), each
-// with its own child table, P-matrices, outputs and workspace.  The
-// including file defines PHYML_EDOTP_KERNEL (its kernel template) first.
+// rung of ladder.cuh and, past its top, K5's big body (big_edotp.cu: a
+// state count padded to a multiple of 16, a 16-pattern tile) for both
+// (-1 for another ns, or a pattern width Pw that is not P rounded up to
+// the tile); R stacked trees (1 for one tree), each with its own child
+// table, P-matrices, outputs and workspace.  The including file defines
+// PHYML_EDOTP_KERNEL (its kernel template) first.
 #define PHYML_EDOTP_CASE(NS, ...)                                          \
   case NS:                                                                 \
     return phyml::launch_edotp<NS>(PHYML_EDOTP_KERNEL<NS>, child, tips,    \
@@ -493,14 +496,16 @@ int edotp_occupancy(K* kernel, int* blocks_per_sm) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
     switch (ns) {                                                             \
       PHYML_LADDER(PHYML_EDOTP_CASE)                                          \
-      default:                                                                \
-        return phyml::kUnsupported;                                           \
+      default: /* past the ladder: K5's big body (big_edotp.cu) */            \
+        return phyml::big_edotp_launch(child, tips, pmats, V, Vinv, pi, d,    \
+                                       scd, ws_clv, ws_out, n_otu, n_int,     \
+                                       ns, C, P, Pw, R, st);                  \
     }                                                                         \
   }                                                                           \
   extern "C" int FN##_occupancy(int ns, int* blocks_per_sm) {                 \
     switch (ns) {                                                             \
       PHYML_LADDER(PHYML_EDOTP_OCC_CASE)                                      \
       default:                                                                \
-        return phyml::kUnsupported;                                           \
+        return phyml::big_edotp_occupancy(ns, blocks_per_sm);                 \
     }                                                                         \
   }

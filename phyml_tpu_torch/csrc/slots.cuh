@@ -86,6 +86,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "big_launch.cuh"
 
 namespace phyml {
 
@@ -365,10 +366,12 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
 }  // namespace phyml
 
 // One extern "C" launcher and one occupancy query per route, a case per
-// rung of ladder.cuh (-1 for another ns, more than 32 classes, tip rows
-// not padded to whole tiles, or a shape whose shared memory does not fit
-// a block).  The including file defines PHYML_SLOT_KERNEL (its kernel
-// template) and PHYML_SLOT_RESIDENT (true for K1) first.
+// rung of ladder.cuh and, past its top, K4's big body (big_slots.cu: a
+// state count padded to a multiple of 16) for both routes (-1 for
+// another ns, more than 32 classes, tip rows not padded to whole tiles,
+// or a shape whose shared memory does not fit a block).  The including
+// file defines PHYML_SLOT_KERNEL (its kernel template) and
+// PHYML_SLOT_RESIDENT (true for K1) first.
 #define PHYML_SLOT_CASE(NS, ...)                                           \
   case NS:                                                                 \
     return phyml::launch_slot<NS, PHYML_SLOT_RESIDENT>(                    \
@@ -388,8 +391,10 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
     switch (ns) {                                                            \
       PHYML_LADDER(PHYML_SLOT_CASE)                                          \
-      default:                                                               \
-        return phyml::kUnsupported;                                          \
+      default: /* past the ladder: K4's big body (big_slots.cu) */           \
+        return phyml::big_pass_launch(false, sched, tips, pmats, pi, logw,   \
+                                      out, n_otu, n_int, n_slots, ns, C, P,  \
+                                      ldt, 1, 0, 0, st);                     \
     }                                                                        \
   }                                                                          \
   extern "C" int FN##_occupancy(int ns, int C, int n_otu, int n_slots,       \
@@ -399,6 +404,7 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
     switch (ns) {                                                            \
       PHYML_LADDER(PHYML_SLOT_OCC_CASE)                                      \
       default:                                                               \
-        return phyml::kUnsupported;                                          \
+        return phyml::big_pass_occupancy(false, ns, C, n_slots,              \
+                                         blocks_per_sm);                     \
     }                                                                        \
   }

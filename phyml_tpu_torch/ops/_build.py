@@ -36,6 +36,9 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# Shared memory one block may use on Hopper (common.cuh kMaxSmem)
+MAX_BLOCK_SMEM = 232448
+
 # C signatures: name -> argtypes (every function returns an int error
 # code: 0, a cudaError_t, or -1 for an unsupported (ns, C) shape)
 _SLOT_ARGS = [_P] * 6 + [_I] * 7 + [_P]
@@ -86,26 +89,47 @@ def _read_ladder() -> tuple[dict, int]:
 # run one warp a block that walks the classes
 RUNGS, WIDE_NS = _read_ladder()
 LADDER = tuple(sorted(RUNGS))
-# ROADMAP.md Queue 2 item that ports state counts past the ladder
-_BEYOND = "Queue 2, 'More than 64 states'"
+
+# Past the ladder's top rung the big bodies (csrc/big.cuh) take any state
+# count padded to a multiple of BIG_PANEL, on a tile of BIG_TILE patterns,
+# a block of at most BIG_MAX_WARPS warps (kBigPanel, kBigTile,
+# kBigMaxWarps there)
+BIG_PANEL = 16
+BIG_TILE = 16
+BIG_MAX_WARPS = 8
 
 
 def rung(ns: int) -> int:
-    """The smallest rung of the ladder holding ns states; more states
-    than the top rung raise NotImplementedError (no fallback)."""
+    """The state count the kernels run ns at: the smallest rung of the
+    ladder holding ns states, or past the top rung ns rounded up to a
+    multiple of BIG_PANEL (the big bodies, `is_big`)."""
     for r in LADDER:
         if ns <= r:
             return r
-    raise NotImplementedError(
-        f"no CUDA kernel for {ns} states: the kernels are built for up to "
-        f"{LADDER[-1]} (ROADMAP.md {_BEYOND})")
+    return -(-ns // BIG_PANEL) * BIG_PANEL
+
+
+def is_big(NS: int) -> bool:
+    """True where a padded state count runs the big bodies."""
+    return NS > LADDER[-1]
+
+
+def big_warps(NS: int) -> int:
+    """Warps of a big body's block at NS (padded) states: the NS / 16
+    output panels over at most BIG_MAX_WARPS warps in equal rounds
+    (csrc/big.cuh:big_warps)."""
+    panels = NS // BIG_PANEL
+    rounds = -(-panels // BIG_MAX_WARPS)
+    return -(-panels // rounds)
 
 
 def tile(family: str, ns: int) -> int:
-    """Patterns one warp covers at the rung of ns: 32 / G * Q with
+    """Patterns one block's warp covers at the rung of ns: 32 / G * Q with
     G = rung / R lanes per pattern column (family "slot", "batch" or
-    "edotp")."""
+    "edotp"); BIG_TILE past the ladder, for every family."""
     NS = rung(ns)
+    if is_big(NS):
+        return BIG_TILE
     R, Q = RUNGS[NS][family]
     return 32 // (NS // R) * Q
 
@@ -209,14 +233,18 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check(rc: int, name: str, ns: int) -> None:
+def check(rc: int, name: str, ns: int, **shape) -> None:
     """Raise on a kernel launcher's nonzero return code (the wrappers
-    launch at a rung of the ladder, `rung`)."""
+    launch at `rung(ns)`); the refusal (-1) names the shape, ns and the
+    `shape` the wrapper passes (classes, slots, patterns, the block's
+    shared memory from its geometry)."""
     if rc == -1:
+        dims = ", ".join([f"ns={ns}"] + [f"{k}={v}" for k, v in shape.items()])
         raise NotImplementedError(
-            f"{name}: no CUDA kernel for this shape (more than 32 rate "
-            "classes, a batch over 65535, or more shared memory than a "
-            "block may use)")
+            f"{name}: no CUDA kernel for this shape ({dims}): more than 32 "
+            "rate classes, a batch over 65535, more than 65535 pattern "
+            f"tiles, or more shared memory than a block may use "
+            f"({MAX_BLOCK_SMEM} B)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with "
                            f"cudaError {rc}")

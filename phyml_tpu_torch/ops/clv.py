@@ -21,7 +21,9 @@ plain PyTorch version `uppass_site_lse_plain` for CPU tensors.  The
 kernel is built for the rungs of the state-count ladder
 (`_build.LADDER`); operands of another state count are padded to the
 next rung (tips, P-matrices and pi, a copy of each per launch), which
-leaves the output unchanged.
+leaves the output unchanged.  Past the top rung the launcher runs K3's
+big body (`csrc/big_slots.cu`, the design in `csrc/big.cuh`, its shape
+`big_geometry`), ns padded to a multiple of 16 the same way.
 """
 
 from __future__ import annotations
@@ -174,7 +176,7 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
             ptr(sched), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
             ptr(out), n_otu, n_nodes - n_otu, n_slots, ns, C, P, B,
             int(per_entry), int(shared), _build.stream_of(tips))
-    _build.check(rc, name, ns)
+    _build.check(rc, name, ns, C=C, n_slots=n_slots, P=P, B=B)
     uppass_site_lse.launches += 1
     by_b = uppass_site_lse.launches_by_trees if per_entry \
         else uppass_site_lse.launches_by_batch
@@ -182,10 +184,27 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
     return out if batched else out[0]
 
 
+def big_geometry(ns: int, C: int, P: int, n_slots: int) -> dict:
+    """Launch shape of the big K3/K4 body past the ladder
+    (csrc/big_slots.cu: big_pass_smem), at NS = rung(ns): a block of W
+    warps (`_build.big_warps`) on one tile of 16 patterns, one block per
+    tile (and per batch entry for K3); its shared memory is the warps'
+    rings (W x 2 x 2 pieces of 16 x 16 floats), two tip tiles and the
+    product tile (3 x NS x 16), the column maxima (W x 16), the
+    schedule's n_slots slots of (NS + 1) x 16 and C x 16 class terms."""
+    NS = _build.rung(ns)
+    T, W = _build.BIG_TILE, _build.big_warps(NS)
+    piece = _build.BIG_PANEL ** 2
+    ring = W * 2 * 2 * piece
+    block = 4 * (ring + 3 * NS * T + W * T + n_slots * (NS + 1) * T + C * T)
+    return dict(tile=T, blocks=-(-P // T), warps_per_block=W,
+                warp_smem_bytes=4 * 2 * 2 * piece, block_smem_bytes=block)
+
+
 def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
-    """Blocks of K3 (32 * C threads each, 32 on the wide rungs) one SM
-    of the current device holds at the rung of ns, as the CUDA runtime
-    grants them."""
+    """Blocks of K3 (32 * C threads each, 32 on the wide rungs,
+    `_build.big_warps` warps past the ladder) one SM of the current
+    device holds at the rung of ns, as the CUDA runtime grants them."""
     blocks = ctypes.c_int(0)
     NS = _build.rung(ns)
     rc = _build.library().phyml_batched_uppass_occupancy(

@@ -37,7 +37,10 @@ The kernels are built for the rungs of the state-count ladder
 (`_build.LADDER`); for another state count the wrappers pad the
 operands to the next rung, a copy of each per launch: tips (zero rows),
 P-matrices (a zero row and column) and pi (a zero).  Padded states add
-nothing to any sum, so the output is unchanged.
+nothing to any sum, so the output is unchanged.  Past the top rung both
+entries launch K4's big body (`csrc/big_slots.cu`, the design in
+`csrc/big.cuh`), whose state count is a run-time argument: the wrappers
+pad ns to a multiple of 16 (`_build.rung`) the same way.
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ import numpy as np
 import torch
 
 from phyml_tpu_torch.ops import _build
-from phyml_tpu_torch.ops.clv import LN2, check_schedule, pow2_rescale
+from phyml_tpu_torch.ops.clv import (
+    LN2, big_geometry, check_schedule, pow2_rescale,
+)
 
 
 def build_slot_schedule(n_otu: int, child: np.ndarray):
@@ -157,12 +162,13 @@ def uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw, *,
 
 # Patterns the tips' rows are padded to: a multiple of every rung's
 # warp tile (kSlotTile in csrc/slots.cuh: 32 up to 24 states, 16 above)
+# and of the big bodies' (16)
 TILE = 32
 # Ring stages: tip rows (and K4's P-matrices) are copied two steps ahead
 # (kSlotAhead + 1), one step on the wide rungs
 STAGES = 3
 # Shared memory one block may use on Hopper (common.cuh kMaxSmem)
-MAX_BLOCK_SMEM = 232448
+MAX_BLOCK_SMEM = _build.MAX_BLOCK_SMEM
 
 
 def geometry(ns: int, C: int, P: int, n_otu: int, n_slots: int,
@@ -174,8 +180,12 @@ def geometry(ns: int, C: int, P: int, n_otu: int, n_slots: int,
     (slot_warp_floats: its class's P-matrices of every child node (K1)
     or the ring of two per stage (K4), the tip ring and the slots) and
     of a block (its warps and C x tile class terms).  A launch whose
-    block needs more than MAX_BLOCK_SMEM is refused."""
+    block needs more than MAX_BLOCK_SMEM is refused.  Past the ladder
+    both entries run K4's big body: `big_geometry` (a warp's share is
+    its ring)."""
     NS = _build.rung(ns)
+    if _build.is_big(NS):
+        return big_geometry(ns, C, P, n_slots)
     T = _build.tile("slot", ns)
     wide = NS >= _build.WIDE_NS
     S = 2 if wide else STAGES
@@ -226,7 +236,10 @@ def _launch_slots(fn_name, name, sched, tips, pmats, pi, logw, n_slots):
             ptr(sched), ptr(tips), ptr(pmats), ptr(pi), ptr(logw),
             ptr(out), n_otu, n_int, n_slots, ns, C, P, ldt,
             _build.stream_of(tips))
-    _build.check(rc, name, ns)
+    geo = geometry(ns, C, P, n_otu, n_slots,
+                   resident=fn_name == "phyml_slot_site_lse")
+    _build.check(rc, name, ns, C=C, n_otu=n_otu, n_slots=n_slots, P=P,
+                 block_smem_bytes=geo["block_smem_bytes"])
     return out
 
 
@@ -291,9 +304,9 @@ def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
 def blocks_per_sm(ns: int, C: int, n_otu: int, n_slots: int,
                   stream: bool) -> int:
     """Blocks of K1 (stream=False) or K4 (C warps each, one on the wide
-    rungs) one SM of the current device holds for an n_otu-taxon tree
-    walked with n_slots slots at the rung of ns, as the CUDA runtime
-    grants them."""
+    rungs, big_warps past the ladder) one SM of the current device holds
+    for an n_otu-taxon tree walked with n_slots slots at the rung of ns,
+    as the CUDA runtime grants them."""
     fn = "phyml_slot_site_lse_stream_occupancy" if stream \
         else "phyml_slot_site_lse_occupancy"
     blocks = ctypes.c_int(0)

@@ -32,7 +32,11 @@ The kernels are built for the rungs of the state-count ladder
 next rung (tips, P-matrices, V, V^-1 and pi, a copy of each per launch,
 each padded state a zero row and column or a zero), and d is returned
 as the view of its first ns states: the padded states' rows of d are
-zero.
+zero.  Past the top rung both entries launch K5's big body
+(`csrc/big_edotp.cu`, the design in `csrc/big.cuh`), whose state count
+is a run-time argument: ns is padded to a multiple of 16
+(`_build.rung`) the same way, the tile is 16 patterns and a block holds
+`_build.big_warps` warps.
 """
 
 from __future__ import annotations
@@ -99,9 +103,17 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
     return d, sc_d
 
 
-# Patterns per thread block by rung (kEdotpTile in csrc/edotp.cuh): the
-# workspace's pattern axis is P rounded up to it.
-TILE = {NS: _build.tile("edotp", NS) for NS in _build.LADDER}
+class _TileTable(dict):
+    """Patterns per thread block by state count (kEdotpTile in
+    csrc/edotp.cuh at the rungs, kBigTile past them): the workspace's
+    pattern axis is P rounded up to it.  Keyed by the ladder's rungs,
+    and defined for every other state count through `_build.tile`."""
+
+    def __missing__(self, ns):
+        return _build.tile("edotp", ns)
+
+
+TILE = _TileTable({NS: _build.tile("edotp", NS) for NS in _build.LADDER})
 # Ring stages: each step's operands are copied one step ahead
 # (kEdotpAhead + 1).
 STAGES = 2
@@ -112,14 +124,26 @@ def geometry(ns: int, C: int, P: int) -> dict:
     ns, as csrc/edotp.cuh computes it: the padded pattern width Pw, the
     grid (one block of one warp per pattern tile and class), the block's
     dynamic shared memory (kEdotpSmem) and the workspace floats per
-    internal node."""
+    internal node.  Past the ladder, the big body's (csrc/big_edotp.cu:
+    big_edotp_smem): a block of `_build.big_warps` warps per 16-pattern
+    tile and class, its warps' rings (W x 2 x 2 pieces of 16 x 16
+    floats), the two children's tiles and the outside partial (3 x
+    (NS + 1) x 16), the two outside partials (2 x NS x 16) and two sets
+    of column maxima (2 x W x 16)."""
     NS = _build.rung(ns)
     T = TILE[NS]
     Pw = -(-P // T) * T
-    smem = ((2 + 2 * STAGES) * NS * NS + 3 * STAGES * (NS + 1) * T
-            + 2 * NS * T) * 4
-    return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32,
-                smem_bytes=smem, workspace_floats_per_node=C * (NS + 1) * Pw)
+    if _build.is_big(NS):
+        W = _build.big_warps(NS)
+        smem = (W * 2 * 2 * _build.BIG_PANEL ** 2 + 3 * (NS + 1) * T
+                + 2 * NS * T + 2 * W * T) * 4
+    else:
+        W = 1
+        smem = ((2 + 2 * STAGES) * NS * NS + 3 * STAGES * (NS + 1) * T
+                + 2 * NS * T) * 4
+    return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32 * W,
+                warps_per_block=W, smem_bytes=smem,
+                workspace_floats_per_node=C * (NS + 1) * Pw)
 
 
 def check_child_table(name: str, child, n_otu: int) -> None:
@@ -183,7 +207,8 @@ def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
             ptr(child), ptr(tips), ptr(pmats), ptr(V), ptr(Vinv),
             ptr(pi), ptr(d), ptr(sc_d), *map(ptr, ws), n_otu, n_int, ns,
             C, P, Pw, R, _build.stream_of(tips))
-    _build.check(rc, name, ns)
+    _build.check(rc, name, ns, C=C, n_otu=n_otu, P=P, trees=R,
+                 block_smem_bytes=geometry(ns, C, P)["smem_bytes"])
     wrapper.launches += 1
     if lead:
         wrapper.launches_by_trees[R] = wrapper.launches_by_trees.get(R, 0) + 1
@@ -214,9 +239,9 @@ def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
 
 
 def blocks_per_sm(ns: int, stream: bool) -> int:
-    """Blocks (one warp each) of K2 (stream=False) or K5 one SM of the
-    current device holds at the rung of ns, as the CUDA runtime grants
-    them."""
+    """Blocks (one warp each; `_build.big_warps` past the ladder) of K2
+    (stream=False) or K5 one SM of the current device holds at the rung
+    of ns, as the CUDA runtime grants them."""
     fn = "phyml_edge_dotprods_stream_occupancy" if stream \
         else "phyml_edge_dotprods_occupancy"
     blocks = ctypes.c_int(0)

@@ -94,9 +94,11 @@ def kernel_route(n_otu: int, C: int, ns: int) -> tuple[str, str]:
     taxa: ("K1", "K2") while K1's shared memory at the rung of ns (the
     state count the kernels run, `_build.rung`) fits
     RESIDENT_WARP_BYTES a warp and a block of C warps, else the streamed
-    ("K4", "K5").  Past the ladder's top rung, where no kernel runs, the
-    streamed pair is named."""
-    if ns > _build.LADDER[-1]:
+    ("K4", "K5").  Past the ladder's top rung the streamed pair: no
+    tree's resident matrices fit a warp there (a 3-taxon tree's four
+    80-state matrices are 102 KB), and K1's and K2's entries run the
+    same big bodies.  Defined for every state count, on every device."""
+    if _build.is_big(_build.rung(ns)):
         return ("K4", "K5")
     n_slots = int(math.ceil(math.log2(max(n_otu, 2)))) + 1
     geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=True)
@@ -114,7 +116,12 @@ def single_pass_kernel(route: str, ns: int, C: int, n_otu: int,
     slot count, so only K4 can miss: its C warps each hold a ring and
     the slots (at 20 states, 25 KB + 2.7 KB a slot a warp), so a block
     of 8 classes holds one slot only, and one of 4 classes twelve.  On
-    the wide rungs (40 states and up) a block is one warp."""
+    the wide rungs (40 states and up) a block is one warp.  Past the
+    ladder K4 and K3 run one big body whose block is the same, so the
+    route's K4 is named (a block that does not fit refuses at launch,
+    naming its shape)."""
+    if _build.is_big(_build.rung(ns)):
+        return route
     geo = slot_geometry(ns, C, 1, n_otu, n_slots, resident=route == "K1")
     return route if geo["block_smem_bytes"] <= MAX_BLOCK_SMEM else "K3"
 
@@ -176,7 +183,8 @@ class LikelihoodEngine(nn.Module):
         self.device = default_device(device)
         self.n_otu = aln.n_otu
         # the process's state count (covarion: obs_ns x n_hidden); the
-        # kernels pad it to a rung of their ladder, nothing here does
+        # kernels pad it to a rung of their ladder (past its top, to a
+        # multiple of 16), nothing here does
         self.ns = model.ns
         self.C = model.n_classes
         self.n_nodes = 2 * self.n_otu - 1
@@ -192,9 +200,6 @@ class LikelihoodEngine(nn.Module):
             # the P-matrix einsum must run in full float32: a TF32
             # P(t) is a ~1e-3 per-site likelihood error
             torch.backends.cuda.matmul.allow_tf32 = False
-            # more states than the kernels' top rung: refused here, not
-            # at the first launch (no fallback to the plain versions)
-            _build.rung(self.ns)
 
         dev = dict(device=self.device)
         tips = np.transpose(aln.partials, (0, 2, 1))  # [n_otu, obs_ns, P]

@@ -213,17 +213,21 @@ def test_empirical_freqs_match_phyml_tpu(datatype, alphabet):
 
 
 def test_unbuilt_state_count_names_its_roadmap_item():
-    """A state count past the kernels' ladder (more than 64 states)
-    raises with the ROADMAP item that ports it; at a built rung the
-    launcher's 'unsupported' code names the shape limit instead."""
+    """Past the kernels' ladder (more than 64 states) no state count is
+    unbuilt: `rung` pads it to a multiple of 16, the big bodies' panel
+    (80 stays 80, 65 goes to 80).  The one refusal left, the launcher's
+    'unsupported' code, names the shape it was given."""
     from phyml_tpu_torch.ops import _build
 
-    with pytest.raises(NotImplementedError, match="More than 64 states"):
-        _build.rung(80)
-    with pytest.raises(NotImplementedError, match="More than 64 states"):
-        _build.rung(65)
+    assert _build.rung(80) == 80 and _build.is_big(80)
+    assert _build.rung(65) == 80 and _build.rung(161) == 176
+    assert _build.rung(64) == 64 and not _build.is_big(64)
     with pytest.raises(NotImplementedError, match="rate classes"):
         _build.check(-1, "edge_dotprods", 20)
+    with pytest.raises(NotImplementedError,
+                       match=r"ns=1024, C=4, block_smem_bytes=500000\)"):
+        _build.check(-1, "uppass_site_lse", 1024, C=4,
+                     block_smem_bytes=500000)
     _build.check(0, "edge_dotprods", 20)
 
 

@@ -11,7 +11,10 @@ The same simulated alignment (tests/test_torch_bionj.py's, 12 taxa,
   modes, within 1e-12 (P(t) 1e-10);
 * the engine's lnL for each mode at 2 and 3 hidden classes, DNA and
   amino acids (and +I, whose invariant term marginalizes the hidden
-  classes out of pi), within 1e-6;
+  classes out of pi), and amino acids at 4 (80 states, past the CUDA
+  kernels' ladder), within 1e-6;
+* one branch-length round at 80 states, within 1e-6 in lnL and 1e-5 in
+  every length;
 * `optimize_scalars` with the `cov_*` slots, within 1e-6 in lnL;
 * the CLI's `--cov`, `--cov_delta e`, `--cov_alpha e` and `--cov_free`
   runs (BioNJ, then the fit) against phyml_tpu.cli on the same files:
@@ -240,10 +243,13 @@ def _engines(dt, mode, n_h, tmp_path, invar=False, seed=5):
 @pytest.mark.parametrize("dt,mode,n_h,invar", [
     ("nt", "fixed", 2, True), ("nt", "alpha", 3, False),
     ("nt", "free", 2, False), ("aa", "fixed", 3, False),
-    ("aa", "alpha", 2, False), ("aa", "free", 3, False)])
+    ("aa", "alpha", 2, False), ("aa", "free", 3, False),
+    ("aa", "alpha", 4, False), ("aa", "fixed", 4, False)])
 def test_loglik_matches_phyml_tpu(dt, mode, n_h, invar, tmp_path):
-    """lnL at 2 and 3 hidden classes in each mode; +I marginalizes the
-    hidden classes out of pi for the invariant term."""
+    """lnL at 2 and 3 hidden classes in each mode, and amino acids at
+    four (80 states, past the kernels' ladder: the big bodies' route,
+    plain versions on the CPU); +I marginalizes the hidden classes out
+    of pi for the invariant term."""
     pb = _engines(dt, mode, n_h, tmp_path, invar=invar)
     want = float(pb["jeng"].loglik(pb["jp"], pb["jta"]))
     got = float(pb["teng"].loglik(pb["tp"], pb["tta"]))
@@ -269,6 +275,23 @@ def test_optimize_scalars_matches_phyml_tpu(mode, tmp_path):
     for k in names:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
                                    atol=1e-5, err_msg=k)
+
+
+def test_branch_length_round_at_80_states(tmp_path):
+    """One optimize_branch_lengths round (the edge dot products and the
+    parallel Newton step: K5's route, its plain version on the CPU) at
+    80 states, amino acids at four hidden classes, against phyml_tpu's:
+    lnL within 1e-6, every branch length within 1e-5."""
+    from phyml_tpu.optim.blen import optimize_branch_lengths as jblen
+    from phyml_tpu_torch.optim.blen import optimize_branch_lengths as tblen
+
+    pb = _engines("aa", "alpha", 4, tmp_path)
+    assert pb["teng"].ns == 80
+    jt, jl = jblen(pb["jeng"], pb["jp"], pb["jta"], max_rounds=1)
+    tt, tl = tblen(pb["teng"], pb["tp"], pb["tta"], max_rounds=1)
+    assert abs(float(tl) - float(jl)) < LNL_TOL, (tl, jl)
+    np.testing.assert_allclose(tt.blen.numpy(), np.asarray(jt.blen),
+                               rtol=0, atol=1e-5)
 
 
 # ----------------------------------------------------------------------

@@ -356,7 +356,7 @@ sys.exit(1)
 
 
 @pytest.mark.parametrize("what", ["slot", "node"])
-@pytest.mark.parametrize("ns", [4, 20])
+@pytest.mark.parametrize("ns", [4, 20, 80])
 def test_k3_traps_on_a_schedule_that_does_not_fit(cuda, ns, what):
     """The wrapper checks a card schedule's shape only; the kernel
     checks each row's slots and nodes as it loads it, so a schedule
@@ -516,7 +516,7 @@ sys.exit(1)
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K5"])
-@pytest.mark.parametrize("ns", [4, 20])
+@pytest.mark.parametrize("ns", [4, 20, 80])
 def test_edotp_traps_on_a_child_table_out_of_postorder(cuda, ns, kernel):
     """The wrapper checks a card child table's shape only; each block
     checks that row i's children lie in [0, n_otu + i) and traps, since
@@ -734,7 +734,7 @@ sys.exit(1)
 
 
 @pytest.mark.parametrize("what", ["slot", "node", "tip"])
-@pytest.mark.parametrize("ns", [4, 20])
+@pytest.mark.parametrize("ns", [4, 20, 80])
 @pytest.mark.parametrize("kernel", ["K1", "K4"])
 def test_slot_kernels_trap_on_a_schedule_that_does_not_fit(cuda, kernel, ns,
                                                            what):
@@ -1000,7 +1000,7 @@ sys.exit(1)
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K2", "K5"])
-@pytest.mark.parametrize("ns", [4, 20])
+@pytest.mark.parametrize("ns", [4, 20, 80])
 def test_stacked_forms_trap_on_a_bad_tree_in_the_stack(cuda, ns, kernel):
     """Each block checks its own tree's schedule (K3) or child table
     (K2/K5): a bad one in any tree of the stack traps."""
@@ -1481,15 +1481,136 @@ def test_every_kernel_at_every_rung(cuda, ns):
 
 
 def test_past_the_ladder_is_refused(cuda):
-    """More than 64 states raise NotImplementedError naming the ROADMAP
-    item, at the engine, not at a launch: no fallback."""
+    """More than 64 states are no longer refused: an engine at 80 states
+    (amino-acid covarion at four hidden classes) builds on the card, runs
+    its lnL through the big bodies (K4, its host lnL) and lands within
+    0.5 of the CPU float64 lnL on the same data, tree and parameters."""
     rng = np.random.default_rng(0)
-    enc = np.zeros((4, 20, 80), dtype=np.float32)
-    enc[:, np.arange(20), rng.integers(0, 80, size=20)] = 1.0
-    aln = compact(enc, [f"t{i}" for i in range(4)], "generic")
-    model = SubstModel(datatype="generic", generic_ns=80, n_classes=1)
-    with pytest.raises(NotImplementedError, match="More than 64 states"):
-        LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    n, sites = 12, 200
+    enc = np.zeros((n, sites, 20), dtype=np.float32)
+    enc[np.arange(n)[:, None], np.arange(sites)[None],
+        rng.integers(0, 20, size=(n, sites))] = 1.0
+    aln = compact(enc, [f"t{i}" for i in range(n)], "aa")
+    model = SubstModel(datatype="aa", name="LG", n_classes=4, covarion=True,
+                       n_hidden=4)
+    assert model.ns == 80
+    params = model.init_params(aln.obs_state_freqs)
+    rv = Topology.random(n, rng, mean_blen=0.2).rooted()
+    eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+    assert (eng.lnl_route, eng.edotp_route) == ("K4", "K5")
+    n0 = clv_slots.uppass_site_lse_slots_stream.launches
+    card = float(eng.loglik(params, tree_arrays(rv, device=cuda)))
+    assert clv_slots.uppass_site_lse_slots_stream.launches == n0 + 1
+    eng64 = LikelihoodEngine(aln, model, dtype=torch.float64, device="cpu")
+    cpu = float(eng64.loglik(params, tree_arrays(rv, dtype=torch.float64,
+                                                 device="cpu")))
+    assert abs(card - cpu) < 0.5, (card, cpu)
+
+
+# ----------------------------------------------------------------------
+# past the ladder: the big bodies (csrc/big.cuh) at a run-time state
+# count padded to a multiple of 16
+# ----------------------------------------------------------------------
+BIG_CASES = [67, 72, 80, 100, 160]
+
+
+def _big_tips_at(eng, state, cols):
+    """The engine's tips with every taxon at `state` in the pattern
+    columns `cols`: such a column's maximum lies at that state at every
+    step (short branches keep the diagonal of P(t) largest)."""
+    tips = eng.tips.clone()
+    tips[:, :, cols] = 0.0
+    tips[:, state, cols] = 1.0
+    return tips
+
+
+@pytest.mark.parametrize("ns", BIG_CASES)
+def test_big_bodies_match_plain(cuda, ns):
+    """K4 and K1's entry, K3 (a batch of three systems, and a stack of
+    three trees with a schedule each), K5 and K2's entry (one tree, and
+    a grid.z stack of three) past the ladder against their plain
+    versions at C = 4: 2e-3 per site for K1/K3/K4, the float32 plain
+    version's own gap plus 2e-3 for K2/K5's edge terms.  A third of the
+    columns carry every taxon at the last real state, in the last
+    16-state panel (beside the padded states at 67, 72 and 100), so
+    their maximum lies there at every step: K5's raw sc_d, whose log2
+    scales come from the cross-warp column maxima, must equal the
+    plain version's (up to an exponent flipped by rounding)."""
+    eng, tree, sys_, pm = _generic_setup(cuda, ns, 4, 12, sites=150)
+    NS = _build.rung(ns)
+    assert NS % 16 == 0 and NS >= ns and _build.is_big(NS)
+    assert (eng.lnl_route, eng.edotp_route) == ("K4", "K5")
+    tips = _big_tips_at(eng, ns - 1, slice(0, None, 3))
+    child, sched, n_slots = eng._topology(tree.child)
+    lam, V, Vinv, pi, w, _ = sys_
+    logw = eng._logw(w)
+    ref = clv_slots.uppass_site_lse_slots_plain(sched, tips, pm, pi, logw,
+                                                n_slots=n_slots)
+    for name in ("K1", "K4"):
+        got = _slot_kernel(name)(sched, tips, pm, pi, logw, n_slots=n_slots)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got - ref).abs().max()) < AA_TOL, name
+    B = 3
+    got = clv.uppass_site_lse(child, tips, torch.stack([pm] * B),
+                              torch.stack([pi] * B), torch.stack([logw] * B),
+                              sched=sched, n_slots=n_slots)
+    torch.cuda.synchronize()
+    assert float((got - ref[None]).abs().max()) < AA_TOL
+    # a stack of trees, a schedule each, one system
+    rng = np.random.default_rng(ns)
+    rvs = [Topology.random(12, rng, mean_blen=0.2).rooted()
+           for _ in range(B)]
+    stack = [tree_arrays(rv, device=cuda) for rv in rvs]
+    childs = torch.stack([t.child for t in stack])
+    blens = torch.stack([t.blen for t in stack])
+    sch, sch_slots = eng._topology(childs)[1:]
+    pms = eng._pmats(lam, V, Vinv, blens)
+    got = clv.uppass_site_lse(eng._topology(childs)[0], tips, pms, pi, logw,
+                              sched=sch, n_slots=sch_slots)
+    want = clv.uppass_site_lse_plain(childs, tips, pms, pi, logw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < AA_TOL
+    # the edge dot products, through the per-edge site terms
+    for name in ("K2", "K5"):
+        err, plain = _site_terms_gaps(eng, tree, sys_, pm, _edotp_kernel(name))
+        assert err < plain + K2_TOL, (name, err, plain)
+    d_k, sc_k = edotp.edge_dotprods_stream(child, tips, pm, V, Vinv, pi)
+    d_p, sc_p = edotp.edge_dotprods_plain(child, tips, pm, V, Vinv, pi)
+    torch.cuda.synchronize()
+    assert d_k.shape == d_p.shape == (eng.n_nodes, 4, ns, eng.P)
+    free = _free_edges(eng, tree)
+    same = (sc_k[free] - sc_p[free]).abs() < 1e-3
+    assert float(same.double().mean()) > 0.99
+    # grid.z: a stack of trees in one launch, each against one launch
+    n1 = edotp.edge_dotprods_stream.launches
+    d_s, sc_s = edotp.edge_dotprods_stream(eng._topology(childs)[0], tips,
+                                           pms, V, Vinv, pi)
+    assert edotp.edge_dotprods_stream.launches == n1 + 1
+    for r in range(B):
+        d_r, sc_r = edotp.edge_dotprods_stream(
+            eng._topology(childs[r])[0], tips, pms[r], V, Vinv, pi)
+        torch.cuda.synchronize()
+        assert torch.equal(d_s[r], d_r) and torch.equal(sc_s[r], sc_r)
+
+
+def test_big_refusal_names_the_shape(cuda):
+    """The one refusal left past the ladder: a block whose shared memory
+    does not fit (here 1024 states: three slots and the operand tiles
+    pass 227 KB); the message names the shape."""
+    n, ns, P, C = 6, 1024, 40, 1
+    rng = np.random.default_rng(0)
+    child = np.asarray(Topology.random(n, rng).rooted().child,
+                       dtype=np.int32)
+    sched, n_slots = clv_slots.build_slot_schedule(n, child)
+    f = lambda *shape: torch.rand(*shape, device=cuda)
+    geo = clv_slots.geometry(ns, C, P, n, n_slots, resident=False)
+    assert geo["block_smem_bytes"] > clv_slots.MAX_BLOCK_SMEM
+    with pytest.raises(NotImplementedError, match="ns=1024, C=1"):
+        clv_slots.uppass_site_lse_slots_stream(
+            torch.as_tensor(sched, device=cuda), f(n, ns, P),
+            f(2 * n - 1, C, ns, ns).contiguous(), f(C, ns), f(C),
+            n_slots=n_slots)
 
 
 # ----------------------------------------------------------------------

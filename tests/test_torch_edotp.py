@@ -13,8 +13,10 @@ roundoff over ~100 patterns), its first and second derivatives within
 Kernels: the plain version in float32 against phyml_tpu's Pallas
 kernels in interpret mode (`edge_dotprods_pallas`,
 `edge_dotprods_pallas_stream`), as tests/test_torch_kernels.py and
-tests/test_torch_aa.py run them, on the tree shapes those leave out;
-per-edge site terms within 2e-3 (tests/test_pallas.py's tolerance).
+tests/test_torch_aa.py run them, on the tree shapes those leave out,
+and at 80 states (amino-acid covarion at four hidden classes, past the
+CUDA kernels' ladder); per-edge site terms within 2e-3
+(tests/test_pallas.py's tolerance).
 
 Host side: the launch geometry the CUDA kernels share (csrc/edotp.cuh)
 and the wrappers' contract on CPU tensors.
@@ -118,11 +120,15 @@ def _pallas_problem(ns, shape, seed):
     rng = np.random.default_rng(seed)
     n = 8
     datatype = "nt" if ns == 4 else "aa"
-    enc, names = _alignment(ns, n, 150, rng)
+    # 80 states: amino-acid covarion at four hidden classes, 128 sites
+    obs, sites = (20, 128) if ns == 80 else (ns, 150)
+    enc, names = _alignment(obs, n, sites, rng)
     jaln, taln = jcompact(enc, names, datatype), tcompact(enc, names,
                                                           datatype)
     kw = dict(datatype=datatype, name="GTR" if ns == 4 else "LG",
               n_classes=4)
+    if ns == 80:
+        kw.update(covarion=True, n_hidden=4)
     jm = JModel(**kw)
     jp = jm.init_params(jaln.obs_state_freqs)
     jp["alpha"] = jnp.asarray(0.6)
@@ -137,6 +143,7 @@ def _pallas_problem(ns, shape, seed):
 @pytest.mark.parametrize("ns,shape,stream", [
     (4, "caterpillar", False),
     (20, "balanced", True),
+    (80, "random", True),
 ])
 def test_plain_matches_pallas(ns, shape, stream):
     jeng, teng, rv, jta, sysv, k, n = _pallas_problem(ns, shape, 11)

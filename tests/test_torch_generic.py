@@ -130,6 +130,65 @@ def test_cli_generic_matches_phyml_tpu(ns, tmp_path, monkeypatch):
     assert abs(lt - lj) < LNL_TOL, (lt, lj)
 
 
+def test_covarion_alphabet_loglik_matches_phyml_tpu():
+    """A 36-state alphabet under the covarion model at two hidden
+    classes (72 states, past the kernels' ladder: the big bodies' route,
+    their plain versions on the CPU) against phyml_tpu, float64, within
+    1e-6."""
+    ns, n = 36, 10
+    states, topo = _jc_states(ns, n, 200, seed=ns)
+    enc = _one_hot(states, ns)
+    names = [f"t{i}" for i in range(n)]
+    kw = dict(datatype="generic", generic_ns=ns, n_classes=4, covarion=True,
+              n_hidden=2)
+    jm, tm = JModel(**kw), TModel(**kw)
+    assert jm.ns == tm.ns == 72
+    p = {k: np.asarray(v) for k, v in jm.init_params().items()}
+    p["alpha"], p["cov_delta"] = np.asarray(0.6), np.asarray(0.8)
+    jeng = JEngine(jcompact(enc, names, "generic"), jm, dtype=jnp.float64,
+                   use_pallas=False)
+    teng = TEngine(tcompact(enc, names, "generic"), tm, dtype=torch.float64,
+                   device="cpu")
+    assert (teng.lnl_route, teng.edotp_route) == ("K4", "K5")
+    jta = jtree_arrays(topo.rooted(), dtype=jnp.float64)
+    tta = tree_arrays_from_numpy(np.asarray(jta.child), np.asarray(jta.blen),
+                                 device="cpu", dtype=torch.float64)
+    want = float(jeng.loglik({k: jnp.asarray(v) for k, v in p.items()}, jta))
+    got = float(teng.loglik(params_from_numpy(p), tta))
+    assert abs(got - want) < LNL_TOL, (got, want)
+
+
+def test_cli_covarion_alphabet_matches_phyml_tpu(tmp_path, monkeypatch):
+    """`-d generic --cov --cov_ncats 2 -o lr` on a 36-state alphabet (72
+    states): BioNJ, then the fixed-topology fit, in both CLIs: the same
+    tree and the stats lnL within 1e-6."""
+    import phyml_tpu.io.output as jout
+    import phyml_tpu_torch.io.output as tout
+
+    from phyml_tpu_torch.datatypes import GENERIC_STATES
+
+    states, _ = _jc_states(36, 6, 100, seed=46)
+    names = [f"t{i}" for i in range(6)]
+    seqs = ["".join(GENERIC_STATES[s] for s in row) for row in states]
+    runs = {}
+    for tag, main, mod in (("jax", jcli.main, jout),
+                           ("torch", tcli.main, tout)):
+        d = tmp_path / tag
+        d.mkdir()
+        aln = str(d / "aln.phy")
+        write_phylip(aln, names, seqs)
+        seen = _stats_lnl(monkeypatch, mod)
+        assert main(["-i", aln, "-d", "generic", "-c", "4", "-b", "0",
+                     "--cov", "--cov_ncats", "2", "-o", "lr",
+                     "--platform", "cpu", "--r_seed", "1", "--quiet"]) == 0
+        with open(f"{aln}_phyml_tree.txt") as fh:
+            runs[tag] = (float(seen[-1]),
+                         Topology.from_newick(fh.read(), names))
+    (lj, tj), (lt, tt) = runs["jax"], runs["torch"]
+    assert tt.rf_distance(tj) == 0
+    assert abs(lt - lj) < LNL_TOL, (lt, lj)
+
+
 # ----------------------------------------------------------------------
 # the wrappers' padding, held on the plain versions
 # ----------------------------------------------------------------------
@@ -208,7 +267,8 @@ def test_ladder_read_from_the_kernel_sources():
     """The rungs and tiles come from csrc/ladder.cuh: eleven rungs or
     fewer cover every ns from 2 to 64, 4, 12, 20 and 60 are exact, a
     warp's tile divides the tips' padding and the edge kernels' tile
-    divides 32; past 64 states the ladder refuses."""
+    divides 32; past 64 states `rung` pads to a multiple of 16 (the big
+    bodies' panel), the first past the top rung being 80."""
     assert {4, 12, 20, 60} <= set(_build.LADDER)
     assert _build.LADDER[-1] == 64 and len(_build.LADDER) <= 11
     for ns in range(2, 65):
@@ -220,8 +280,69 @@ def test_ladder_read_from_the_kernel_sources():
             R, _ = _build.RUNGS[NS][family]
             assert 32 % (NS // R) == 0 and NS % R == 0
     assert edotp.geometry(60, 4, 4096)["tile"] == 8
-    with pytest.raises(NotImplementedError, match="More than 64 states"):
-        _build.rung(65)
+    assert _build.rung(65) == 80 and _build.rung(65) % _build.BIG_PANEL == 0
+
+
+BIG_GEOMETRY_CASES = [65, 67, 72, 80, 100, 128, 160, 200, 240, 256]
+
+
+@pytest.mark.parametrize("ns", BIG_GEOMETRY_CASES)
+def test_big_bodies_geometry(ns):
+    """The big bodies' launch shape past the ladder, as csrc/big.cuh and
+    its kernels compute it, at C = 4 on a 128-taxon tree (8 slots, the
+    worst a schedule of 128 taxa needs): ns padded to a multiple of the
+    16-state panel; a 16-pattern tile that divides the tips' row padding;
+    at most 8 warps a block, in equal rounds of panels; block shared
+    memory within
+    MAX_BLOCK_SMEM for K3/K4 and K5; the streamed route."""
+    from phyml_tpu_torch.ops.likelihood import kernel_route, \
+        single_pass_kernel
+
+    NS = _build.rung(ns)
+    assert NS % _build.BIG_PANEL == 0 and ns <= NS < ns + _build.BIG_PANEL
+    assert _build.is_big(NS)
+    for family in ("slot", "batch", "edotp"):
+        assert _build.tile(family, ns) == _build.BIG_TILE
+    assert clv_slots.TILE % _build.BIG_TILE == 0
+    assert edotp.TILE[ns] == _build.BIG_TILE
+    panels, W = NS // 16, _build.big_warps(NS)
+    assert 1 <= W <= 8 and W <= panels
+    assert -(-panels // W) == -(-panels // 8)   # equal rounds
+    for resident in (True, False):
+        g = clv_slots.geometry(ns, 4, 4096, 128, 8, resident)
+        assert g == clv.big_geometry(ns, 4, 4096, 8)
+        assert g["tile"] == 16 and g["blocks"] == 256
+        assert g["warps_per_block"] == W
+        assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+        # rings, two tip tiles and the product, column maxima, 8 slots,
+        # class terms (floats)
+        assert g["block_smem_bytes"] == 4 * (
+            W * 4 * 256 + 3 * NS * 16 + W * 16 + 8 * (NS + 1) * 16 + 4 * 16)
+    e = edotp.geometry(ns, 4, 4095)
+    assert e["tile"] == 16 and e["Pw"] == 4096 and e["threads"] == 32 * W
+    assert e["blocks"] == 256 * 4
+    assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+    assert e["workspace_floats_per_node"] == 4 * (NS + 1) * 4096
+    assert kernel_route(128, 4, ns) == ("K4", "K5")
+    assert kernel_route(3, 4, ns) == ("K4", "K5")
+    assert single_pass_kernel("K4", ns, 4, 128, 8) == "K4"
+
+
+def test_big_geometry_every_state_count():
+    """Every state count from 65 to 256: the padded width, the tile and
+    the warps as test_big_bodies_geometry, and K3/K4's block at 8 slots
+    and K5's within MAX_BLOCK_SMEM, on the streamed route."""
+    from phyml_tpu_torch.ops.likelihood import kernel_route
+
+    for ns in range(65, 257):
+        NS = _build.rung(ns)
+        assert NS % 16 == 0 and ns <= NS < ns + 16
+        assert clv_slots.TILE % _build.tile("slot", ns) == 0
+        g = clv_slots.geometry(ns, 4, 1000, 128, 8, resident=False)
+        assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+        assert edotp.geometry(ns, 4, 1000)["smem_bytes"] <= \
+            clv_slots.MAX_BLOCK_SMEM
+        assert kernel_route(128, 4, ns) == ("K4", "K5")
 
 
 def test_wide_rungs_run_one_warp_a_block():

@@ -97,12 +97,14 @@ def test_batched_class_system_matches_single():
 
 
 def test_covarion_not_ported_yet():
-    """What of covarion the card does not run yet: a process of more
-    than 64 states (amino acids at four hidden classes, 80 states),
-    which the kernels' ladder refuses naming its ROADMAP item."""
+    """Nothing of covarion is left unported on the card: a process of
+    more than 64 states (amino acids at four hidden classes, 80 states)
+    runs the big bodies, at a state count padded to a multiple of 16
+    (80 itself), on the streamed route."""
     from phyml_tpu_torch.ops import _build
+    from phyml_tpu_torch.ops.likelihood import kernel_route
 
     m = TModel(datatype="aa", name="LG", covarion=True, n_hidden=4)
     assert m.ns == 80
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build.rung(m.ns)
+    assert _build.rung(m.ns) == 80 and _build.is_big(_build.rung(m.ns))
+    assert kernel_route(3, m.n_classes, m.ns) == ("K4", "K5")
