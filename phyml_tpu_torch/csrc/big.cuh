@@ -7,58 +7,102 @@
 // runs the same body through its entry) and pallas_edotp.py:
 // _edotp_stream_kernel (K5; _edotp_kernel, K2, likewise).  The Pallas
 // kernels take any state count padded to `spad`; the ladder's designs
-// keep whole ns x ns P-matrices in shared memory and stop near 90 states
-// (4 ns^2 floats of ring are 102 KB at 80 states, 262 KB at 128).  Here:
+// keep whole ns x ns P-matrices in shared memory and stop near 90 states.
 //
-// * ns is padded to a multiple of a 16-state panel (kBigPanel): 80 (the
-//   amino-acid covarion at four hidden classes), 96, 112, 160 and 240
-//   are exact; a 16 x 16 piece of a matrix is four 16-byte rows of four
-//   lanes' copies, and a 16-state x 16-pattern output panel is a 4 x 2
-//   register tile on each of 32 lanes.  8 would halve the work per
-//   staged piece (four outputs a lane), 32 would pad 80 to 96 (44 % more
-//   FMAs on the main path's state count).
-// * A block holds one tile of kBigTile = 16 patterns and W warps
-//   (big_warps: the NSp / 16 output panels spread over at most 8 warps in
-//   equal rounds; 80 states: 5 warps, 160: 5 warps of 2 panels, 240: 8
-//   warps, 15 panels).  Warp w computes the output panels w, w + W, ...;
-//   for each it walks the contraction axis in 16-state k-panels.  The
-//   16 x 16 pieces of each matrix it needs stream through the warp's own
-//   two-stage cp.async ring (2 x 16 x 16 floats a matrix), one piece
-//   ahead, synchronised with __syncwarp only: no whole P-matrix is ever
-//   in shared memory, and the ring is 4 KB a warp (two products at a
-//   time) whatever the state count.  The
-//   operand tiles (children's partials, tip rows) are shared by the
-//   block's warps in shared memory; they and the partials are the only
-//   shared memory that grows with ns, linearly.
-// * The rescale is over all NSp states of a column, which lie in every
-//   warp: each warp writes its panels' column maxima to a [W][16] array,
-//   and after a block barrier every thread takes the maximum over the W
-//   warps for its column (big_column_factor).  Padded states have zero
-//   rows in every matrix and a zero in pi, so their values are zero and
-//   never win a column's maximum; the root's sum over states is taken
-//   over all NSp rows by one thread a column.
-// * Full FP32: FFMA on the CUDA cores, no tensor cores, no fast math.
+// What bounds them on the H100: every product is an ns x ns matrix times
+// an ns x (patterns) operand, 2 ns^2 FLOP per pattern, child, class (and
+// parameter set).  At 64 taxa x 3636 patterns of amino-acid covarion
+// (80 states, C = 4) K3 at B = 13 needs 0.31 TFLOP: 4.6 ms at the FP32
+// peak (67 TFLOP/s); the three TF32 passes below are 0.94 TFLOP, 1.9 ms
+// at the data sheet's 495 TFLOP/s and 3.0 ms at the 317 TFLOP/s that
+// mma.sync reaches on an H100 (tools/mma_rate.py).  The bytes (the
+// P-matrices once, the tips) take 0.05 ms.  What limits the walk as
+// measured (PERF.md) is neither: a warp is slow on its own whatever the
+// ring or the copies, so the time follows the warps an SM holds, which
+// the slots' shared memory caps at 8 at 80 states and 6 at 160.
 //
-// What bounds it on the H100: the FMAs, 2 ns^2 per child, class,
-// pattern (and parameter set): at 64 taxa x 3636 patterns of amino-acid
-// covarion, 80 states, C = 4, K3 at B = 13 needs 0.31 TFLOP (4.6 ms at
-// the FP32 peak); the bytes are the P-matrices once (169 MB at B = 13,
-// 0.05 ms) and the tips.  Every piece of P fed from shared memory gives
-// 4 x 2 FMAs a lane per 16-byte and 8-byte load, and each step waits at
-// two block barriers (K5's down step at four), so the shared-memory pipe
-// and the barriers, not the FMA pipe, set the time of this first design
-// (18.2 ms there on an H100, PERF.md).
+// The design (a first design streamed 16 x 16 pieces to every warp
+// and ran FFMA on 4 x 2 register tiles, spread the output states over
+// the warps and met at two to four block barriers a step):
+//
+// * Tensor cores at FP32's precision: every product runs as
+//   mma.sync.m16n8k8 TF32 in three passes ("3xTF32"): each float operand
+//   x splits into hi and lo = x - hi, each rounded to TF32 (10 mantissa
+//   bits, tf32_split), and each product accumulates A_lo B_hi, A_hi B_lo
+//   and A_hi B_hi in three float32 accumulators; the dropped A_lo B_lo is
+//   ~2^-22 of the product.  This is the card's counterpart of the
+//   multi-pass `precision=HIGHEST` products of
+//   phyml_tpu/ops/pallas_clv.py:101-104; one pass of TF32 alone would keep
+//   ~3 digits (tests/test_torch_tf32split.py holds the bound on the CPU).
+//   No bf16, no fast math.
+// * Warps over patterns: a block holds a tile of T patterns, T /
+//   kBigWarpCols warps on its columns and one warp that stages the ring;
+//   a warp owns kBigWarpCols pattern columns and every output state of
+//   them.  The mma's M side is 16 output states (an m-tile), N the warp's
+//   columns, K 8 contraction states.  The rescale's column maximum is the
+//   warp's own (shuffles, __syncwarp): no block barrier and no shared
+//   column maxima.  K3/K4 give each class its own block, the C blocks of
+//   a tile one cluster (the class terms meet in distributed shared
+//   memory): C times the blocks, each a C-th of the steps.
+// * One ring a block: the P-matrices (K5 also V, V^-1) are staged once a
+//   block, in pieces of one m-tile by kBigChunk contraction states (a
+//   transposed piece: kBigChunk rows by 16 columns), by cp.async from the
+//   staging warp into kBigStages stages.  An mbarrier a stage says the
+//   piece has landed (cp.async.mbarrier.arrive of the staging warp's
+//   lanes) and another that every reading warp is done with it (one
+//   arrive a warp); the ring runs across steps and classes, so there is
+//   no block barrier a step.
+// * Operands in shared memory are pattern-major, [T][NSp + kBigPadN] (a
+//   tile): a warp's B fragment is 8 pattern rows by 4 adjacent states,
+//   loaded by ldmatrix, and row strides that are 4 mod 8 floats make
+//   every fragment load free of bank conflicts; a plain piece's rows are
+//   kBigChunk + kBigPadN floats, a transposed piece's (and a resident
+//   V's) 16 + kBigPadT.
+// * Tiles of 32 patterns wherever a block then still leaves two blocks
+//   an SM (kBigTwoBlocks), else 16 (big_pass_tile, big_edotp_tile; the
+//   rule reads the shape only, never a timing): a staged byte feeds 32
+//   patterns.
+//
+// Padded states (NSp is ns rounded up to kBigPanel) have zero rows in
+// every matrix and a zero in pi, so their values are zero and never win
+// a column's maximum.
 #pragma once
+
+#include <cstdint>
 
 #include "big_launch.cuh"
 #include "common.cuh"
 
 namespace phyml {
 
-constexpr int kBigPanel = 16;    // states of a panel; NSp % 16 == 0
-constexpr int kBigTile = 16;     // patterns of a block's tile
-constexpr int kBigMaxWarps = 8;  // warps of a block at most
-constexpr int kBigPiece = kBigPanel * kBigPanel;  // floats of a piece
+constexpr int kBigPanel = 16;      // states of an m-tile; NSp % 16 == 0
+constexpr int kBigWarpCols = 8;    // pattern columns of a warp (n-tiles of 8)
+constexpr int kBigChunk = 16;      // contraction states of a staged piece
+constexpr int kBigStages = 6;      // stages of the ring
+constexpr int kBigTileWide = 32;   // patterns of a block's tile, or ...
+constexpr int kBigTileNarrow = 16; // ... where the wide tile leaves one block an SM
+constexpr int kBigPadN = 4;        // row padding of tiles, plain pieces, V^-1
+constexpr int kBigPadT = 8;        // row padding of transposed pieces, V
+// classes at most that K3/K4 spread over a cluster of one-class blocks
+// (the portable cluster size); more classes walk one block in turn
+constexpr int kBigClusterMax = 8;
+// bytes of shared memory a block may take and leave two blocks an SM
+// (233,472 an SM, 1,024 of them reserved a block)
+constexpr size_t kBigTwoBlocks = 115712;
+
+constexpr int kBigNT = kBigWarpCols / 8;  // n-tiles of a warp
+constexpr int kBigMaxWarps = kBigTileWide / kBigWarpCols;
+constexpr int kBigRowN = kBigChunk + kBigPadN;    // plain piece row
+constexpr int kBigRowT = kBigPanel + kBigPadT;    // transposed piece row
+constexpr int kBigPieceN = kBigPanel * kBigRowN;  // floats of a plain piece
+constexpr int kBigPieceT = kBigChunk * kBigRowT;  // ... of a transposed one
+// floats of the two mbarrier arrays (full, empty) in front of the ring
+constexpr int kBigBarFloats = 2 * kBigStages * 2;
+static_assert(kBigWarpCols % 8 == 0 && 32 % kBigWarpCols == 0,
+              "a warp's columns are whole n-tiles, a divisor of 32");
+static_assert(kBigChunk == 16 && kBigTileWide % kBigWarpCols == 0 &&
+                  kBigTileNarrow % kBigWarpCols == 0,
+              "NSp (a multiple of 16) is whole chunks; tiles whole warps");
 
 // the top rung of the ladder; the big bodies take every state count
 // past it
@@ -76,173 +120,396 @@ inline bool big_width(int NSp) {
   return NSp >= kBigMinNS && NSp % kBigPanel == 0;
 }
 
-// Warps of a big block at NSp (padded) states: the NSp / 16 output
-// panels over at most 8 warps, each warp the same number of panels or
-// one fewer.
-inline int big_warps(int NSp) {
-  const int np = NSp / kBigPanel;
-  const int rounds = (np + kBigMaxWarps - 1) / kBigMaxWarps;
-  return (np + rounds - 1) / rounds;
+// ---- tensor-core products at FP32's precision -------------------------
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (the low 13 bits
+// zero, so the tensor cores take them exactly, whatever they do with
+// other bits): each rounded to 10 mantissa bits by adding half a TF32
+// ulp to its bits (ties away from zero); x - hi is exact in float32.
+__device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) +
+        0x1000u) &
+       0xffffe000u;
 }
 
-// ---- the panel walk ------------------------------------------------
-// Lane layout of a 16-state x 16-pattern output panel: lane = 8 rg + pg
-// owns states 4 rg .. 4 rg + 3 and patterns 2 pg, 2 pg + 1.  Each
-// quarter-warp (8 lanes) shares rg, so the 16-byte loads of a piece are
-// broadcasts; the 8-byte loads of an operand tile row are 16 adjacent
-// floats.
+// Four 8 x 4 blocks of 32-bit words from shared memory, block i's rows
+// at the addresses of lanes 8 i .. 8 i + 7 (16-byte aligned): d[i] of
+// lane l is word l % 4 of row l / 4 of block i, the A and B fragment
+// layouts of mma.m16n8k8 for 32-bit operands.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
 
-// The warp's share of NJ products over the block's output panels:
-// acc[j] = M_j x_j (or M_j^T x_j where bit j of kTrans is set) for each
-// output panel o = w, w + W, ... < NSp / 16, M_j a row-major NSp x NSp
-// matrix in device memory (16-byte aligned) and x_j an [NSp][16]
-// operand tile in shared memory.  The 16 x
-// 16 pieces of the M_j stream through `ring` (the warp's 2 * NJ pieces)
-// one piece ahead.  After the last k-panel of output panel o, epi(o,
-// acc) sees the lane's 4 x 2 tile of each product.  Leaves one empty
-// cp.async group of this thread pending.
-template <int NJ, unsigned kTrans, typename Epi>
-__device__ __forceinline__ void big_panels(float* ring,
-                                           const float* (&m)[NJ],
-                                           const float* (&x)[NJ],
-                                           int NSp, int w, int W, Epi&& epi) {
-  const int lane = threadIdx.x;
-  const int rg = lane >> 3, pg = lane & 7;
-  const int np = NSp / kBigPanel;
-  const int n_items = ((np - 1 - w) / W + 1) * np;
-  // item i: output panel w + (i / np) W, k-panel i % np, into stage i & 1
-  auto issue = [&](int i) {
-    if (i < n_items) {
-      const int o = w + (i / np) * W, kp = i % np;
-      float* st = ring + (i & 1) * NJ * kBigPiece;
+// d += A B: A 16 x 8 (row), B 8 x 8 (col), d 16 x 8, TF32 in, FP32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- mbarriers -------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// arrive once this thread's cp.async copies so far have landed (the
+// count of the barrier's phase includes this arrival)
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- the ring --------------------------------------------------------
+
+// What one walk stages: nj matrices (row-major NSp x NSp in device
+// memory), matrix j in transposed pieces where bit j of trans is set.
+// A walk with nj = 0 stages nothing (its matrices are resident, or it
+// has no product).
+struct BigWalk {
+  const float* m[2];
+  int nj;
+  unsigned trans;
+};
+
+// The block's ring.  Items are a walk's pieces, m-tile by m-tile and
+// chunk by chunk within one, over every walk of desc(0 .. n_walks - 1)
+// in order.  The block's last warp stages them (run), kBigStages ahead
+// of the slowest of the other W warps, which read every item in the
+// same order (acquire, release); each warp keeps its own copy of this
+// state.
+template <typename Desc>
+struct BigRing {
+  float* stage;     // [kBigStages][stage_floats]
+  uint64_t* full;   // [kBigStages]: the staging warp's copies have landed
+  uint64_t* empty;  // [kBigStages]: every reading warp is done with it
+  int stage_floats, NSp, n_kc, n_walks;
+  Desc desc;
+  int it = 0;    // items this warp has read
+  int pw = 0;    // the walk of the next item to stage
+  BigWalk cur;   // walk pw
+
+  __device__ __forceinline__ void seek(int w) {
+    for (pw = w; pw < n_walks; ++pw) {
+      cur = desc(pw);
+      if (cur.nj > 0) break;
+    }
+  }
+
+  // the staging warp: every item, each once its stage's last item has
+  // been read by every reading warp.  A lane copies the same 16-byte
+  // pieces of every item (kBigChunk / 8 of each matrix): its offsets are
+  // set once, and an item's are two multiply-adds.
+  __device__ __forceinline__ void run() {
+    constexpr int kPer = kBigChunk / 4;  // 16-byte pieces of a plain row
+    constexpr int kN = kBigChunk / 8;    // a lane's pieces of a matrix
+    const int lane = threadIdx.x & 31;
+    const int rn = lane / kPer, cn = lane % kPer, rt = lane >> 2, ct = lane & 3;
+    const size_t srcN = static_cast<size_t>(rn) * NSp + 4 * cn;
+    const size_t srcT = static_cast<size_t>(rt) * NSp + 4 * ct;
+    const int dstN = rn * kBigRowN + 4 * cn, dstT = rt * kBigRowT + 4 * ct;
+    const size_t stepN = static_cast<size_t>(32 / kPer) * NSp;
+    const size_t stepT = 8 * static_cast<size_t>(NSp);
+    int s = 0, round = 0, mt = 0, kc = 0;  // stage, its round, the item
+    for (seek(0); pw < n_walks;) {
+      if (round > 0) mbar_wait(empty + s, (round - 1) & 1);
+      float* st = stage + s * stage_floats;
+      const size_t m0 = mt * kBigPanel, k0 = kc * kBigChunk;
+      int off = 0;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        // a piece is rows r0.., columns c0.. of M_j: the output panel's
-        // rows by the k-panel's columns, or transposed
-        const bool tr = (kTrans >> j) & 1u;
-        const int r0 = (tr ? kp : o) * kBigPanel;
-        const int c0 = (tr ? o : kp) * kBigPanel;
+      for (int j = 0; j < 2; ++j) {
+        if (j >= cur.nj) break;
+        if ((cur.trans >> j) & 1u) {
+          // rows k0 .. k0 + kBigChunk of M_j, its columns m0 .. m0 + 16
+          const float* src = cur.m[j] + k0 * NSp + m0 + srcT;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = lane + 32 * h, r = q >> 2, c4 = q & 3;
-          cp_async16(st + j * kBigPiece + r * kBigPanel + 4 * c4,
-                     m[j] + static_cast<size_t>(r0 + r) * NSp + c0 + 4 * c4);
+          for (int i = 0; i < kN; ++i)
+            cp_async16(st + off + dstT + i * 8 * kBigRowT, src + i * stepT);
+          off += kBigPieceT;
+        } else {
+          // rows m0 .. m0 + 16 of M_j, its columns k0 .. k0 + kBigChunk
+          const float* src = cur.m[j] + m0 * NSp + k0 + srcN;
+#pragma unroll
+          for (int i = 0; i < kN; ++i)
+            cp_async16(st + off + dstN + i * (32 / kPer) * kBigRowN,
+                       src + i * stepN);
+          off += kBigPieceN;
+        }
+      }
+      mbar_arrive_copies(full + s);
+      if (++s == kBigStages) s = 0, ++round;
+      if (++kc == n_kc) {
+        kc = 0;
+        if (++mt == NSp / kBigPanel) {
+          mt = 0;
+          seek(pw + 1);
         }
       }
     }
-    cp_async_commit();  // possibly empty: one group per item
-  };
-  float acc[NJ][4][2];
-  __syncwarp();  // every lane is done with the ring's last use
-  issue(0);
-  for (int i = 0; i < n_items; ++i) {
-    __syncwarp();  // every lane is done with item i - 1's stage
-    issue(i + 1);
-    cp_async_wait<1>();  // my copies of item i have landed
-    __syncwarp();        // ... and my warp's
-    const int o = w + (i / np) * W, kp = i % np;
-    if (kp == 0) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+
+  // a reading warp: the stage of item `it`, once its copies have landed
+  __device__ __forceinline__ const float* acquire() {
+    const int s = it % kBigStages;
+    mbar_wait(full + s, (it / kBigStages) & 1);
+    return stage + s * stage_floats;
+  }
+
+  // my warp is done with item `it`
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + it % kBigStages);
+    ++it;
+  }
+};
+
+// The mbarriers of a ring of W reading warps: full[s] waits for the
+// staging warp's 32 lanes, empty[s] for the W warps.  One thread.
+__device__ __forceinline__ void big_ring_init(uint64_t* bars, int W) {
+  for (int s = 0; s < kBigStages; ++s) {
+    mbar_init(bars + s, 32);
+    mbar_init(bars + kBigStages + s, W);
+  }
+}
+
+// A resident matrix operand (K5's V, V^-1) in shared memory: row-major,
+// rows `ld` floats apart.
+struct BigSrc {
+  const float* base;
+  int ld;
+};
+
+// ---- the walk --------------------------------------------------------
+// Fragment layout (PTX mma.m16n8k8, tf32): lane = 4 g + t.  A 16 x 8:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B 8 x 8: (t, g),
+// (t + 4, g); D 16 x 8: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+// (rows output states, columns the warp's patterns).
+
+// The warp's share of one walk of NJ products: for every m-tile mt of
+// NSp, acc_j = M_j x_j (M_j^T x_j where bit j of kTrans is set) over all
+// NSp contraction states for the warp's kBigWarpCols columns, then
+// epi(mt, acc), acc[j][n] the D fragment of n-tile n.  x_j is the warp's
+// first column of a pattern-major tile (rows LDk floats apart).  The
+// matrices come from the ring (kRes = false: this walk is the ring's
+// next, one item per m-tile and chunk) or from resident shared memory
+// (src, kRes = true).  With kFine each k-step's three passes run from a
+// zero accumulator and their sum is added in float32 (round to nearest):
+// the tensor cores' own accumulation, which rounds toward zero, then
+// spans 8 products, not the whole dot product (K5's eigen-basis
+// products, whose sums cancel).
+template <int NJ, unsigned kTrans, bool kRes, bool kFine = false,
+          typename Ring, typename Epi>
+__device__ __forceinline__ void big_walk(Ring& ring,
+                                         const BigSrc (&src)[NJ],
+                                         const float* const (&x)[NJ],
+                                         int LDk, Epi&& epi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int NSp = ring.NSp, n_mt = NSp / kBigPanel, n_kc = ring.n_kc;
+  for (int mt = 0; mt < n_mt; ++mt) {
+    const int m0 = mt * kBigPanel;
+    // A_hi B_hi, A_lo B_hi and A_hi B_lo in three accumulators: three
+    // independent chains of mma a product
+    float hi[NJ][kBigNT][4], c1[NJ][kBigNT][4], c2[NJ][kBigNT][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int n = 0; n < kBigNT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          hi[j][n][q] = c1[j][n][q] = c2[j][n][q] = 0.0f;
+    for (int kc = 0; kc < n_kc; ++kc) {
+      const int k0 = kc * kBigChunk;
+      const float* a[NJ];
+      int ld[NJ];
+      if constexpr (kRes) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          ld[j] = src[j].ld;
+          a[j] = (kTrans >> j) & 1u ? src[j].base + k0 * ld[j] + m0
+                                    : src[j].base + m0 * ld[j] + k0;
+        }
+      } else {
+        const float* st = ring.acquire();
+        int off = 0;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          a[j] = st + off;
+          const bool tr = (kTrans >> j) & 1u;
+          ld[j] = tr ? kBigRowT : kBigRowN;
+          off += tr ? kBigPieceT : kBigPieceN;
+        }
+      }
+      // B of the chunk's two k-steps: lane l's row is column l % 8 of
+      // n-tile n, blocks at k0, k0 + 4, k0 + 8, k0 + 12
+      uint32_t bx[NJ][kBigNT][4];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[j][a][0] = acc[j][a][1] = 0.0f;
-    }
-    const float* st = ring + (i & 1) * NJ * kBigPiece;
+        for (int n = 0; n < kBigNT; ++n)
+          ldsm_x4(bx[j][n],
+                  x[j] + (8 * n + (lane & 7)) * LDk + k0 + 4 * (lane >> 3));
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float* pc = st + j * kBigPiece;
-      const float* xk = x[j] + kp * kBigPanel * kBigTile + 2 * pg;
-      if ((kTrans >> j) & 1u) {
-        // piece [k][out]: the lane's 4 outputs of row k are adjacent
-#pragma unroll 4
-        for (int k = 0; k < kBigPanel; ++k) {
-          const float4 p =
-              *reinterpret_cast<const float4*>(pc + k * kBigPanel + 4 * rg);
-          const float2 v = *reinterpret_cast<const float2*>(xk + k * kBigTile);
-          acc[j][0][0] += p.x * v.x, acc[j][0][1] += p.x * v.y;
-          acc[j][1][0] += p.y * v.x, acc[j][1][1] += p.y * v.y;
-          acc[j][2][0] += p.z * v.x, acc[j][2][1] += p.z * v.y;
-          acc[j][3][0] += p.w * v.x, acc[j][3][1] += p.w * v.y;
-        }
-      } else {
-        // piece [out][k]: four k a 16-byte load of each output row
+      for (int h = 0; h < 2; ++h) {
+        const int ks = 8 * h;
 #pragma unroll
-        for (int k4 = 0; k4 < kBigPanel; k4 += 4) {
-          float2 v[4];
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t v[4];
+          if ((kTrans >> j) & 1u) {
+            const float* p = a[j] + (ks + t) * ld[j] + g;
+            v[0] = __float_as_uint(p[0]), v[1] = __float_as_uint(p[8]);
+            v[2] = __float_as_uint(p[4 * ld[j]]);
+            v[3] = __float_as_uint(p[4 * ld[j] + 8]);
+          } else {
+            // blocks: rows 0-7 and 8-15 at k ks, then at ks + 4
+            const int b = lane >> 3;
+            ldsm_x4(v, a[j] + ((b & 1) * 8 + (lane & 7)) * ld[j] + ks +
+                           4 * (b >> 1));
+          }
+          uint32_t ah[4], al[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            v[u] = *reinterpret_cast<const float2*>(xk + (k4 + u) * kBigTile);
+          for (int q = 0; q < 4; ++q) tf32_split(v[q], ah[q], al[q]);
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float4 p = *reinterpret_cast<const float4*>(
-                pc + (4 * rg + a) * kBigPanel + k4);
-            acc[j][a][0] += p.x * v[0].x, acc[j][a][1] += p.x * v[0].y;
-            acc[j][a][0] += p.y * v[1].x, acc[j][a][1] += p.y * v[1].y;
-            acc[j][a][0] += p.z * v[2].x, acc[j][a][1] += p.z * v[2].y;
-            acc[j][a][0] += p.w * v[3].x, acc[j][a][1] += p.w * v[3].y;
+          for (int n = 0; n < kBigNT; ++n) {
+            uint32_t bh0, bl0, bh1, bl1;
+            tf32_split(bx[j][n][2 * h], bh0, bl0);
+            tf32_split(bx[j][n][2 * h + 1], bh1, bl1);
+            if constexpr (kFine) {
+              float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_tf32(d, al, bh0, bh1);
+              mma_tf32(d, ah, bl0, bl1);
+              mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) hi[j][n][q] += d[q];
+            } else {
+              mma_tf32(c1[j][n], al, bh0, bh1);
+              mma_tf32(c2[j][n], ah, bl0, bl1);
+              mma_tf32(hi[j][n], ah, bh0, bh1);
+            }
           }
         }
       }
+      if constexpr (!kRes) ring.release();
     }
-    if (kp == np - 1) epi(o, acc);
-  }
-}
-
-// The lane's 4 x 2 tile y of output panel o into an [NSp][16] tile `dst`
-// in shared memory, and its column maxima into cm (the lane's two
-// patterns, over every panel the lane has stored).
-__device__ __forceinline__ void big_store_tile(float* dst, int o,
-                                               const float (&y)[4][2],
-                                               float (&cm)[2]) {
-  const int lane = threadIdx.x, rg = lane >> 3, pg = lane & 7;
-  float* d = dst + (o * kBigPanel + 4 * rg) * kBigTile + 2 * pg;
+    float acc[NJ][kBigNT][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    *reinterpret_cast<float2*>(d + a * kBigTile) = make_float2(y[a][0],
-                                                               y[a][1]);
-    cm[0] = fmaxf(cm[0], y[a][0]);
-    cm[1] = fmaxf(cm[1], y[a][1]);
-  }
-}
-
-// The warp's column maxima cm (per lane, its two patterns) over the four
-// lanes of a pattern pair, into colmax[w][16] of shared memory.
-__device__ __forceinline__ void big_warp_colmax(float (&cm)[2],
-                                                float* colmax, int w) {
-  const int lane = threadIdx.x;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    cm[q] = fmaxf(cm[q], __shfl_xor_sync(0xffffffffu, cm[q], 8));
-    cm[q] = fmaxf(cm[q], __shfl_xor_sync(0xffffffffu, cm[q], 16));
+      for (int n = 0; n < kBigNT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[j][n][q] = hi[j][n][q] + (c1[j][n][q] + c2[j][n][q]);
+    epi(mt, acc);
   }
-  if (lane < 8)
-    *reinterpret_cast<float2*>(colmax + w * kBigTile + 2 * lane) =
-        make_float2(cm[0], cm[1]);
 }
 
-// The exact power-of-two factor of column j (common.cuh:rescale_tile)
-// from the W warps' maxima; e - 127 is added to *s.
-__device__ __forceinline__ float big_column_factor(const float* colmax,
-                                                   int W, int j, float* s) {
-  float mx = colmax[j];
-  for (int w = 1; w < W; ++w) mx = fmaxf(mx, colmax[w * kBigTile + j]);
+// ---- the warp's columns ----------------------------------------------
+
+// A D-shaped fragment y of m-tile m0 into the warp's columns of a
+// pattern-major tile (xw: its first column, rows LDk apart), and its
+// column maxima into cm[n][q] (column 8 n + 2 t + q).
+__device__ __forceinline__ void big_store_frag(float* xw, int LDk, int m0,
+                                               const float (&y)[kBigNT][4],
+                                               float (&cm)[kBigNT][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kBigNT; ++n) {
+    float* d = xw + (8 * n + 2 * t) * LDk + m0 + g;
+    d[0] = y[n][0], d[LDk] = y[n][1];
+    d[8] = y[n][2], d[LDk + 8] = y[n][3];
+    cm[n][0] = fmaxf(cm[n][0], fmaxf(y[n][0], y[n][2]));
+    cm[n][1] = fmaxf(cm[n][1], fmaxf(y[n][1], y[n][3]));
+  }
+}
+
+// The maxima cm over the 8 lanes g of each column, then the maximum of
+// column c (< kBigWarpCols) for the calling lane.
+__device__ __forceinline__ float big_colmax(float (&cm)[kBigNT][2], int c) {
+#pragma unroll
+  for (int n = 0; n < kBigNT; ++n)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        cm[n][q] = fmaxf(cm[n][q], __shfl_xor_sync(0xffffffffu, cm[n][q], o));
+  float r = 0.0f;
+#pragma unroll
+  for (int n = 0; n < kBigNT; ++n)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float v = __shfl_sync(0xffffffffu, cm[n][q], (c & 7) >> 1);
+      if (n == (c >> 3) && q == (c & 1)) r = v;
+    }
+  return r;
+}
+
+// The exact power-of-two factor of a column whose maximum is mx
+// (common.cuh:rescale_tile); e - 127 is added to *s.
+__device__ __forceinline__ float big_factor(float mx, float* s) {
   mx = fmaxf(mx, FLT_MIN);
   const int e = (__float_as_int(mx) >> 23) & 0xFF;
   *s += static_cast<float>(e - 127);
   return __int_as_float((254 - e) << 23);
 }
 
-// The whole block copies one tip's rows for its tile: dst[x * 16 + l] =
-// row[x * ldt + min(p0 + l, P - 1)] for x < NSp (the ragged edge repeats
-// the last column, which is never stored).
-__device__ __forceinline__ void big_copy_tip(float* dst,
-                                             const float* __restrict__ row,
-                                             int NSp, int p0, int P,
-                                             size_t ldt, int tid, int nthr) {
-  for (int k = tid; k < NSp * kBigTile; k += nthr) {
-    const int x = k / kBigTile, l = k % kBigTile;
-    cp_async4(dst + k, row + x * ldt + min(p0 + l, P - 1));
-  }
+// The warp copies rows 0 .. NSp - 1 of a row-major [.][ld] array, at
+// columns col0 + c (c < kBigWarpCols, clamped to cmax: the ragged edge
+// repeats a column, which is never stored), into its columns of a
+// pattern-major tile (xw: its first column), by cp.async (4 bytes, one
+// group; the reading warps issue no other cp.async).
+__device__ __forceinline__ void big_load_cols(float* xw, int LDk,
+                                              const float* src, size_t ld,
+                                              int NSp, int col0, int cmax) {
+  const int lane = threadIdx.x & 31, c = lane % kBigWarpCols;
+  const float* s = src + min(col0 + c, cmax);
+  float* d = xw + c * LDk;
+  for (int r = lane / kBigWarpCols; r < NSp; r += 32 / kBigWarpCols)
+    cp_async4(d + r, s + r * ld);
+  cp_async_commit();
+}
+
+// Ask L1 for the lines of rows 0 .. NSp - 1 of a [.][ld] array at column
+// col (the warp's next operand, read some steps later).
+__device__ __forceinline__ void big_prefetch_rows(const float* src,
+                                                  size_t ld, int NSp,
+                                                  int col) {
+  for (int r = threadIdx.x & 31; r < NSp; r += 32)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(src + r * ld + col));
 }
 
 }  // namespace phyml

@@ -90,13 +90,86 @@ def _read_ladder() -> tuple[dict, int]:
 RUNGS, WIDE_NS = _read_ladder()
 LADDER = tuple(sorted(RUNGS))
 
+
+def _read_big() -> dict:
+    """The big bodies' constants, read from csrc/big.cuh (its literal
+    `constexpr` lines): kBigPanel (ns is padded to a multiple),
+    kBigWarpCols (a warp's pattern columns), kBigChunk (contraction
+    states of a staged piece), kBigStages (the ring's stages),
+    kBigTileWide / kBigTileNarrow (a block's tile), kBigPadN / kBigPadT
+    (row padding of plain and transposed operands), kBigTwoBlocks (the
+    shared memory of a block that leaves two blocks an SM) and
+    kBigClusterMax (the classes K3/K4 spread over a cluster at most)."""
+    with open(os.path.join(_CSRC, "big.cuh")) as fh:
+        text = fh.read()
+    return {name: int(v) for name, v in re.findall(
+        r"constexpr (?:int|size_t) (kBig\w+) = (\d+);", text)}
+
+
 # Past the ladder's top rung the big bodies (csrc/big.cuh) take any state
-# count padded to a multiple of BIG_PANEL, on a tile of BIG_TILE patterns,
-# a block of at most BIG_MAX_WARPS warps (kBigPanel, kBigTile,
-# kBigMaxWarps there)
-BIG_PANEL = 16
-BIG_TILE = 16
-BIG_MAX_WARPS = 8
+# count padded to a multiple of BIG_PANEL; a block holds BIG_TILES[0]
+# patterns, or BIG_TILES[1] where that leaves one block an SM, and one
+# warp per BIG_WARP_COLS of them
+BIG = _read_big()
+BIG_PANEL = BIG["kBigPanel"]
+BIG_WARP_COLS = BIG["kBigWarpCols"]
+BIG_CHUNK = BIG["kBigChunk"]
+BIG_STAGES = BIG["kBigStages"]
+BIG_TILES = (BIG["kBigTileWide"], BIG["kBigTileNarrow"])
+BIG_PAD_N, BIG_PAD_T = BIG["kBigPadN"], BIG["kBigPadT"]
+BIG_TWO_BLOCKS = BIG["kBigTwoBlocks"]
+# classes at most that K3/K4 spread over a cluster of one-class blocks
+BIG_CLUSTER_MAX = BIG["kBigClusterMax"]
+# floats of a staged piece: one m-tile by BIG_CHUNK states (rows padded
+# by BIG_PAD_N), or BIG_CHUNK rows by one m-tile (transposed, BIG_PAD_T)
+BIG_PIECE_N = BIG_PANEL * (BIG_CHUNK + BIG_PAD_N)
+BIG_PIECE_T = BIG_CHUNK * (BIG_PANEL + BIG_PAD_T)
+# floats of the mbarriers in front of the ring (full and empty a stage)
+BIG_BAR_FLOATS = 4 * BIG_STAGES
+
+
+def big_pass_smem(NS: int, C: int, n_slots: int, T: int) -> int:
+    """Bytes of shared memory of a K3/K4 big block of tile T
+    (csrc/big_slots.cu: big_pass_smem): the mbarriers, the ring of
+    BIG_STAGES stages of two plain pieces, n_slots slots of T x (NS +
+    BIG_PAD_N) + T (the log2 scales), two tip tiles and C x T class
+    terms."""
+    ld = NS + BIG_PAD_N
+    return 4 * (BIG_BAR_FLOATS + BIG_STAGES * 2 * BIG_PIECE_N
+                + n_slots * (T * ld + T) + 2 * T * ld + C * T)
+
+
+def big_pass_tile(NS: int, C: int, n_slots: int) -> int:
+    """K3/K4's tile past the ladder: BIG_TILES[0] patterns where the
+    block then leaves two blocks an SM, else BIG_TILES[1]
+    (csrc/big_slots.cu: big_pass_tile)."""
+    wide, narrow = BIG_TILES
+    return wide if big_pass_smem(NS, C, n_slots, wide) <= BIG_TWO_BLOCKS \
+        else narrow
+
+
+def big_edotp_smem(NS: int, T: int, resident: bool) -> int:
+    """Bytes of shared memory of a K5 big block of tile T
+    (csrc/big_edotp.cu: big_edotp_smem): the mbarriers, the ring of
+    BIG_STAGES stages (two plain pieces, or a transposed and a plain one
+    where V is streamed), the children's tiles and the outside partials
+    (4 x (T x (NS + BIG_PAD_N) + T)) and, where resident, V and V^-1
+    (NS x (NS + BIG_PAD_T) + NS x (NS + BIG_PAD_N))."""
+    ld = NS + BIG_PAD_N
+    stage = 2 * BIG_PIECE_N if resident else BIG_PIECE_T + BIG_PIECE_N
+    vv = NS * (2 * NS + BIG_PAD_T + BIG_PAD_N) if resident else 0
+    return 4 * (BIG_BAR_FLOATS + BIG_STAGES * stage + 4 * (T * ld + T) + vv)
+
+
+def big_edotp_tile(NS: int) -> tuple[int, bool]:
+    """K5's (tile, V resident) past the ladder: BIG_TILES[0] patterns
+    where the block with V streamed leaves two blocks an SM, else
+    BIG_TILES[1]; V and V^-1 resident where the block with them still
+    leaves two (csrc/big_edotp.cu: big_edotp_tile)."""
+    wide, narrow = BIG_TILES
+    T = wide if big_edotp_smem(NS, wide, False) <= BIG_TWO_BLOCKS \
+        else narrow
+    return T, big_edotp_smem(NS, T, True) <= BIG_TWO_BLOCKS
 
 
 def rung(ns: int) -> int:
@@ -114,22 +187,15 @@ def is_big(NS: int) -> bool:
     return NS > LADDER[-1]
 
 
-def big_warps(NS: int) -> int:
-    """Warps of a big body's block at NS (padded) states: the NS / 16
-    output panels over at most BIG_MAX_WARPS warps in equal rounds
-    (csrc/big.cuh:big_warps)."""
-    panels = NS // BIG_PANEL
-    rounds = -(-panels // BIG_MAX_WARPS)
-    return -(-panels // rounds)
-
-
 def tile(family: str, ns: int) -> int:
     """Patterns one block's warp covers at the rung of ns: 32 / G * Q with
     G = rung / R lanes per pattern column (family "slot", "batch" or
-    "edotp"); BIG_TILE past the ladder, for every family."""
+    "edotp").  Past the ladder a big block's tile: K5's ("edotp",
+    big_edotp_tile), or the widest K3/K4 may take ("slot", "batch": it
+    also depends on the slots, big_pass_tile)."""
     NS = rung(ns)
     if is_big(NS):
-        return BIG_TILE
+        return big_edotp_tile(NS)[0] if family == "edotp" else BIG_TILES[0]
     R, Q = RUNGS[NS][family]
     return 32 // (NS // R) * Q
 

@@ -186,24 +186,30 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
 
 def big_geometry(ns: int, C: int, P: int, n_slots: int) -> dict:
     """Launch shape of the big K3/K4 body past the ladder
-    (csrc/big_slots.cu: big_pass_smem), at NS = rung(ns): a block of W
-    warps (`_build.big_warps`) on one tile of 16 patterns, one block per
-    tile (and per batch entry for K3); its shared memory is the warps'
-    rings (W x 2 x 2 pieces of 16 x 16 floats), two tip tiles and the
-    product tile (3 x NS x 16), the column maxima (W x 16), the
-    schedule's n_slots slots of (NS + 1) x 16 and C x 16 class terms."""
+    (csrc/big_slots.cu), at NS = rung(ns): a block on one tile of T
+    patterns (`_build.big_pass_tile`: 32 where the block then leaves two
+    blocks an SM, else 16), one warp per `_build.BIG_WARP_COLS` of them
+    and one that stages the ring, one block per tile and class (and per
+    batch entry for K3), the C blocks of a tile one cluster (`cluster`;
+    past `_build.BIG_CLUSTER_MAX` classes one block per tile walks them
+    in turn, cluster 1); its shared memory
+    (`_build.big_pass_smem`) is the mbarriers, the ring, the n_slots
+    slots, two tip tiles and C x T class terms; a warp's share is its
+    columns of the slots and tip tiles."""
     NS = _build.rung(ns)
-    T, W = _build.BIG_TILE, _build.big_warps(NS)
-    piece = _build.BIG_PANEL ** 2
-    ring = W * 2 * 2 * piece
-    block = 4 * (ring + 3 * NS * T + W * T + n_slots * (NS + 1) * T + C * T)
-    return dict(tile=T, blocks=-(-P // T), warps_per_block=W,
-                warp_smem_bytes=4 * 2 * 2 * piece, block_smem_bytes=block)
+    T = _build.big_pass_tile(NS, C, n_slots)
+    W = T // _build.BIG_WARP_COLS + 1
+    ld = NS + _build.BIG_PAD_N
+    warp = 4 * _build.BIG_WARP_COLS * (n_slots * (ld + 1) + 2 * ld)
+    cluster = C if C <= _build.BIG_CLUSTER_MAX else 1
+    return dict(tile=T, blocks=-(-P // T) * cluster, cluster=cluster,
+                warps_per_block=W, warp_smem_bytes=warp,
+                block_smem_bytes=_build.big_pass_smem(NS, C, n_slots, T))
 
 
 def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
     """Blocks of K3 (32 * C threads each, 32 on the wide rungs,
-    `_build.big_warps` warps past the ladder) one SM of the current
+    `big_geometry`'s warps past the ladder) one SM of the current
     device holds at the rung of ns, as the CUDA runtime grants them."""
     blocks = ctypes.c_int(0)
     NS = _build.rung(ns)

@@ -304,7 +304,7 @@ def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
 def blocks_per_sm(ns: int, C: int, n_otu: int, n_slots: int,
                   stream: bool) -> int:
     """Blocks of K1 (stream=False) or K4 (C warps each, one on the wide
-    rungs, big_warps past the ladder) one SM of the current device holds
+    rungs, `big_geometry`'s warps past the ladder) one SM of the current device holds
     for an n_otu-taxon tree walked with n_slots slots at the rung of ns,
     as the CUDA runtime grants them."""
     fn = "phyml_slot_site_lse_stream_occupancy" if stream \

@@ -35,8 +35,8 @@ as the view of its first ns states: the padded states' rows of d are
 zero.  Past the top rung both entries launch K5's big body
 (`csrc/big_edotp.cu`, the design in `csrc/big.cuh`), whose state count
 is a run-time argument: ns is padded to a multiple of 16
-(`_build.rung`) the same way, the tile is 16 patterns and a block holds
-`_build.big_warps` warps.
+(`_build.rung`) the same way, and `geometry` gives its tile (32 or 16
+patterns), warps and shared memory.
 """
 
 from __future__ import annotations
@@ -124,25 +124,26 @@ def geometry(ns: int, C: int, P: int) -> dict:
     ns, as csrc/edotp.cuh computes it: the padded pattern width Pw, the
     grid (one block of one warp per pattern tile and class), the block's
     dynamic shared memory (kEdotpSmem) and the workspace floats per
-    internal node.  Past the ladder, the big body's (csrc/big_edotp.cu:
-    big_edotp_smem): a block of `_build.big_warps` warps per 16-pattern
-    tile and class, its warps' rings (W x 2 x 2 pieces of 16 x 16
-    floats), the two children's tiles and the outside partial (3 x
-    (NS + 1) x 16), the two outside partials (2 x NS x 16) and two sets
-    of column maxima (2 x W x 16)."""
+    internal node.  Past the ladder, the big body's (csrc/big_edotp.cu):
+    a block per tile of T patterns and class, T and whether V and V^-1
+    are resident from `_build.big_edotp_tile`, one warp per
+    `_build.BIG_WARP_COLS` patterns and one that stages the ring, its
+    shared memory
+    `_build.big_edotp_smem`."""
     NS = _build.rung(ns)
     T = TILE[NS]
     Pw = -(-P // T) * T
+    resident = False
     if _build.is_big(NS):
-        W = _build.big_warps(NS)
-        smem = (W * 2 * 2 * _build.BIG_PANEL ** 2 + 3 * (NS + 1) * T
-                + 2 * NS * T + 2 * W * T) * 4
+        resident = _build.big_edotp_tile(NS)[1]
+        W = T // _build.BIG_WARP_COLS + 1
+        smem = _build.big_edotp_smem(NS, T, resident)
     else:
         W = 1
         smem = ((2 + 2 * STAGES) * NS * NS + 3 * STAGES * (NS + 1) * T
                 + 2 * NS * T) * 4
     return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32 * W,
-                warps_per_block=W, smem_bytes=smem,
+                warps_per_block=W, smem_bytes=smem, v_resident=resident,
                 workspace_floats_per_node=C * (NS + 1) * Pw)
 
 
@@ -239,7 +240,7 @@ def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
 
 
 def blocks_per_sm(ns: int, stream: bool) -> int:
-    """Blocks (one warp each; `_build.big_warps` past the ladder) of K2
+    """Blocks (one warp each; `geometry`'s warps past the ladder) of K2
     (stream=False) or K5 one SM of the current device holds at the rung
     of ns, as the CUDA runtime grants them."""
     fn = "phyml_edge_dotprods_stream_occupancy" if stream \

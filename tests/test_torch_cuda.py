@@ -117,13 +117,15 @@ def _free_edges(eng, tree):
     return free
 
 
-def _site_terms_gaps(eng, tree, sys_, pm, kernel):
+def _site_terms_gaps(eng, tree, sys_, pm, kernel, tips=None):
     """Per-edge site terms on the free edges through an edge-dot-product
     kernel and through K2's plain version in float32, each against the
-    plain version in float64: returns the two largest gaps.  At 20
-    states the float32 site terms of random sequences are ill
-    conditioned (the eigen-basis sum cancels), so the kernel is held
-    to the float32 plain version's own accuracy plus K2_TOL."""
+    plain version in float64 (on the engine's tips, or `tips`): returns
+    the two largest gaps.  At 20 states the float32 site terms of random
+    sequences are ill conditioned (the eigen-basis sum cancels), so the
+    kernel is held to the float32 plain version's own accuracy plus
+    K2_TOL."""
+    tips = eng.tips if tips is None else tips
     lam, V, Vinv, pi, w, _ = sys_
     child, _, _ = eng._topology(tree.child)
     aux = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
@@ -133,7 +135,7 @@ def _site_terms_gaps(eng, tree, sys_, pm, kernel):
     for f, dt in ((kernel, torch.float32),
                   (edotp.edge_dotprods_plain, torch.float32),
                   (edotp.edge_dotprods_plain, torch.float64)):
-        d, sc = f(child, *(x.to(dt) for x in (eng.tips, pm, V, Vinv, pi)))
+        d, sc = f(child, *(x.to(dt) for x in (tips, pm, V, Vinv, pi)))
         sites.append(eng.edge_site_terms(d.double(), sc.double(), aux,
                                          tree.blen.double())[0][free])
     return (float((sites[0] - sites[2]).abs().max()),
@@ -1511,7 +1513,10 @@ def test_past_the_ladder_is_refused(cuda):
 # past the ladder: the big bodies (csrc/big.cuh) at a run-time state
 # count padded to a multiple of 16
 # ----------------------------------------------------------------------
-BIG_CASES = [67, 72, 80, 100, 160]
+# 67, 72 and 80 run at 80 (K5 with V and V^-1 resident), 96 just past
+# that line; 128 and 144 lie each side of 128 states, 80, 112 (100) and
+# 144 end in a 16-state chunk of the ring, 96, 128 and 160 do not
+BIG_CASES = [67, 72, 80, 96, 100, 128, 144, 160]
 
 
 def _big_tips_at(eng, state, cols):
@@ -1594,11 +1599,102 @@ def test_big_bodies_match_plain(cuda, ns):
         assert torch.equal(d_s[r], d_r) and torch.equal(sc_s[r], sc_r)
 
 
+def _big_checks(eng, tree, sys_, pm, tips, tol, ref=None):
+    """K4 and K3 (B = 2) on `tips` against the plain version (float32 on
+    the card, or `ref`) within tol per site, and K5's edge terms within
+    the float32 plain version's own gap plus K2_TOL."""
+    child, sched, n_slots = eng._topology(tree.child)
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    if ref is None:
+        ref = clv_slots.uppass_site_lse_slots_plain(sched, tips, pm, pi, logw,
+                                                    n_slots=n_slots)
+    got = clv_slots.uppass_site_lse_slots_stream(sched, tips, pm, pi, logw,
+                                                 n_slots=n_slots)
+    got3 = clv.uppass_site_lse(child, tips, torch.stack([pm] * 2),
+                               torch.stack([pi] * 2),
+                               torch.stack([logw] * 2), sched=sched,
+                               n_slots=n_slots)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.double() - ref).abs().max()) < tol
+    assert float((got3.double() - ref[None]).abs().max()) < tol
+    err, plain = _site_terms_gaps(eng, tree, sys_, pm,
+                                  edotp.edge_dotprods_stream, tips)
+    assert err < plain + K2_TOL, (err, plain)
+
+
+@pytest.mark.parametrize("sites", [5, 33, 47])
+def test_big_bodies_ragged_tiles(cuda, sites):
+    """Pattern counts below one narrow tile (5), one wide tile and one
+    (33) and a ragged wide tile (47) at 80 states, where K3/K4 and K5
+    take the 32-pattern tile: K4, K3 and K5 against their plain
+    versions."""
+    eng, tree, sys_, pm = _generic_setup(cuda, 80, 4, 12, sites=sites)
+    assert eng.P == sites
+    assert clv.big_geometry(80, 4, sites, 4)["tile"] == 32
+    assert edotp.geometry(80, 4, sites)["tile"] == 32
+    _big_checks(eng, tree, sys_, pm, eng.tips, AA_TOL)
+
+
+def test_big_bodies_past_the_cluster_size(cuda):
+    """Ten rate classes, past the eight a cluster of one-class blocks
+    takes: K3/K4's blocks walk the classes in turn (cluster 1); K4, K3
+    and K5 against their plain versions at 80 states."""
+    eng, tree, sys_, pm = _generic_setup(cuda, 80, 10, 12, sites=60)
+    assert eng.C == 10 and clv.big_geometry(80, 10, eng.P, 4)["cluster"] == 1
+    _big_checks(eng, tree, sys_, pm, eng.tips, AA_TOL)
+
+
+@pytest.mark.parametrize("ns", [80, 160])
+def test_big_bodies_at_the_worst_slot_count(cuda, ns):
+    """A 128-taxon tree walked with 8 slots, the most a schedule of 128
+    taxa needs: the wide tile's block would leave one block an SM, so
+    K3/K4 take the 16-pattern tile; K4 and K3 (B = 2) against the plain
+    version."""
+    eng, tree, sys_, pm = _generic_setup(cuda, ns, 4, 128, sites=120)
+    child, sched, n_slots = eng._topology(tree.child)
+    assert n_slots <= 8
+    assert clv_slots.geometry(ns, 4, eng.P, 128, 8, False)["tile"] == 16
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    ref = clv_slots.uppass_site_lse_slots_plain(sched, eng.tips, pm, pi,
+                                                logw, n_slots=n_slots)
+    got = clv_slots.uppass_site_lse_slots_stream(sched, eng.slot_tips, pm,
+                                                 pi, logw, n_slots=8)
+    got3 = clv.uppass_site_lse(child, eng.tips, torch.stack([pm] * 2),
+                               torch.stack([pi] * 2),
+                               torch.stack([logw] * 2), sched=sched,
+                               n_slots=8)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) < AA_TOL
+    assert float((got3 - ref[None]).abs().max()) < AA_TOL
+
+
+@pytest.mark.parametrize("ns", [80, 160])
+def test_big_bodies_keep_float32_precision(cuda, ns):
+    """Tips whose values span ~40 binary orders ((1 + u) 2^-k, so their
+    TF32 lo halves are not zero and the columns' maxima move between
+    states) at 80 and 160 states: K4 and K3 within 1e-4 per site of the
+    plain version in float64, which one TF32 pass alone would miss
+    (tests/test_torch_tf32split.py); K5's edge terms within the float32
+    plain version's own gap plus K2_TOL."""
+    eng, tree, sys_, pm = _generic_setup(cuda, ns, 4, 12, sites=150)
+    rng = np.random.default_rng(ns)
+    tips = (1.0 + rng.random(eng.tips.shape)) * \
+        2.0 ** -rng.integers(0, 40, eng.tips.shape)
+    tips = torch.tensor(tips, dtype=torch.float32, device=cuda)
+    _, sched, n_slots = eng._topology(tree.child)
+    pi, logw = sys_[3], eng._logw(sys_[4])
+    ref = clv_slots.uppass_site_lse_slots_plain(
+        sched, tips.double(), pm.double(), pi.double(), logw.double(),
+        n_slots=n_slots)
+    _big_checks(eng, tree, sys_, pm, tips, 1e-4, ref=ref)
+
+
 def test_big_refusal_names_the_shape(cuda):
     """The one refusal left past the ladder: a block whose shared memory
-    does not fit (here 1024 states: three slots and the operand tiles
-    pass 227 KB); the message names the shape."""
-    n, ns, P, C = 6, 1024, 40, 1
+    does not fit (here 1280 states: the narrow tile's slots, tip tiles
+    and ring pass 227 KB); the message names the shape."""
+    n, ns, P, C = 6, 1280, 40, 1
     rng = np.random.default_rng(0)
     child = np.asarray(Topology.random(n, rng).rooted().child,
                        dtype=np.int32)
@@ -1606,7 +1702,7 @@ def test_big_refusal_names_the_shape(cuda):
     f = lambda *shape: torch.rand(*shape, device=cuda)
     geo = clv_slots.geometry(ns, C, P, n, n_slots, resident=False)
     assert geo["block_smem_bytes"] > clv_slots.MAX_BLOCK_SMEM
-    with pytest.raises(NotImplementedError, match="ns=1024, C=1"):
+    with pytest.raises(NotImplementedError, match="ns=1280, C=1"):
         clv_slots.uppass_site_lse_slots_stream(
             torch.as_tensor(sched, device=cuda), f(n, ns, P),
             f(2 * n - 1, C, ns, ns).contiguous(), f(C, ns), f(C),

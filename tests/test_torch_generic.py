@@ -283,6 +283,49 @@ def test_ladder_read_from_the_kernel_sources():
     assert _build.rung(65) == 80 and _build.rung(65) % _build.BIG_PANEL == 0
 
 
+def test_big_constants_read_from_the_kernel_sources():
+    """The big bodies' constants come from csrc/big.cuh: every literal
+    `constexpr` of it reaches `_build.BIG` with its value; the derived
+    sizes follow the header's own expressions (a plain piece one m-tile
+    by kBigChunk states, a transposed one kBigChunk rows by one m-tile,
+    two mbarriers of 8 bytes a stage); a warp's columns are whole
+    n-tiles of the mma (8 patterns), both tiles whole warps; the two-block
+    line is half an SM's 233,472 bytes less the 1 KB the runtime keeps a
+    block; and the tile rule picks 32 patterns at 80 states and 16 at
+    160 (7 slots, C = 4)."""
+    import os
+    import re
+
+    with open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
+                           "big.cuh")) as fh:
+        text = fh.read()
+    lits = {k: int(v) for k, v in re.findall(
+        r"constexpr (?:int|size_t) (kBig\w+) = (\d+);", text)}
+    assert lits == _build.BIG and len(lits) >= 9
+    assert _build.BIG_PANEL == lits["kBigPanel"] == 16
+    assert _build.BIG_TILES == (lits["kBigTileWide"], lits["kBigTileNarrow"])
+    assert "kBigPieceN = kBigPanel * kBigRowN" in text
+    assert "kBigRowN = kBigChunk + kBigPadN" in text
+    assert _build.BIG_PIECE_N == 16 * (_build.BIG_CHUNK + _build.BIG_PAD_N)
+    assert "kBigPieceT = kBigChunk * kBigRowT" in text
+    assert "kBigRowT = kBigPanel + kBigPadT" in text
+    assert _build.BIG_PIECE_T == _build.BIG_CHUNK * (16 + _build.BIG_PAD_T)
+    assert "kBigBarFloats = 2 * kBigStages * 2" in text
+    assert _build.BIG_BAR_FLOATS == 4 * _build.BIG_STAGES
+    assert _build.BIG_WARP_COLS % 8 == 0 and 32 % _build.BIG_WARP_COLS == 0
+    assert all(T % _build.BIG_WARP_COLS == 0 for T in _build.BIG_TILES)
+    assert _build.BIG_CHUNK % 16 == 0 and _build.BIG_STAGES >= 2
+    assert _build.BIG_TWO_BLOCKS == 233472 // 2 - 1024
+    assert _build.BIG_CLUSTER_MAX == 8   # the portable cluster size
+    # a plain operand's rows are 4 mod 8 floats, a transposed one's 0 mod
+    # 8: the fragment loads are free of bank conflicts
+    assert _build.BIG_PAD_N % 8 == 4 and _build.BIG_PAD_T % 8 == 0
+    assert _build.big_pass_tile(80, 4, 7) == 32
+    assert _build.big_pass_tile(160, 4, 7) == 16
+    assert _build.big_edotp_tile(80) == (32, True)
+    assert _build.big_edotp_tile(160) == (32, False)
+
+
 BIG_GEOMETRY_CASES = [65, 67, 72, 80, 100, 128, 160, 200, 240, 256]
 
 
@@ -291,37 +334,54 @@ def test_big_bodies_geometry(ns):
     """The big bodies' launch shape past the ladder, as csrc/big.cuh and
     its kernels compute it, at C = 4 on a 128-taxon tree (8 slots, the
     worst a schedule of 128 taxa needs): ns padded to a multiple of the
-    16-state panel; a 16-pattern tile that divides the tips' row padding;
-    at most 8 warps a block, in equal rounds of panels; block shared
-    memory within
-    MAX_BLOCK_SMEM for K3/K4 and K5; the streamed route."""
+    16-state m-tile; a tile of 32 patterns where the block then leaves
+    two blocks an SM, else 16, which divides the tips' row padding; one
+    warp per 8 patterns and one that stages the ring; K3/K4 a block a
+    class, the classes of a tile one cluster; the block's shared memory
+    (mbarriers, ring, slots, tip tiles and class terms; K5's mbarriers,
+    ring, four tiles and a resident V and V^-1) within MAX_BLOCK_SMEM;
+    the streamed route."""
     from phyml_tpu_torch.ops.likelihood import kernel_route, \
         single_pass_kernel
 
     NS = _build.rung(ns)
     assert NS % _build.BIG_PANEL == 0 and ns <= NS < ns + _build.BIG_PANEL
     assert _build.is_big(NS)
-    for family in ("slot", "batch", "edotp"):
-        assert _build.tile(family, ns) == _build.BIG_TILE
-    assert clv_slots.TILE % _build.BIG_TILE == 0
-    assert edotp.TILE[ns] == _build.BIG_TILE
-    panels, W = NS // 16, _build.big_warps(NS)
-    assert 1 <= W <= 8 and W <= panels
-    assert -(-panels // W) == -(-panels // 8)   # equal rounds
+    wide, narrow = _build.BIG_TILES
+    for family in ("slot", "batch"):
+        assert _build.tile(family, ns) == wide
+    assert clv_slots.TILE % wide == 0 and clv_slots.TILE % narrow == 0
+    T = _build.big_pass_tile(NS, 4, 8)
+    assert T in (wide, narrow)
+    assert (T == wide) == (_build.big_pass_smem(NS, 4, 8, wide)
+                           <= _build.BIG_TWO_BLOCKS)
     for resident in (True, False):
         g = clv_slots.geometry(ns, 4, 4096, 128, 8, resident)
         assert g == clv.big_geometry(ns, 4, 4096, 8)
-        assert g["tile"] == 16 and g["blocks"] == 256
-        assert g["warps_per_block"] == W
+        # a block a class, the 4 classes of a tile one cluster
+        assert g["tile"] == T and g["cluster"] == 4
+        assert g["blocks"] == 4096 // T * 4
+        # a warp per 8 columns, and the warp that stages the ring
+        assert g["warps_per_block"] == T // _build.BIG_WARP_COLS + 1
         assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
-        # rings, two tip tiles and the product, column maxima, 8 slots,
-        # class terms (floats)
+        # mbarriers, the ring (stages x two plain pieces), 8 slots of T
+        # pattern rows of NS + 4 and T scales, two tip tiles, class terms
+        # (floats)
+        ld = NS + 4
         assert g["block_smem_bytes"] == 4 * (
-            W * 4 * 256 + 3 * NS * 16 + W * 16 + 8 * (NS + 1) * 16 + 4 * 16)
+            4 * _build.BIG_STAGES + _build.BIG_STAGES * 2 * _build.BIG_PIECE_N
+            + 8 * (T * ld + T) + 2 * T * ld + 4 * T)
     e = edotp.geometry(ns, 4, 4095)
-    assert e["tile"] == 16 and e["Pw"] == 4096 and e["threads"] == 32 * W
-    assert e["blocks"] == 256 * 4
+    T5, resident = _build.big_edotp_tile(NS)
+    assert e["tile"] == edotp.TILE[ns] == _build.tile("edotp", ns) == T5
+    assert T5 in (wide, narrow) and e["v_resident"] == resident
+    assert e["Pw"] == 4096 and e["threads"] == 32 * (T5 // 8 + 1)
+    assert e["blocks"] == 4096 // T5 * 4
     assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+    assert e["smem_bytes"] == _build.big_edotp_smem(NS, T5, resident)
+    assert resident == (e["smem_bytes"] <= _build.BIG_TWO_BLOCKS
+                        and _build.big_edotp_smem(NS, T5, True)
+                        == e["smem_bytes"])
     assert e["workspace_floats_per_node"] == 4 * (NS + 1) * 4096
     assert kernel_route(128, 4, ns) == ("K4", "K5")
     assert kernel_route(3, 4, ns) == ("K4", "K5")
@@ -329,9 +389,9 @@ def test_big_bodies_geometry(ns):
 
 
 def test_big_geometry_every_state_count():
-    """Every state count from 65 to 256: the padded width, the tile and
-    the warps as test_big_bodies_geometry, and K3/K4's block at 8 slots
-    and K5's within MAX_BLOCK_SMEM, on the streamed route."""
+    """Every state count from 65 to 256: the padded width and the tiles
+    as test_big_bodies_geometry, and K3/K4's block at 8 slots and K5's
+    within MAX_BLOCK_SMEM, on the streamed route."""
     from phyml_tpu_torch.ops.likelihood import kernel_route
 
     for ns in range(65, 257):
@@ -340,8 +400,10 @@ def test_big_geometry_every_state_count():
         assert clv_slots.TILE % _build.tile("slot", ns) == 0
         g = clv_slots.geometry(ns, 4, 1000, 128, 8, resident=False)
         assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
-        assert edotp.geometry(ns, 4, 1000)["smem_bytes"] <= \
-            clv_slots.MAX_BLOCK_SMEM
+        assert clv_slots.TILE % g["tile"] == 0
+        e = edotp.geometry(ns, 4, 1000)
+        assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+        assert e["Pw"] % e["tile"] == 0 and 0 <= e["Pw"] - 1000 < e["tile"]
         assert kernel_route(128, 4, ns) == ("K4", "K5")
 
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's fixed-topology fit goes, on one GPU.
 
-    python3 tools/profile_torch_fit.py [nt] [aa]    # from the repo root
+    python3 tools/profile_torch_fit.py [nt] [aa] [cov80]  # from the repo root
 
 For each problem (chip_smoke.py's bench problems from the same seed:
-128 taxa x 4096 sites under GTR+G4 or LG+G4) the CLI fit that
+128 taxa x 4096 sites under GTR+G4 or LG+G4; cov80, the state-count
+cell past the ladder: 64 taxa x 4096 sites, `-d aa -m LG -a e --cov
+--cov_ncats 4`, 80 states, the big bodies) the CLI fit that
 chip_smoke.py drives runs four times in this process:
 
 1. the first run (CUDA context set-up and the kernel library's load;
@@ -38,8 +40,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402  (the bench problems and the CLI flags)
 
-# mangled-name fragment of each port kernel (csrc/*.cu)
-KERNELS = [("slot_site_lse_stream_kernel", "K4"),
+# mangled-name fragment of each port kernel (csrc/*.cu; past the
+# ladder the big bodies, csrc/big_*.cu, under the name of the entry
+# that launches each on the fit's route)
+KERNELS = [("big_slot_kernel", "K4"), ("big_uppass_kernel", "K3"),
+           ("big_edotp_kernel", "K5"),
+           ("slot_site_lse_stream_kernel", "K4"),
            ("slot_site_lse_kernel", "K1"),
            ("batched_uppass_kernel", "K3"),
            ("edge_dotprods_stream_kernel", "K5"),
@@ -86,15 +92,21 @@ def device_times(prof):
     return rows
 
 
+# problems past the ladder: (datatype, extra CLI flags, taxa)
+CELLS = {"cov80": ("aa", ["--cov", "--cov_ncats", "4"], 64)}
+
+
 def profile_problem(dt, tmp):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    aln, tree = chip_smoke.write_problem(os.path.join(tmp, dt), dt,
-                                         chip_smoke.N_TAXA,
+    label = dt
+    dt, extra, n = CELLS.get(label, (dt, [], chip_smoke.N_TAXA))
+    aln, tree = chip_smoke.write_problem(os.path.join(tmp, label), dt, n,
                                          chip_smoke.N_SITES,
                                          chip_smoke.SEED)
-    argv = chip_smoke.cli_argv(dt, aln, tree, "gpu") + ["--quiet"]
+    argv = chip_smoke.cli_argv(dt, aln, tree, "gpu") + extra + ["--quiet"]
+    dt = label
     first = run_cli(argv)
     warm = run_cli(argv)
     with profile(activities=[ProfilerActivity.CPU,
@@ -112,6 +124,9 @@ def profile_problem(dt, tmp):
     busy = sum(by_owner.values())
     top_torch = sorted(((ms, n, name) for name, (ms, n) in rows.items()
                         if owner(name) == "torch"), reverse=True)[:8]
+    # the port's kernels by name (a big body under its own name)
+    ports = sorted(((ms, n, name) for name, (ms, n) in rows.items()
+                    if owner(name) not in ("torch", "copies")), reverse=True)
 
     host = cProfile.Profile()
     host.enable()
@@ -132,6 +147,9 @@ def profile_problem(dt, tmp):
     for o, ms in sorted(by_owner.items(), key=lambda kv: -kv[1]):
         print(f"    {o:7s} {ms:10.1f} ms  {100 * ms / busy:5.1f} %  "
               f"{counts[o]} launches")
+    print(f". [{dt}] the port's kernels by name:")
+    for ms, n, name in ports:
+        print(f"    {ms:9.1f} ms  x{n:<6d} {owner(name)} {name[:80]}")
     print(f". [{dt}] PyTorch's largest kernels:")
     for ms, n, name in top_torch:
         print(f"    {ms:9.1f} ms  x{n:<6d} {name[:90]}")
@@ -143,7 +161,8 @@ def profile_problem(dt, tmp):
                 profiled_s=profiled, busy_ms=busy,
                 idle_profiled=1 - busy / 1e3 / profiled,
                 idle_warm=1 - busy / 1e3 / warm,
-                device_ms=by_owner, launches=counts, host_s=host_s)
+                device_ms=by_owner, launches=counts, host_s=host_s,
+                kernels_by_name={name[:80]: ms for ms, _, name in ports})
 
 
 def main() -> int:

@@ -3,9 +3,13 @@
 
     python3 tools/time_kernels.py [--root DIR] [--label NAME]
         [--kernels K2,K5] [--data random|smoke] [--taxa N]
-        [--compare PARENT] [nt] [aa]
+        [--compare PARENT] [nt] [aa] [cov60] [cov80] [cov160]
 
-For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; with
+For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; cov60,
+cov80 and cov160, amino-acid covarion LG+G4 at three, four and eight
+hidden classes (60 states, the ladder's wide rung; 80 and 160, past
+the ladder, the big bodies) on random sequences of 64, 64 and 32 taxa,
+K3 at B = 2 and 13; with
 --data random, the default, a random tree of --taxa taxa (128) and 4096
 random sites under the model's initial parameters; with --data smoke,
 chip_smoke.py's bench problem, the sequences simulated down its tree,
@@ -60,6 +64,12 @@ def window_ms(fn, reps=7, n=50):
     return statistics.median(ms)
 
 
+# amino-acid covarion at this many hidden classes (20 times as many
+# states: 60 on the ladder's wide rung, 80 and 160 past it, the big
+# bodies) and its taxa
+COVARION = {"cov60": (3, 64), "cov80": (4, 64), "cov160": (8, 32)}
+
+
 def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
     """(alignment, rooted tree, model, params) of one timing problem."""
     import numpy as np
@@ -68,6 +78,8 @@ def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
     from phyml_tpu_torch.topology import Topology
 
     sites = 4096
+    if data == "smoke" and dt in COVARION:
+        sys.exit(f"time_kernels: {dt} runs on random sequences only")
     if data == "smoke":
         sys.path.insert(1, HERE)
         import chip_smoke
@@ -89,6 +101,12 @@ def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
     enc = np.zeros((n, sites, ns), np.float32)
     enc[np.arange(n)[:, None], np.arange(sites)[None],
         rng.integers(0, ns, size=(n, sites))] = 1
+    if dt in COVARION:
+        aln = compact(enc, [f"t{i}" for i in range(n)], "aa")
+        m = SubstModel(datatype="aa", name="LG", n_classes=4, covarion=True,
+                       n_hidden=COVARION[dt][0])
+        rv = Topology.random(n, rng, mean_blen=0.08).rooted()
+        return aln, rv, m, m.init_params(aln.obs_state_freqs)
     aln = compact(enc, [f"t{i}" for i in range(n)], dt)
     m = SubstModel(datatype=dt, name="GTR" if dt == "nt" else "LG",
                    n_classes=4)
@@ -133,7 +151,9 @@ def time_problem(dt: str, want, data: str = "random", n: int = 128) -> dict:
         out["K2"] = window_ms(lambda: edotp.edge_dotprods(
             child, eng.tips, pm, V, Vinv, pi))
     k3_kw = dict(sched=sched, n_slots=topo[2]) if len(topo) > 2 else {}
-    for B in (1, 2, 65 if dt == "nt" else 13) if "K3" in want else ():
+    batches = (2, 13) if dt in COVARION else \
+        (1, 2, 65 if dt == "nt" else 13)
+    for B in batches if "K3" in want else ():
         if B == 1:
             args = (child, eng.tips, pm, pi, logw)
         else:
@@ -158,8 +178,9 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--kernels", default="K1,K2,K3,K4,K5")
     ap.add_argument("--data", choices=["random", "smoke"], default="random")
-    ap.add_argument("--taxa", type=int, default=128,
-                    help="taxa of the random tree (--data random)")
+    ap.add_argument("--taxa", type=int, default=None,
+                    help="taxa of the random tree (--data random; default "
+                    "128, cov80 64, cov160 32)")
     ap.add_argument("--compare", metavar="PARENT",
                     help="tree to time against: parent, this, this, parent")
     ap.add_argument("problems", nargs="*", default=["nt", "aa"])
@@ -171,7 +192,8 @@ def main() -> int:
             rc |= subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--root", root,
                  "--label", label, "--kernels", args.kernels,
-                 "--data", args.data, "--taxa", str(args.taxa),
+                 "--data", args.data,
+                 *(["--taxa", str(args.taxa)] if args.taxa else []),
                  *args.problems]).returncode
         return rc
     root = os.path.abspath(args.root)
@@ -190,9 +212,9 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for dt in args.problems:
-        times = time_problem(dt, args.kernels.split(","), args.data,
-                             args.taxa)
-        print(f"{args.label} {dt} ({args.data}, {args.taxa} taxa): "
+        taxa = args.taxa or COVARION.get(dt, (0, 128))[1]
+        times = time_problem(dt, args.kernels.split(","), args.data, taxa)
+        print(f"{args.label} {dt} ({args.data}, {taxa} taxa): "
               + "  ".join(f"{name} {ms:.4f}" if isinstance(ms, float)
                           else f"{name} {ms}" for name, ms in times.items())
             + f" ms  ({smi})", flush=True)
