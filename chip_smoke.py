@@ -204,13 +204,7 @@ SITE_TOL = {"nt": 5e-4, "aa": 2e-3,  # per-site lnL, kernel vs plain
             "generic": 5e-4}         # (K1/K3/K4; DNA :44, AA :287; the
 #                                      state-count cells: 5e-4 below 20
 #                                      states, 2e-3 from 20 up)
-EDGE_TOL = 2e-3   # per-site edge lnL terms, kernel vs plain (K2/K5, :218):
-#                   the kernel's gap to the plain version in float64 at
-#                   most the float32 plain version's own gap plus this
-#                   (tests/test_torch_cuda.py, K2_TOL); the terms cancel
-#                   in the eigen basis, so two float32 sums that round
-#                   apart (tensor cores, cuBLAS) differ by ~3e-3 past 64
-#                   states while each keeps float32's accuracy
+EDGE_TOL = 2e-3   # per-site edge lnL terms, kernel vs plain (K2/K5, :218)
 F64_TOL = 0.5     # total lnL, host kernel float32 vs float64 scan (:104)
 E2E_TOL = 0.1     # final lnL of the small fit, card f32 vs CPU f64:
 #                   the two optimizers stop at slightly different
@@ -225,8 +219,8 @@ REPLICATES = {"nt": 8, "aa": 4}
 REPS = 5          # timing windows per measurement
 LAUNCHES = 20     # kernel calls per window (plain versions: 1)
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): FP32 outside the
-# tensor cores, HBM3 bandwidth, and TF32 on the tensor cores (the big
-# bodies' products: three TF32 passes a float32 product)
+# tensor cores, HBM3 bandwidth, and TF32 on the tensor cores (K3/K4's big
+# body: three TF32 passes a float32 product)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
@@ -242,7 +236,8 @@ TPU_KERNEL = {
 SOURCE = {"K1": "clv_slots.cu", "K2": "edotp.cu", "K3": "clv.cu",
           "K4": "clv_slots_stream.cu", "K5": "edotp_stream.cu"}
 # past the ladder (more than 64 states) each entry runs a big body
-# (csrc/big.cuh): K1's and K4's the K4 body, K2's and K5's the K5 body
+# (csrc/big.cuh, big_ffma.cuh): K1's and K4's the K4 body, K2's and
+# K5's the K5 body
 BIG_SOURCE = {"K1": "big_slots.cu", "K2": "big_edotp.cu",
               "K3": "big_slots.cu", "K4": "big_slots.cu",
               "K5": "big_edotp.cu"}
@@ -379,8 +374,8 @@ def timed(fn, launches=LAUNCHES):
 def bound(flops, nbytes, tensor=False):
     """(least ms on the card, what bounds it): the larger of the
     operations over their peak (FP32, or with `tensor` the three TF32
-    passes of the big bodies' products on the tensor cores) and the bytes
-    over HBM bandwidth."""
+    passes of K3/K4's big body on the tensor cores) and the bytes over
+    HBM bandwidth."""
     t_ops = (TF32_PASSES * flops / PEAK_TF32 if tensor
              else flops / PEAK_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -460,8 +455,9 @@ def ptxas_regs(log_path):
 def big_sass(so):
     """The big bodies' machine code (cuobjdump -sass of the library):
     {kernel: (TF32 HMMA, other HMMA, FFMA instructions)}; fails unless
-    every big body's products run on the tensor cores in TF32 (HMMA of
-    the TF32 kind, no other kind)."""
+    K3/K4's body runs its products on the tensor cores in TF32 (HMMA of
+    the TF32 kind, no other kind) and K5's on FFMA with no HMMA
+    (csrc/big_ffma.cuh)."""
     import re
 
     from phyml_tpu_torch.ops import _build
@@ -482,7 +478,11 @@ def big_sass(so):
         tf32, other, ffma = out.get(frag, (0, 0, 0))
         print(f". {frag} SASS: {tf32} HMMA (TF32), {other} HMMA of "
               f"another kind, {ffma} FFMA")
-        if tf32 == 0 or other:
+        if frag == BIG_PTXAS_KERNEL["K5"]:
+            if tf32 or other or ffma == 0:
+                fail(f"{frag}: its products are not FFMA ({ffma} FFMA, "
+                     f"{tf32 + other} HMMA)")
+        elif tf32 == 0 or other:
             fail(f"{frag}: its products are not TF32 mma.sync on the "
                  f"tensor cores ({tf32} TF32 HMMA, {other} other HMMA)")
     return out
@@ -630,28 +630,30 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     rows = []
 
     def row(kname, label, err, ms, plain_ms, tol, flops, nb, on_path=True,
-            gate=None, **extra):
-        # past the ladder the big bodies' products are 3xTF32 on the
-        # tensor cores: their bound beside the FP32 one, and their tile
+            **extra):
+        # past the ladder K3/K4's big body (K1's entry too) runs its
+        # products as 3xTF32 on the tensor cores: its bound is the
+        # tensor one, the FP32 one beside it; K5's (K2's) runs FFMA.
+        # Each big row also gives its tile.
         big = _build.is_big(NS)
-        b_ms, b_by = bound(flops, nb, tensor=big)
-        if big:
+        tensor = big and kname not in ("K2", "K5")
+        b_ms, b_by = bound(flops, nb, tensor=tensor)
+        if tensor:
             extra["bound_fp32_ms"] = bound(flops, nb)[0]
-            extra["bound_tensor_ms"] = b_ms
+        if big:
             extra["tile"] = (edotp.geometry(ns, C, k)["tile"]
                              if kname in ("K2", "K5") else
                              clv.big_geometry(ns, C, k, n_slots)["tile"])
         print(f". [{tag}] {kname} {label}: max|d|={err:.3e} (tol {tol:g})  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
               f"{b_ms:.4f} ms ({b_by})"
-              + (f", FP32 bound {extra['bound_fp32_ms']:.4f} ms, tile "
-                 f"{extra['tile']}" if big else "")
+              + (f", FP32 bound {extra['bound_fp32_ms']:.4f} ms"
+                 if tensor else "")
+              + (f", tile {extra['tile']}" if big else "")
               + ("" if on_path else "  [not on this path]"))
-        # the gated quantity: err, or (K2/K5) the kernel's gap to the
-        # float64 plain version beyond the float32 plain version's
-        if not ((err if gate is None else gate) <= tol):
+        if not (err <= tol):
             fail(f"[{tag}] {kname} disagrees with its plain version: "
-                 f"{err if gate is None else gate} > {tol}")
+                 f"{err} > {tol}")
         if on_path:
             if cell is not None:
                 label, extra["cell"] = f"{label} [{cell}]", cell
@@ -698,7 +700,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
               f"{geo['blocks']} blocks of {geo['warps_per_block']} warps "
               f"({geo['tile']} patterns, "
               + ("K4's big body: a warp per 8 patterns, 3xTF32 on the "
-                 "tensor cores, the classes in turn" if _build.is_big(NS) else
+                 "tensor cores, a block a class" if _build.is_big(NS) else
                  "a warp per class" if geo["warps_per_block"] == C else
                  "one warp for the classes in turn") + ", "
               f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
@@ -797,7 +799,6 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
         (pad_bytes + 4 * 2 * C * NS * NS if NS != ns else 0)
     ws_bytes = 2 * (n - 1) * geo["workspace_floats_per_node"] * 4
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    edge_runs = {}
     for kname in ("K2", "K5"):
         blocks = edotp.blocks_per_sm(ns, kname == "K5")
         e_regs, spill = regs_at(regs, kname, NS)
@@ -817,29 +818,12 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
         (dk, sk), ms = timed(lambda: W[kname](*args2))
         site_k = eng.edge_site_terms(dk, sk, aux, tree.blen)[0]
         del dk, sk
-        edge_runs[kname] = dict(site=site_k, ms=ms, registers=e_regs,
-                                spill_bytes=spill, blocks_per_sm=blocks,
-                                warps_per_sm=blocks * ew, peak_mib=peak)
-    # the plain version in float64 on the same inputs: the reference both
-    # float32 sides are held to (after the kernels' peak memory is read)
-    aux64 = {key: v.double() if torch.is_tensor(v) and v.is_floating_point()
-             else v for key, v in aux.items()}
-    d64, s64 = edotp.edge_dotprods_plain(*(x.double() if x.is_floating_point()
-                                           else x for x in args2))
-    site_64 = eng.edge_site_terms(d64, s64, aux64, tree.blen.double())[0]
-    del d64, s64
-    plain_gap = float((site_p[mask].double() - site_64[mask]).abs().max())
-    for kname, run in edge_runs.items():
-        site_k = run.pop("site")
-        k_gap = float((site_k[mask].double() - site_64[mask]).abs().max())
-        print(f". [{tag}] {kname} edge terms against the float64 plain "
-              f"version: kernel {k_gap:.3e}, float32 plain {plain_gap:.3e}")
         row(kname, W[kname].__name__,
-            float((site_k[mask] - site_p[mask]).abs().max()), run.pop("ms"),
-            pms, EDGE_TOL, edotp_flops(n, C, ns, k), edge_bytes,
-            on_path=kname == edge_k, gate=k_gap - plain_gap,
-            kernel_gap_f64=k_gap, plain_gap_f64=plain_gap, **run)
-    del site_p, site_64, edge_runs
+            float((site_k[mask] - site_p[mask]).abs().max()), ms, pms,
+            EDGE_TOL, edotp_flops(n, C, ns, k), edge_bytes,
+            on_path=kname == edge_k, registers=e_regs, spill_bytes=spill,
+            blocks_per_sm=blocks, warps_per_sm=blocks * ew, peak_mib=peak)
+    del site_p
     if NS != ns:
         # the padding a K1/K4 launch between rungs pays: its tips,
         # P-matrices and pi copied to the rung

@@ -1,13 +1,14 @@
-// The big-state bodies: K3, K4 (with K1's entry) and K5 (with K2's
-// entry) for every state count past the ladder's top rung (ladder.cuh),
-// with the state count a run-time argument and no top.
+// The big-state bodies past the ladder's top rung (ladder.cuh), with the
+// state count a run-time argument and no top: the padded width shared by
+// both, and the 3xTF32 walk of K3 and K4 (with K1's entry; big_slots.cu).
+// K5 (with K2's entry; big_edotp.cu) runs the FFMA walk of big_ffma.cuh,
+// which says why.
 //
 // Replace, past 64 states, phyml_tpu/ops/pallas_clv.py:_uppass_kernel
-// (K3), pallas_clv_slots.py:_slot_stream_kernel (K4; _slot_kernel, K1,
-// runs the same body through its entry) and pallas_edotp.py:
-// _edotp_stream_kernel (K5; _edotp_kernel, K2, likewise).  The Pallas
-// kernels take any state count padded to `spad`; the ladder's designs
-// keep whole ns x ns P-matrices in shared memory and stop near 90 states.
+// (K3) and pallas_clv_slots.py:_slot_stream_kernel (K4; _slot_kernel, K1,
+// runs the same body through its entry).  The Pallas kernels take any
+// state count padded to `spad`; the ladder's designs keep whole ns x ns
+// P-matrices in shared memory and stop near 90 states.
 //
 // What bounds them on the H100: every product is an ns x ns matrix times
 // an ns x (patterns) operand, 2 ns^2 FLOP per pattern, child, class (and
@@ -44,9 +45,8 @@
 //   column maxima.  K3/K4 give each class its own block, the C blocks of
 //   a tile one cluster (the class terms meet in distributed shared
 //   memory): C times the blocks, each a C-th of the steps.
-// * One ring a block: the P-matrices (K5 also V, V^-1) are staged once a
-//   block, in pieces of one m-tile by kBigChunk contraction states (a
-//   transposed piece: kBigChunk rows by 16 columns), by cp.async from the
+// * One ring a block: the P-matrices are staged once a block, in pieces
+//   of one m-tile by kBigChunk contraction states, by cp.async from the
 //   staging warp into kBigStages stages.  An mbarrier a stage says the
 //   piece has landed (cp.async.mbarrier.arrive of the staging warp's
 //   lanes) and another that every reading warp is done with it (one
@@ -55,13 +55,11 @@
 // * Operands in shared memory are pattern-major, [T][NSp + kBigPadN] (a
 //   tile): a warp's B fragment is 8 pattern rows by 4 adjacent states,
 //   loaded by ldmatrix, and row strides that are 4 mod 8 floats make
-//   every fragment load free of bank conflicts; a plain piece's rows are
-//   kBigChunk + kBigPadN floats, a transposed piece's (and a resident
-//   V's) 16 + kBigPadT.
+//   every fragment load free of bank conflicts; a piece's rows are
+//   kBigChunk + kBigPadN floats.
 // * Tiles of 32 patterns wherever a block then still leaves two blocks
-//   an SM (kBigTwoBlocks), else 16 (big_pass_tile, big_edotp_tile; the
-//   rule reads the shape only, never a timing): a staged byte feeds 32
-//   patterns.
+//   an SM (kBigTwoBlocks), else 16 (big_pass_tile; the rule reads the
+//   shape only, never a timing): a staged byte feeds 32 patterns.
 //
 // Padded states (NSp is ns rounded up to kBigPanel) have zero rows in
 // every matrix and a zero in pi, so their values are zero and never win
@@ -81,8 +79,7 @@ constexpr int kBigChunk = 16;      // contraction states of a staged piece
 constexpr int kBigStages = 6;      // stages of the ring
 constexpr int kBigTileWide = 32;   // patterns of a block's tile, or ...
 constexpr int kBigTileNarrow = 16; // ... where the wide tile leaves one block an SM
-constexpr int kBigPadN = 4;        // row padding of tiles, plain pieces, V^-1
-constexpr int kBigPadT = 8;        // row padding of transposed pieces, V
+constexpr int kBigPadN = 4;        // row padding of tiles and pieces
 // classes at most that K3/K4 spread over a cluster of one-class blocks
 // (the portable cluster size); more classes walk one block in turn
 constexpr int kBigClusterMax = 8;
@@ -92,10 +89,8 @@ constexpr size_t kBigTwoBlocks = 115712;
 
 constexpr int kBigNT = kBigWarpCols / 8;  // n-tiles of a warp
 constexpr int kBigMaxWarps = kBigTileWide / kBigWarpCols;
-constexpr int kBigRowN = kBigChunk + kBigPadN;    // plain piece row
-constexpr int kBigRowT = kBigPanel + kBigPadT;    // transposed piece row
-constexpr int kBigPieceN = kBigPanel * kBigRowN;  // floats of a plain piece
-constexpr int kBigPieceT = kBigChunk * kBigRowT;  // ... of a transposed one
+constexpr int kBigRowN = kBigChunk + kBigPadN;    // a piece's row
+constexpr int kBigPieceN = kBigPanel * kBigRowN;  // floats of a piece
 // floats of the two mbarrier arrays (full, empty) in front of the ring
 constexpr int kBigBarFloats = 2 * kBigStages * 2;
 static_assert(kBigWarpCols % 8 == 0 && 32 % kBigWarpCols == 0,
@@ -198,13 +193,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // ---- the ring --------------------------------------------------------
 
 // What one walk stages: nj matrices (row-major NSp x NSp in device
-// memory), matrix j in transposed pieces where bit j of trans is set.
-// A walk with nj = 0 stages nothing (its matrices are resident, or it
-// has no product).
+// memory).  A walk with nj = 0 stages nothing.
 struct BigWalk {
   const float* m[2];
   int nj;
-  unsigned trans;
 };
 
 // The block's ring.  Items are a walk's pieces, m-tile by m-tile and
@@ -239,12 +231,10 @@ struct BigRing {
     constexpr int kPer = kBigChunk / 4;  // 16-byte pieces of a plain row
     constexpr int kN = kBigChunk / 8;    // a lane's pieces of a matrix
     const int lane = threadIdx.x & 31;
-    const int rn = lane / kPer, cn = lane % kPer, rt = lane >> 2, ct = lane & 3;
+    const int rn = lane / kPer, cn = lane % kPer;
     const size_t srcN = static_cast<size_t>(rn) * NSp + 4 * cn;
-    const size_t srcT = static_cast<size_t>(rt) * NSp + 4 * ct;
-    const int dstN = rn * kBigRowN + 4 * cn, dstT = rt * kBigRowT + 4 * ct;
+    const int dstN = rn * kBigRowN + 4 * cn;
     const size_t stepN = static_cast<size_t>(32 / kPer) * NSp;
-    const size_t stepT = 8 * static_cast<size_t>(NSp);
     int s = 0, round = 0, mt = 0, kc = 0;  // stage, its round, the item
     for (seek(0); pw < n_walks;) {
       if (round > 0) mbar_wait(empty + s, (round - 1) & 1);
@@ -254,22 +244,13 @@ struct BigRing {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         if (j >= cur.nj) break;
-        if ((cur.trans >> j) & 1u) {
-          // rows k0 .. k0 + kBigChunk of M_j, its columns m0 .. m0 + 16
-          const float* src = cur.m[j] + k0 * NSp + m0 + srcT;
+        // rows m0 .. m0 + 16 of M_j, its columns k0 .. k0 + kBigChunk
+        const float* src = cur.m[j] + m0 * NSp + k0 + srcN;
 #pragma unroll
-          for (int i = 0; i < kN; ++i)
-            cp_async16(st + off + dstT + i * 8 * kBigRowT, src + i * stepT);
-          off += kBigPieceT;
-        } else {
-          // rows m0 .. m0 + 16 of M_j, its columns k0 .. k0 + kBigChunk
-          const float* src = cur.m[j] + m0 * NSp + k0 + srcN;
-#pragma unroll
-          for (int i = 0; i < kN; ++i)
-            cp_async16(st + off + dstN + i * (32 / kPer) * kBigRowN,
-                       src + i * stepN);
-          off += kBigPieceN;
-        }
+        for (int i = 0; i < kN; ++i)
+          cp_async16(st + off + dstN + i * (32 / kPer) * kBigRowN,
+                     src + i * stepN);
+        off += kBigPieceN;
       }
       mbar_arrive_copies(full + s);
       if (++s == kBigStages) s = 0, ++round;
@@ -308,41 +289,25 @@ __device__ __forceinline__ void big_ring_init(uint64_t* bars, int W) {
   }
 }
 
-// A resident matrix operand (K5's V, V^-1) in shared memory: row-major,
-// rows `ld` floats apart.
-struct BigSrc {
-  const float* base;
-  int ld;
-};
-
 // ---- the walk --------------------------------------------------------
 // Fragment layout (PTX mma.m16n8k8, tf32): lane = 4 g + t.  A 16 x 8:
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B 8 x 8: (t, g),
 // (t + 4, g); D 16 x 8: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
 // (rows output states, columns the warp's patterns).
 
-// The warp's share of one walk of NJ products: for every m-tile mt of
-// NSp, acc_j = M_j x_j (M_j^T x_j where bit j of kTrans is set) over all
-// NSp contraction states for the warp's kBigWarpCols columns, then
-// epi(mt, acc), acc[j][n] the D fragment of n-tile n.  x_j is the warp's
-// first column of a pattern-major tile (rows LDk floats apart).  The
-// matrices come from the ring (kRes = false: this walk is the ring's
-// next, one item per m-tile and chunk) or from resident shared memory
-// (src, kRes = true).  With kFine each k-step's three passes run from a
-// zero accumulator and their sum is added in float32 (round to nearest):
-// the tensor cores' own accumulation, which rounds toward zero, then
-// spans 8 products, not the whole dot product (K5's eigen-basis
-// products, whose sums cancel).
-template <int NJ, unsigned kTrans, bool kRes, bool kFine = false,
-          typename Ring, typename Epi>
+// The warp's share of the ring's next walk, NJ products: for every
+// m-tile mt of NSp, acc_j = M_j x_j over all NSp contraction states for
+// the warp's kBigWarpCols columns, then epi(mt, acc), acc[j][n] the D
+// fragment of n-tile n.  x_j is the warp's first column of a
+// pattern-major tile (rows LDk floats apart); the M_j come from the ring,
+// one item per m-tile and chunk.
+template <int NJ, typename Ring, typename Epi>
 __device__ __forceinline__ void big_walk(Ring& ring,
-                                         const BigSrc (&src)[NJ],
                                          const float* const (&x)[NJ],
                                          int LDk, Epi&& epi) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int NSp = ring.NSp, n_mt = NSp / kBigPanel, n_kc = ring.n_kc;
   for (int mt = 0; mt < n_mt; ++mt) {
-    const int m0 = mt * kBigPanel;
     // A_hi B_hi, A_lo B_hi and A_hi B_lo in three accumulators: three
     // independent chains of mma a product
     float hi[NJ][kBigNT][4], c1[NJ][kBigNT][4], c2[NJ][kBigNT][4];
@@ -355,26 +320,10 @@ __device__ __forceinline__ void big_walk(Ring& ring,
           hi[j][n][q] = c1[j][n][q] = c2[j][n][q] = 0.0f;
     for (int kc = 0; kc < n_kc; ++kc) {
       const int k0 = kc * kBigChunk;
+      const float* st = ring.acquire();
       const float* a[NJ];
-      int ld[NJ];
-      if constexpr (kRes) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          ld[j] = src[j].ld;
-          a[j] = (kTrans >> j) & 1u ? src[j].base + k0 * ld[j] + m0
-                                    : src[j].base + m0 * ld[j] + k0;
-        }
-      } else {
-        const float* st = ring.acquire();
-        int off = 0;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          a[j] = st + off;
-          const bool tr = (kTrans >> j) & 1u;
-          ld[j] = tr ? kBigRowT : kBigRowN;
-          off += tr ? kBigPieceT : kBigPieceN;
-        }
-      }
+      for (int j = 0; j < NJ; ++j) a[j] = st + j * kBigPieceN;
       // B of the chunk's two k-steps: lane l's row is column l % 8 of
       // n-tile n, blocks at k0, k0 + 4, k0 + 8, k0 + 12
       uint32_t bx[NJ][kBigNT][4];
@@ -389,18 +338,11 @@ __device__ __forceinline__ void big_walk(Ring& ring,
         const int ks = 8 * h;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
+          // blocks: rows 0-7 and 8-15 at k ks, then at ks + 4
           uint32_t v[4];
-          if ((kTrans >> j) & 1u) {
-            const float* p = a[j] + (ks + t) * ld[j] + g;
-            v[0] = __float_as_uint(p[0]), v[1] = __float_as_uint(p[8]);
-            v[2] = __float_as_uint(p[4 * ld[j]]);
-            v[3] = __float_as_uint(p[4 * ld[j] + 8]);
-          } else {
-            // blocks: rows 0-7 and 8-15 at k ks, then at ks + 4
-            const int b = lane >> 3;
-            ldsm_x4(v, a[j] + ((b & 1) * 8 + (lane & 7)) * ld[j] + ks +
-                           4 * (b >> 1));
-          }
+          const int b = lane >> 3;
+          ldsm_x4(v, a[j] + ((b & 1) * 8 + (lane & 7)) * kBigRowN + ks +
+                         4 * (b >> 1));
           uint32_t ah[4], al[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) tf32_split(v[q], ah[q], al[q]);
@@ -409,22 +351,13 @@ __device__ __forceinline__ void big_walk(Ring& ring,
             uint32_t bh0, bl0, bh1, bl1;
             tf32_split(bx[j][n][2 * h], bh0, bl0);
             tf32_split(bx[j][n][2 * h + 1], bh1, bl1);
-            if constexpr (kFine) {
-              float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma_tf32(d, al, bh0, bh1);
-              mma_tf32(d, ah, bl0, bl1);
-              mma_tf32(d, ah, bh0, bh1);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) hi[j][n][q] += d[q];
-            } else {
-              mma_tf32(c1[j][n], al, bh0, bh1);
-              mma_tf32(c2[j][n], ah, bl0, bl1);
-              mma_tf32(hi[j][n], ah, bh0, bh1);
-            }
+            mma_tf32(c1[j][n], al, bh0, bh1);
+            mma_tf32(c2[j][n], ah, bl0, bl1);
+            mma_tf32(hi[j][n], ah, bh0, bh1);
           }
         }
       }
-      if constexpr (!kRes) ring.release();
+      ring.release();
     }
     float acc[NJ][kBigNT][4];
 #pragma unroll

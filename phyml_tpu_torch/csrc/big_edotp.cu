@@ -1,24 +1,22 @@
 // K5 (with K2's entry) past the ladder: the up sweep, the outside sweep
 // and the per-edge eigen-basis dot products for any state count past 64
-// (big.cuh gives the design and what bounds it).
+// (big_ffma.cuh gives the panel design and what bounds it).
 //
 // Replaces, past 64 states, phyml_tpu/ops/pallas_edotp.py:
 // _edotp_stream_kernel (K5; the K2 entry, _edotp_kernel's, launches it
 // too).  For every edge u it emits, as edotp.cuh,
 //     d[u]    = (V^T O_u) * (V^-1 C_u)        [C, NSp, P]
 //     sc_d[u] = (sc_out[u] + sc[u]) * ln 2    [C, P]
-// the root row zeroed.  Grid (Pw / T pattern tiles, C classes, R stacked
-// trees), a block of T / kBigWarpCols warps on one tile of one class of
-// one tree (big_edotp_tile: T = 32, or 16 where 32 would leave one block
-// an SM); tree z's child table, P-matrices, d, sc_d and workspace lie
-// at 64-bit base offsets.
+// the root row zeroed.  Grid (Pw / 16 pattern tiles, C classes, R stacked
+// trees), a block of W warps (ffma_warps) on one tile of one class of one
+// tree; tree z's child table, P-matrices, d, sc_d and workspace lie at
+// 64-bit base offsets (d passes 2^31 floats sooner at 160 states).
 //
-// Each warp works on its own kBigWarpCols columns from start to end,
-// with no block barrier after the start: it copies each step's operands
-// (the children's partials: tip rows, or its columns of the up sweep's
-// workspace; a down step's pushed outside partial) into its columns of
-// pattern-major tiles by cp.async, and walks (big_walk) the products, the
-// matrices from the block's ring, which the block's last warp stages:
+// Each step copies its operand tiles from device memory into shared
+// memory (the children's partials: tip rows, or the up sweep's
+// workspace tile; a down step also its outside partial, already pushed
+// through its own edge), then the warps run their output panels
+// (big_panels), every matrix streamed in 16 x 16 pieces:
 //
 // * up step i: y = (P_0 x_0) * (P_1 x_1), rescaled over all NSp states
 //   of each column, into the workspace ws_clv[i] (row NSp the log2
@@ -26,73 +24,25 @@
 // * down step i (root first): q_k = P_k x_k; the children's outside
 //   partials o_0 = g * q_1, o_1 = g * q_0 (g = pi at the root, else node
 //   i's pushed outside partial from ws_out[i]), each rescaled; then for
-//   each child u = r_k the products V^T o_k and V^-1 x_k, whose product
-//   d[u] goes to device memory from the registers, and for an internal
-//   child P_u^T o_k, the outside partial its own down step starts from,
-//   into ws_out[u].
+//   each child u = r_k the products V^T o_k (V streamed transposed) and
+//   V^-1 x_k, whose product d[u] goes to device memory from the
+//   registers, and for an internal child P_u^T o_k, the outside partial
+//   its own down step starts from, into ws_out[u] (a walk of its own:
+//   one walk of all three products held 171 registers a thread, one
+//   block of 5 warps an SM at 80 states).
 //
-// V and V^-1 of the block's class are resident in shared memory (loaded
-// once) where the block then still leaves two blocks an SM (80 states at
-// T = 32: 2 x 27 KB), and streamed through the ring elsewhere.  Shared
-// memory (big_edotp_smem, floats): the mbarriers, the ring kBigStages
-// stages (two plain pieces; a transposed and a plain one where V is
-// streamed), the children's tiles and the outside partials 4 x (T x
-// (NSp + 4) + T) and V, V^-1 NSp x (NSp + 8) + NSp x (NSp + 4) where
-// resident: 114 KB at 80 states (T = 32, resident), 101 KB at 160
-// (T = 32).  The workspace is [n_int, C, NSp + 1, Pw] twice, as
-// edotp.cuh's.  Each block checks the child table once and traps on a
-// child outside [0, n_otu + i) in row i.
-#include "big.cuh"
+// Shared memory (big_edotp_smem, floats): the warps' rings W x 2 x 2 x
+// 256, the two children's tiles 2 x (NSp + 1) x 16, the outside partial
+// (NSp + 1) x 16, the two outside partials o_k 2 x NSp x 16 and the
+// column maxima 2 x W x 16: 56 KB at 80 states (W = 5), 92 KB at 160.
+// The workspace is [n_int, C, NSp + 1, Pw] twice, as edotp.cuh's.  Each
+// block checks the child table once and traps on a child outside
+// [0, n_otu + i) in row i.
+#include "big_ffma.cuh"
 
 namespace phyml {
 
-// The walks of one block, in order: the up steps 0 .. n_int - 2 (P_0,
-// P_1), then for each down step i = n_int - 1 .. 0 five: (P_0, P_1);
-// (V^T, V^-1) of child 0 (none where V is resident); P_u^T of child 0
-// (none for a tip); the same two for child 1.
-struct BigEdotpDesc {
-  const int* child;
-  const float* pm;  // my tree's P-matrices
-  const float* V;   // my class's V and V^-1
-  const float* Vi;
-  int n_otu, n_int, C, c;
-  size_t M;
-  bool resident;
-  __device__ __forceinline__ const float* pm_of(int u) const {
-    return pm + (static_cast<size_t>(u) * C + c) * M;
-  }
-  __device__ __forceinline__ BigWalk operator()(int w) const {
-    BigWalk k;
-    k.nj = 0;
-    k.trans = 0u;
-    int i, sub;
-    if (w < n_int - 1) {
-      i = w, sub = 0;
-    } else {
-      w -= n_int - 1;
-      i = n_int - 1 - w / 5, sub = w % 5;
-    }
-    const int u0 = child[2 * i], u1 = child[2 * i + 1];
-    if (sub == 0) {
-      k.nj = 2, k.m[0] = pm_of(u0), k.m[1] = pm_of(u1);
-    } else if (sub == 1 || sub == 3) {
-      if (!resident) k.nj = 2, k.trans = 1u, k.m[0] = V, k.m[1] = Vi;
-    } else {
-      const int u = sub == 2 ? u0 : u1;
-      if (u >= n_otu) k.nj = 1, k.trans = 1u, k.m[0] = pm_of(u);
-    }
-    return k;
-  }
-};
-
-// floats of a ring stage: two plain pieces, or (V streamed) a
-// transposed and a plain one; a walk of one transposed piece fits both
-__host__ __device__ constexpr int big_edotp_stage(bool resident) {
-  return resident ? 2 * kBigPieceN : kBigPieceT + kBigPieceN;
-}
-static_assert(2 * kBigPieceN >= kBigPieceT, "a transposed piece fits");
-
-__global__ void __launch_bounds__(32 * (kBigMaxWarps + 1))
+__global__ void __launch_bounds__(32 * kFfmaMaxWarps)
     big_edotp_kernel(const int* __restrict__ child,
                      const float* __restrict__ tips,
                      const float* __restrict__ pmats,
@@ -101,7 +51,8 @@ __global__ void __launch_bounds__(32 * (kBigMaxWarps + 1))
                      const float* __restrict__ pi, float* __restrict__ d,
                      float* __restrict__ scd, float* __restrict__ ws_clv,
                      float* __restrict__ ws_out, int n_otu, int n_int,
-                     int NSp, int P, int Pw, int resident) {
+                     int NSp, int P, int Pw) {
+  constexpr int T = kFfmaTile;
   const size_t M = static_cast<size_t>(NSp) * NSp;
   {
     // my tree (grid.z) of a stack: its operands at 64-bit base offsets
@@ -114,34 +65,16 @@ __global__ void __launch_bounds__(32 * (kBigMaxWarps + 1))
     ws_out += z * n_int * C * (NSp + 1) * Pw;
   }
   extern __shared__ __align__(16) float smem[];
-  // W warps on the tile's columns, and warp W, which stages the ring
-  const int lane = threadIdx.x, wy = threadIdx.y, W = blockDim.y - 1;
-  const int tid = wy * 32 + lane, nthr = 32 * (W + 1);
-  const int T = W * kBigWarpCols, pw = wy * kBigWarpCols;
+  const int lane = threadIdx.x, wy = threadIdx.y, W = blockDim.y;
+  const int tid = wy * 32 + lane, nthr = 32 * W;
   const int C = gridDim.y, c = blockIdx.y, p0 = blockIdx.x * T;
-  const int n_nodes = n_otu + n_int, LDk = NSp + kBigPadN;
-  const int kTile = T * LDk + T;  // a tile: T rows, then T log2 scales
+  const int n_nodes = n_otu + n_int, kTile = (NSp + 1) * T;
   const size_t sP = P, sW = Pw;
-  const int stage_floats = big_edotp_stage(resident);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // full, empty
-  float* ring = smem + kBigBarFloats;
-  float* xt = ring + kBigStages * stage_floats;  // [2] children's tiles
-  float* ot = xt + 2 * kTile;                    // [2] outside partials
-  float* Vs = ot + 2 * kTile;                    // [NSp][NSp + 8]
-  float* Vis = Vs + NSp * (NSp + kBigPadT);      // [NSp][NSp + 4]
-  const float* Vc = V + c * M;
-  const float* Vic = Vinv + c * M;
-  if (tid == 0) big_ring_init(bars, W);
-  if (resident) {
-    for (int q = tid; q < NSp * (NSp / 4); q += nthr) {
-      const int r = q / (NSp / 4), c4 = q - r * (NSp / 4);
-      cp_async16(Vs + r * (NSp + kBigPadT) + 4 * c4, Vc + r * NSp + 4 * c4);
-      cp_async16(Vis + r * (NSp + kBigPadN) + 4 * c4,
-                 Vic + r * NSp + 4 * c4);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-  }
+  float* ring = smem + wy * 2 * 2 * kFfmaPiece;  // my warp's
+  float* xt = smem + W * 2 * 2 * kFfmaPiece;     // [2][NSp+1][T]
+  float* gt = xt + 2 * kTile;                   // [NSp+1][T]
+  float* ob = gt + kTile;                       // [2][NSp][T]
+  float* colmax = ob + 2 * NSp * T;             // [2][W][T]
   {
     bool bad = false;
     for (int i = tid; i < n_int; i += nthr)
@@ -149,13 +82,12 @@ __global__ void __launch_bounds__(32 * (kBigMaxWarps + 1))
                  static_cast<unsigned>(n_otu + i) ||
              static_cast<unsigned>(child[2 * i + 1]) >=
                  static_cast<unsigned>(n_otu + i);
-    // also: the barriers are set and V, V^-1 have landed
     if (__syncthreads_or(bad)) __trap();
   }
   // the root row is meaningless: zeros
   {
     const size_t root = n_nodes - 1;
-    for (int e = tid; e < (NSp + 1) * T; e += nthr) {
+    for (int e = tid; e < kTile; e += nthr) {
       const int r = e / T, p = p0 + e % T;
       if (p >= P) continue;
       if (r < NSp)
@@ -164,201 +96,173 @@ __global__ void __launch_bounds__(32 * (kBigMaxWarps + 1))
         scd[(root * C + c) * sP + p] = 0.0f;
     }
   }
-  BigRing<BigEdotpDesc> rg{
-      ring, bars, bars + kBigStages, stage_floats, NSp,
-      (NSp + kBigChunk - 1) / kBigChunk, (n_int - 1) + 5 * n_int,
-      BigEdotpDesc{child, pmats, Vc, Vic, n_otu, n_int, C, c, M,
-                   resident != 0}};
-  if (wy == W) {
-    rg.run();
-    return;
-  }
+  const float* Vc = V + c * M;
+  const float* Vic = Vinv + c * M;
   const float* pi_c = pi + static_cast<size_t>(c) * NSp;
-  // a node's rows of my class in a workspace (row NSp its log2 scales),
-  // from column 0; rows lie sW apart
+  // a node's tile of my class in a workspace: rows lie sW apart
   const size_t ws_node = static_cast<size_t>(C) * (NSp + 1) * sW;
-  auto ws_of = [&](float* ws, int idx) {
-    return ws + idx * ws_node + static_cast<size_t>(c) * (NSp + 1) * sW;
+  auto ws_tile = [&](float* ws, int idx) {
+    return ws + idx * ws_node + static_cast<size_t>(c) * (NSp + 1) * sW + p0;
   };
-  // my rescale lanes' column, first row and row step
-  const int cw = lane % kBigWarpCols, r0 = lane / kBigWarpCols;
-  constexpr int kRowStep = 32 / kBigWarpCols;
-  const int g = lane >> 2, t = lane & 3;
-  // child u's partial into my columns of tile k (tip rows and a zero
-  // scale, or its tile of the up sweep's workspace), in flight until the
-  // caller waits
+  auto pm_of = [&](int u) {
+    return pmats + (static_cast<size_t>(u) * C + c) * M;
+  };
+  // a workspace tile (NSp + 1 rows of 16 floats) into shared memory
+  auto copy_tile = [&](float* dst, const float* src) {
+    for (int q = tid; q < (NSp + 1) * 4; q += nthr) {
+      const int r = q >> 2, c4 = q & 3;
+      cp_async16(dst + r * T + 4 * c4, src + r * sW + 4 * c4);
+    }
+  };
+  // child u's partial (tip rows and a zero scale row, or its tile of
+  // the up sweep's workspace) into xt[k]
   auto fetch_x = [&](int k, int u) {
     float* dst = xt + k * kTile;
     if (u < n_otu) {
-      big_load_cols(dst + pw * LDk, LDk,
-                    tips + static_cast<size_t>(u) * NSp * sP, sP, NSp,
-                    p0 + pw, P - 1);
-      if (r0 == 0) dst[T * LDk + pw + cw] = 0.0f;
+      big_copy_tip(dst, tips + static_cast<size_t>(u) * NSp * sP, NSp, p0,
+                   P, sP, tid, nthr);
+      for (int l = tid; l < T; l += nthr) dst[NSp * T + l] = 0.0f;
     } else {
-      const float* src = ws_of(ws_clv, u - n_otu);
-      big_load_cols(dst + pw * LDk, LDk, src, sW, NSp, p0 + pw, Pw - 1);
-      if (r0 == 0) dst[T * LDk + pw + cw] = src[NSp * sW + p0 + pw + cw];
+      copy_tile(dst, ws_tile(ws_clv, u - n_otu));
     }
   };
-  float* xw[2] = {xt + pw * LDk, xt + kTile + pw * LDk};
-  float* ow[2] = {ot + pw * LDk, ot + kTile + pw * LDk};
-  const BigSrc none2[2] = {}, none1[1] = {};
-  const BigSrc vsrc[2] = {{Vs, NSp + kBigPadT}, {Vis, NSp + kBigPadN}};
+  // the thread's column in the rescales, and its first row
+  const int j = tid % T, r0 = tid / T, rstep = nthr / T;
+  const int rg = lane >> 3, pg = lane & 7;
 
   for (int i = 0; i < n_int - 1; ++i) {  // up sweep; the root's is unused
     const int u0 = child[2 * i], u1 = child[2 * i + 1];
+    __syncthreads();  // the last step is done with xt and ob
     fetch_x(0, u0);
     fetch_x(1, u1);
+    cp_async_commit();
     cp_async_wait<0>();
-    __syncwarp();
-    float cm[kBigNT][2] = {};
-    const float* xs[2] = {xw[0], xw[1]};
-    big_walk<2, 0u, false>(rg, none2, xs, LDk,
-                           [&](int mt, float (&acc)[2][kBigNT][4]) {
-                             float y[kBigNT][4];
+    __syncthreads();
+    const float* m[2] = {pm_of(u0), pm_of(u1)};
+    const float* x[2] = {xt, xt + kTile};
+    float cm[2] = {0.0f, 0.0f};
+    big_panels<2, 0u>(ring, m, x, NSp, wy, W,
+                      [&](int o, float (&acc)[2][4][2]) {
+                        float y[4][2];
 #pragma unroll
-                             for (int n = 0; n < kBigNT; ++n)
+                        for (int a = 0; a < 4; ++a)
 #pragma unroll
-                               for (int q = 0; q < 4; ++q)
-                                 y[n][q] = acc[0][n][q] * acc[1][n][q];
-                             big_store_frag(ow[0], LDk, mt * kBigPanel, y, cm);
-                           });
-    float s = xt[T * LDk + pw + cw] + xt[kTile + T * LDk + pw + cw];
-    const float f = big_factor(big_colmax(cm, cw), &s);
-    __syncwarp();  // every lane's y is stored
-    float* dst = ws_of(ws_clv, i) + p0 + pw + cw;
-    const float* yc = ow[0] + cw * LDk;
-    for (int r = r0; r < NSp; r += kRowStep) dst[r * sW] = yc[r] * f;
-    if (r0 == 0) dst[NSp * sW] = s;
-    __syncwarp();  // the tiles are read
+                          for (int q = 0; q < 2; ++q)
+                            y[a][q] = acc[0][a][q] * acc[1][a][q];
+                        big_store_tile(ob, o, y, cm);
+                      });
+    big_warp_colmax(cm, colmax, wy);
+    float s = xt[NSp * T + j] + xt[kTile + NSp * T + j];
+    __syncthreads();  // ob and colmax whole
+    const float f = big_column_factor(colmax, W, j, &s);
+    float* dst = ws_tile(ws_clv, i);
+    for (int r = r0; r < NSp; r += rstep) dst[r * sW + j] = ob[r * T + j] * f;
+    if (r0 == 0) dst[NSp * sW + j] = s;
   }
 
   for (int i = n_int - 1; i >= 0; --i) {  // down sweep, root first
     const int u[2] = {child[2 * i], child[2 * i + 1]};
+    __syncthreads();  // the last step is done with xt, gt and ob
     fetch_x(0, u[0]);
     fetch_x(1, u[1]);
-    // g, the pushed outside partial of node i (pi at the root), into my
-    // columns of tile ot[0]
     if (i < n_int - 1) {
-      const float* src = ws_of(ws_out, i);
-      big_load_cols(ow[0], LDk, src, sW, NSp, p0 + pw, Pw - 1);
-      if (r0 == 0) ot[T * LDk + pw + cw] = src[NSp * sW + p0 + pw + cw];
+      copy_tile(gt, ws_tile(ws_out, i));
     } else {
-      float* gc = ow[0] + cw * LDk;
-      for (int r = r0; r < NSp; r += kRowStep) gc[r] = pi_c[r];
-      if (r0 == 0) ot[T * LDk + pw + cw] = 0.0f;
+      for (int e = tid; e < kTile; e += nthr)
+        gt[e] = e < NSp * T ? pi_c[e / T] : 0.0f;
     }
+    cp_async_commit();
     cp_async_wait<0>();
-    __syncwarp();
-    // the children's outside partials o_k = g * q_(1-k), unscaled: o_1
-    // into ot[1], o_0 over g in ot[0] (each lane reads its g before)
-    float cm0[kBigNT][2] = {}, cm1[kBigNT][2] = {};
+    __syncthreads();
+    // the children's outside partials o_k = g * q_(1-k), unscaled
     {
-      const float* xs[2] = {xw[0], xw[1]};
-      big_walk<2, 0u, false>(
-          rg, none2, xs, LDk, [&](int mt, float (&acc)[2][kBigNT][4]) {
-            const int m0 = mt * kBigPanel;
-            float o0[kBigNT][4], o1[kBigNT][4];
+      const float* m[2] = {pm_of(u[0]), pm_of(u[1])};
+      const float* x[2] = {xt, xt + kTile};
+      float cm0[2] = {0.0f, 0.0f}, cm1[2] = {0.0f, 0.0f};
+      big_panels<2, 0u>(
+          ring, m, x, NSp, wy, W, [&](int o, float (&acc)[2][4][2]) {
+            const float* g = gt + (o * kBigPanel + 4 * rg) * T + 2 * pg;
+            float o0[4][2], o1[4][2];
 #pragma unroll
-            for (int n = 0; n < kBigNT; ++n) {
-              const float* gp = ow[0] + (8 * n + 2 * t) * LDk + m0 + g;
-              const float gv[4] = {gp[0], gp[LDk], gp[8], gp[LDk + 8]};
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                o0[n][q] = gv[q] * acc[1][n][q];
-                o1[n][q] = gv[q] * acc[0][n][q];
-              }
+            for (int a = 0; a < 4; ++a) {
+              const float2 gv = *reinterpret_cast<const float2*>(g + a * T);
+              o0[a][0] = gv.x * acc[1][a][0], o0[a][1] = gv.y * acc[1][a][1];
+              o1[a][0] = gv.x * acc[0][a][0], o1[a][1] = gv.y * acc[0][a][1];
             }
-            big_store_frag(ow[1], LDk, m0, o1, cm1);
-            big_store_frag(ow[0], LDk, m0, o0, cm0);
+            big_store_tile(ob, o, o0, cm0);
+            big_store_tile(ob + NSp * T, o, o1, cm1);
           });
+      big_warp_colmax(cm0, colmax, wy);
+      big_warp_colmax(cm1, colmax + W * T, wy);
     }
-    const float sg = ot[T * LDk + pw + cw];
-    const float sx[2] = {xt[T * LDk + pw + cw],
-                         xt[kTile + T * LDk + pw + cw]};
-    const float mx[2] = {big_colmax(cm0, cw), big_colmax(cm1, cw)};
-    __syncwarp();  // o_0 and o_1 are whole
+    const float sg = gt[NSp * T + j];
+    const float sx[2] = {xt[NSp * T + j], xt[kTile + NSp * T + j]};
+    __syncthreads();  // ob and colmax whole
     // each o_k rescaled over its column; its scales into sc_d and, for
     // an internal child, the scale row of its pushed outside partial
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       float sco = sg + sx[1 - k];
-      const float f = big_factor(mx[k], &sco);
-      float* oc = ow[k] + cw * LDk;
-      for (int r = r0; r < NSp; r += kRowStep) oc[r] *= f;
+      const float f = big_column_factor(colmax + k * W * T, W, j, &sco);
+      float* ok = ob + k * NSp * T;
+      for (int r = r0; r < NSp; r += rstep) ok[r * T + j] *= f;
       if (r0 == 0) {
-        if (p0 + pw + cw < P)
-          scd[(static_cast<size_t>(u[k]) * C + c) * sP + p0 + pw + cw] =
+        if (p0 + j < P)
+          scd[(static_cast<size_t>(u[k]) * C + c) * sP + p0 + j] =
               (sco + sx[k]) * kLn2;
-        if (u[k] >= n_otu)
-          ws_of(ws_out, u[k] - n_otu)[NSp * sW + p0 + pw + cw] = sco;
+        if (u[k] >= n_otu) ws_tile(ws_out, u[k] - n_otu)[NSp * sW + j] = sco;
       }
     }
-    __syncwarp();  // o_0 and o_1 rescaled
+    __syncthreads();  // o_0 and o_1 rescaled
 #pragma unroll 1
     for (int k = 0; k < 2; ++k) {
-      // d[u] = (V^T o_k) * (V^-1 x_k), straight from the registers
+      const float* ok = ob + k * NSp * T;
+      const float* x = xt + k * kTile;
       float* d_u = d + (static_cast<size_t>(u[k]) * C + c) * NSp * sP + p0 +
-                   pw;
-      auto put_d = [&](int mt, float (&acc)[2][kBigNT][4]) {
+                   2 * pg;
+      {
+        // d[u] = (V^T o_k) * (V^-1 x_k): V streamed transposed (bit 0)
+        const float* m[2] = {Vc, Vic};
+        const float* xs[2] = {ok, x};
+        big_panels<2, 1u>(
+            ring, m, xs, NSp, wy, W, [&](int o, float (&acc)[2][4][2]) {
 #pragma unroll
-        for (int n = 0; n < kBigNT; ++n)
+              for (int a = 0; a < 4; ++a) {
+                const size_t row = o * kBigPanel + 4 * rg + a;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int col = 8 * n + 2 * t + (q & 1);
-            const size_t row = mt * kBigPanel + g + 8 * (q >> 1);
-            if (p0 + pw + col < P)
-              d_u[row * sP + col] = acc[0][n][q] * acc[1][n][q];
-          }
-      };
-      const float* vs[2] = {ow[k], xw[k]};
-      if (resident)
-        big_walk<2, 1u, true, true>(rg, vsrc, vs, LDk, put_d);
-      else
-        big_walk<2, 1u, false, true>(rg, none2, vs, LDk, put_d);
+                for (int q = 0; q < 2; ++q)
+                  if (p0 + 2 * pg + q < P)
+                    d_u[row * sP + q] = acc[0][a][q] * acc[1][a][q];
+              }
+            });
+      }
       if (u[k] >= n_otu) {
         // an internal child's outside partial pushed through its own
         // edge, P_u^T o_k, which its own down step starts from
-        float* h_u = ws_of(ws_out, u[k] - n_otu) + p0 + pw;
-        const float* hs[1] = {ow[k]};
-        big_walk<1, 1u, false>(
-            rg, none1, hs, LDk, [&](int mt, float (&acc)[1][kBigNT][4]) {
+        const float* m[1] = {pm_of(u[k])};
+        const float* xs[1] = {ok};
+        float* h_u = ws_tile(ws_out, u[k] - n_otu) + 2 * pg;
+        big_panels<1, 1u>(
+            ring, m, xs, NSp, wy, W, [&](int o, float (&acc)[1][4][2]) {
 #pragma unroll
-              for (int n = 0; n < kBigNT; ++n)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  const size_t row = mt * kBigPanel + g + 8 * h;
-                  *reinterpret_cast<float2*>(h_u + row * sW + 8 * n + 2 * t) =
-                      make_float2(acc[0][n][2 * h], acc[0][n][2 * h + 1]);
-                }
+              for (int a = 0; a < 4; ++a) {
+                const size_t row = o * kBigPanel + 4 * rg + a;
+                *reinterpret_cast<float2*>(h_u + row * sW) =
+                    make_float2(acc[0][a][0], acc[0][a][1]);
+              }
             });
       }
     }
-    __syncwarp();  // the tiles are read
   }
+  cp_async_wait<0>();
 }
 
-// bytes of shared memory of one block of tile T (the layout of
-// big_edotp_kernel)
-size_t big_edotp_smem(int NSp, int T, bool resident) {
-  const size_t LDk = NSp + kBigPadN;
-  return (kBigBarFloats + kBigStages * big_edotp_stage(resident) +
-          4 * (T * LDk + T) +
-          (resident ? static_cast<size_t>(NSp) *
-                          (2 * NSp + kBigPadT + kBigPadN)
-                    : 0)) *
+// bytes of shared memory of one block (the layout of big_edotp_kernel)
+size_t big_edotp_smem(int NSp) {
+  const size_t W = ffma_warps(NSp), T = kFfmaTile;
+  return (W * 2 * 2 * kFfmaPiece + 3 * (NSp + 1) * T + 2 * NSp * T +
+          2 * W * T) *
          sizeof(float);
-}
-
-// the tile (32 patterns where the block then leaves two blocks an SM,
-// V streamed) and whether V and V^-1 are resident (where the block with
-// them still leaves two blocks an SM)
-int big_edotp_tile(int NSp, bool* resident) {
-  const int T = big_edotp_smem(NSp, kBigTileWide, false) <= kBigTwoBlocks
-                    ? kBigTileWide
-                    : kBigTileNarrow;
-  *resident = big_edotp_smem(NSp, T, true) <= kBigTwoBlocks;
-  return T;
 }
 
 int big_edotp_launch(const int* child, const float* tips,
@@ -366,31 +270,26 @@ int big_edotp_launch(const int* child, const float* tips,
                      const float* pi, float* d, float* scd, float* ws_clv,
                      float* ws_out, int n_otu, int n_int, int NSp, int C,
                      int P, int Pw, int R, cudaStream_t stream) {
-  if (!big_width(NSp)) return kUnsupported;
-  bool resident;
-  const int T = big_edotp_tile(NSp, &resident);
-  const size_t smem = big_edotp_smem(NSp, T, resident);
-  if (Pw % T != 0 || Pw < P || Pw - P >= T || smem > kMaxSmem)
+  const size_t smem = big_edotp_smem(NSp);
+  if (!big_width(NSp) || Pw % kFfmaTile != 0 || Pw < P ||
+      Pw - P >= kFfmaTile || smem > kMaxSmem)
     return kUnsupported;
   cudaError_t err = allow_smem(big_edotp_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(32, T / kBigWarpCols + 1), grid(Pw / T, C, R);
+  const dim3 block(32, ffma_warps(NSp)), grid(Pw / kFfmaTile, C, R);
   big_edotp_kernel<<<grid, block, smem, stream>>>(
       child, tips, pmats, V, Vinv, pi, d, scd, ws_clv, ws_out, n_otu, n_int,
-      NSp, P, Pw, resident ? 1 : 0);
+      NSp, P, Pw);
   return static_cast<int>(cudaGetLastError());
 }
 
 int big_edotp_occupancy(int NSp, int* blocks_per_sm) {
-  if (!big_width(NSp)) return kUnsupported;
-  bool resident;
-  const int T = big_edotp_tile(NSp, &resident);
-  const size_t smem = big_edotp_smem(NSp, T, resident);
-  if (smem > kMaxSmem) return kUnsupported;
+  const size_t smem = big_edotp_smem(NSp);
+  if (!big_width(NSp) || smem > kMaxSmem) return kUnsupported;
   cudaError_t err = allow_smem(big_edotp_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, big_edotp_kernel, (T / kBigWarpCols + 1) * 32, smem));
+      blocks_per_sm, big_edotp_kernel, 32 * ffma_warps(NSp), smem));
 }
 
 }  // namespace phyml

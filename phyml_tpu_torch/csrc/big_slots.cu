@@ -63,7 +63,6 @@ struct BigPassDesc {
     const int q = w / n_int, t = w - q * n_int, c = c0 + q;
     BigWalk k;
     k.nj = 2;
-    k.trans = 0u;
     k.m[0] = pm + (static_cast<size_t>(sched[7 * t]) * C + c) * M;
     k.m[1] = pm + (static_cast<size_t>(sched[7 * t + 3]) * C + c) * M;
     return k;
@@ -166,17 +165,14 @@ __device__ __forceinline__ void big_pass_body(
       float* yw = ybuf + pw * LDk;
       float cm[kBigNT][2] = {};
       const float* xw[2] = {x[0] + pw * LDk, x[1] + pw * LDk};
-      const BigSrc none[2] = {};
-      big_walk<2, 0u, false>(rg, none, xw, LDk,
-                             [&](int mt, float (&acc)[2][kBigNT][4]) {
-                               float y[kBigNT][4];
+      big_walk<2>(rg, xw, LDk, [&](int mt, float (&acc)[2][kBigNT][4]) {
+        float y[kBigNT][4];
 #pragma unroll
-                               for (int n = 0; n < kBigNT; ++n)
+        for (int n = 0; n < kBigNT; ++n)
 #pragma unroll
-                                 for (int q = 0; q < 4; ++q)
-                                   y[n][q] = acc[0][n][q] * acc[1][n][q];
-                               big_store_frag(yw, LDk, mt * kBigPanel, y, cm);
-                             });
+          for (int q = 0; q < 4; ++q) y[n][q] = acc[0][n][q] * acc[1][n][q];
+        big_store_frag(yw, LDk, mt * kBigPanel, y, cm);
+      });
       // the children's log2 scales of column cw, before any store to dst
       float sc = 0.0f;
 #pragma unroll

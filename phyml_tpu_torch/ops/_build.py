@@ -91,39 +91,46 @@ RUNGS, WIDE_NS = _read_ladder()
 LADDER = tuple(sorted(RUNGS))
 
 
-def _read_big() -> dict:
-    """The big bodies' constants, read from csrc/big.cuh (its literal
-    `constexpr` lines): kBigPanel (ns is padded to a multiple),
-    kBigWarpCols (a warp's pattern columns), kBigChunk (contraction
-    states of a staged piece), kBigStages (the ring's stages),
-    kBigTileWide / kBigTileNarrow (a block's tile), kBigPadN / kBigPadT
-    (row padding of plain and transposed operands), kBigTwoBlocks (the
-    shared memory of a block that leaves two blocks an SM) and
-    kBigClusterMax (the classes K3/K4 spread over a cluster at most)."""
-    with open(os.path.join(_CSRC, "big.cuh")) as fh:
+def _read_big(header: str = "big.cuh", prefix: str = "kBig") -> dict:
+    """The big bodies' constants, read from the literal `constexpr`
+    lines of a header.  csrc/big.cuh (K3/K4's 3xTF32 walk): kBigPanel
+    (ns is padded to a multiple), kBigWarpCols (a warp's pattern
+    columns), kBigChunk (contraction states of a staged piece),
+    kBigStages (the ring's stages), kBigTileWide / kBigTileNarrow (a
+    block's tile), kBigPadN (row padding of tiles and pieces),
+    kBigTwoBlocks (the shared memory of a block that leaves two blocks
+    an SM) and kBigClusterMax (the classes K3/K4 spread over a cluster
+    at most).  csrc/big_ffma.cuh (K5's FFMA walk, prefix "kFfma"):
+    kFfmaTile (a block's tile) and kFfmaMaxWarps (its warps at
+    most)."""
+    with open(os.path.join(_CSRC, header)) as fh:
         text = fh.read()
     return {name: int(v) for name, v in re.findall(
-        r"constexpr (?:int|size_t) (kBig\w+) = (\d+);", text)}
+        r"constexpr (?:int|size_t) (%s\w+) = (\d+);" % prefix, text)}
 
 
-# Past the ladder's top rung the big bodies (csrc/big.cuh) take any state
-# count padded to a multiple of BIG_PANEL; a block holds BIG_TILES[0]
-# patterns, or BIG_TILES[1] where that leaves one block an SM, and one
-# warp per BIG_WARP_COLS of them
+# Past the ladder's top rung the big bodies take any state count padded
+# to a multiple of BIG_PANEL.  A K3/K4 block (csrc/big.cuh) holds
+# BIG_TILES[0] patterns, or BIG_TILES[1] where that leaves one block an
+# SM, and one warp per BIG_WARP_COLS of them; a K5 block
+# (csrc/big_ffma.cuh) BIG_FFMA_TILE patterns and at most
+# BIG_FFMA_MAX_WARPS warps
 BIG = _read_big()
+BIG_FFMA = _read_big("big_ffma.cuh", "kFfma")
+BIG_FFMA_TILE = BIG_FFMA["kFfmaTile"]
+BIG_FFMA_MAX_WARPS = BIG_FFMA["kFfmaMaxWarps"]
 BIG_PANEL = BIG["kBigPanel"]
 BIG_WARP_COLS = BIG["kBigWarpCols"]
 BIG_CHUNK = BIG["kBigChunk"]
 BIG_STAGES = BIG["kBigStages"]
 BIG_TILES = (BIG["kBigTileWide"], BIG["kBigTileNarrow"])
-BIG_PAD_N, BIG_PAD_T = BIG["kBigPadN"], BIG["kBigPadT"]
+BIG_PAD_N = BIG["kBigPadN"]
 BIG_TWO_BLOCKS = BIG["kBigTwoBlocks"]
 # classes at most that K3/K4 spread over a cluster of one-class blocks
 BIG_CLUSTER_MAX = BIG["kBigClusterMax"]
 # floats of a staged piece: one m-tile by BIG_CHUNK states (rows padded
-# by BIG_PAD_N), or BIG_CHUNK rows by one m-tile (transposed, BIG_PAD_T)
+# by BIG_PAD_N)
 BIG_PIECE_N = BIG_PANEL * (BIG_CHUNK + BIG_PAD_N)
-BIG_PIECE_T = BIG_CHUNK * (BIG_PANEL + BIG_PAD_T)
 # floats of the mbarriers in front of the ring (full and empty a stage)
 BIG_BAR_FLOATS = 4 * BIG_STAGES
 
@@ -148,28 +155,24 @@ def big_pass_tile(NS: int, C: int, n_slots: int) -> int:
         else narrow
 
 
-def big_edotp_smem(NS: int, T: int, resident: bool) -> int:
-    """Bytes of shared memory of a K5 big block of tile T
-    (csrc/big_edotp.cu: big_edotp_smem): the mbarriers, the ring of
-    BIG_STAGES stages (two plain pieces, or a transposed and a plain one
-    where V is streamed), the children's tiles and the outside partials
-    (4 x (T x (NS + BIG_PAD_N) + T)) and, where resident, V and V^-1
-    (NS x (NS + BIG_PAD_T) + NS x (NS + BIG_PAD_N))."""
-    ld = NS + BIG_PAD_N
-    stage = 2 * BIG_PIECE_N if resident else BIG_PIECE_T + BIG_PIECE_N
-    vv = NS * (2 * NS + BIG_PAD_T + BIG_PAD_N) if resident else 0
-    return 4 * (BIG_BAR_FLOATS + BIG_STAGES * stage + 4 * (T * ld + T) + vv)
+def big_edotp_warps(NS: int) -> int:
+    """Warps of K5's big block at NS (padded) states: the NS / 16 output
+    panels over at most BIG_FFMA_MAX_WARPS warps in equal rounds
+    (csrc/big_ffma.cuh: ffma_warps)."""
+    panels = NS // BIG_PANEL
+    rounds = -(-panels // BIG_FFMA_MAX_WARPS)
+    return -(-panels // rounds)
 
 
-def big_edotp_tile(NS: int) -> tuple[int, bool]:
-    """K5's (tile, V resident) past the ladder: BIG_TILES[0] patterns
-    where the block with V streamed leaves two blocks an SM, else
-    BIG_TILES[1]; V and V^-1 resident where the block with them still
-    leaves two (csrc/big_edotp.cu: big_edotp_tile)."""
-    wide, narrow = BIG_TILES
-    T = wide if big_edotp_smem(NS, wide, False) <= BIG_TWO_BLOCKS \
-        else narrow
-    return T, big_edotp_smem(NS, T, True) <= BIG_TWO_BLOCKS
+def big_edotp_smem(NS: int) -> int:
+    """Bytes of shared memory of K5's big block (csrc/big_edotp.cu:
+    big_edotp_smem): its warps' rings (W x 2 x 2 pieces of 16 x 16
+    floats), the two children's tiles and the outside partial (3 x
+    (NS + 1) x T), the two outside partials (2 x NS x T) and two sets of
+    column maxima (2 x W x T), T = BIG_FFMA_TILE."""
+    W, T = big_edotp_warps(NS), BIG_FFMA_TILE
+    return 4 * (W * 2 * 2 * BIG_PANEL ** 2 + 3 * (NS + 1) * T
+                + 2 * NS * T + 2 * W * T)
 
 
 def rung(ns: int) -> int:
@@ -191,11 +194,11 @@ def tile(family: str, ns: int) -> int:
     """Patterns one block's warp covers at the rung of ns: 32 / G * Q with
     G = rung / R lanes per pattern column (family "slot", "batch" or
     "edotp").  Past the ladder a big block's tile: K5's ("edotp",
-    big_edotp_tile), or the widest K3/K4 may take ("slot", "batch": it
+    BIG_FFMA_TILE), or the widest K3/K4 may take ("slot", "batch": it
     also depends on the slots, big_pass_tile)."""
     NS = rung(ns)
     if is_big(NS):
-        return big_edotp_tile(NS)[0] if family == "edotp" else BIG_TILES[0]
+        return BIG_FFMA_TILE if family == "edotp" else BIG_TILES[0]
     R, Q = RUNGS[NS][family]
     return 32 // (NS // R) * Q
 

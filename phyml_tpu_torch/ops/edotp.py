@@ -33,10 +33,10 @@ next rung (tips, P-matrices, V, V^-1 and pi, a copy of each per launch,
 each padded state a zero row and column or a zero), and d is returned
 as the view of its first ns states: the padded states' rows of d are
 zero.  Past the top rung both entries launch K5's big body
-(`csrc/big_edotp.cu`, the design in `csrc/big.cuh`), whose state count
-is a run-time argument: ns is padded to a multiple of 16
-(`_build.rung`) the same way, and `geometry` gives its tile (32 or 16
-patterns), warps and shared memory.
+(`csrc/big_edotp.cu`, the design in `csrc/big_ffma.cuh`), whose state
+count is a run-time argument: ns is padded to a multiple of 16
+(`_build.rung`) the same way, the tile is 16 patterns and a block holds
+`_build.big_edotp_warps` warps.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
 
 class _TileTable(dict):
     """Patterns per thread block by state count (kEdotpTile in
-    csrc/edotp.cuh at the rungs, kBigTile past them): the workspace's
+    csrc/edotp.cuh at the rungs, kFfmaTile past them): the workspace's
     pattern axis is P rounded up to it.  Keyed by the ladder's rungs,
     and defined for every other state count through `_build.tile`."""
 
@@ -125,25 +125,20 @@ def geometry(ns: int, C: int, P: int) -> dict:
     grid (one block of one warp per pattern tile and class), the block's
     dynamic shared memory (kEdotpSmem) and the workspace floats per
     internal node.  Past the ladder, the big body's (csrc/big_edotp.cu):
-    a block per tile of T patterns and class, T and whether V and V^-1
-    are resident from `_build.big_edotp_tile`, one warp per
-    `_build.BIG_WARP_COLS` patterns and one that stages the ring, its
-    shared memory
-    `_build.big_edotp_smem`."""
+    a block of `_build.big_edotp_warps` warps per 16-pattern tile and
+    class, its shared memory `_build.big_edotp_smem`."""
     NS = _build.rung(ns)
     T = TILE[NS]
     Pw = -(-P // T) * T
-    resident = False
     if _build.is_big(NS):
-        resident = _build.big_edotp_tile(NS)[1]
-        W = T // _build.BIG_WARP_COLS + 1
-        smem = _build.big_edotp_smem(NS, T, resident)
+        W = _build.big_edotp_warps(NS)
+        smem = _build.big_edotp_smem(NS)
     else:
         W = 1
         smem = ((2 + 2 * STAGES) * NS * NS + 3 * STAGES * (NS + 1) * T
                 + 2 * NS * T) * 4
     return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32 * W,
-                warps_per_block=W, smem_bytes=smem, v_resident=resident,
+                warps_per_block=W, smem_bytes=smem,
                 workspace_floats_per_node=C * (NS + 1) * Pw)
 
 

@@ -1513,9 +1513,10 @@ def test_past_the_ladder_is_refused(cuda):
 # past the ladder: the big bodies (csrc/big.cuh) at a run-time state
 # count padded to a multiple of 16
 # ----------------------------------------------------------------------
-# 67, 72 and 80 run at 80 (K5 with V and V^-1 resident), 96 just past
-# that line; 128 and 144 lie each side of 128 states, 80, 112 (100) and
-# 144 end in a 16-state chunk of the ring, 96, 128 and 160 do not
+# 67, 72 and 80 run at 80, where K3/K4 take the 32-pattern tile at 7
+# slots, 96 the next width; 128 and 144 lie each side of 128 states (K5:
+# 8 warps of one panel, then 5 of up to two); 80, 112 (100) and 144 end
+# in a 16-state chunk of K3/K4's ring, 96, 128 and 160 do not
 BIG_CASES = [67, 72, 80, 96, 100, 128, 144, 160]
 
 
@@ -1626,13 +1627,13 @@ def _big_checks(eng, tree, sys_, pm, tips, tol, ref=None):
 @pytest.mark.parametrize("sites", [5, 33, 47])
 def test_big_bodies_ragged_tiles(cuda, sites):
     """Pattern counts below one narrow tile (5), one wide tile and one
-    (33) and a ragged wide tile (47) at 80 states, where K3/K4 and K5
-    take the 32-pattern tile: K4, K3 and K5 against their plain
-    versions."""
+    (33) and a ragged wide tile (47) at 80 states, where K3/K4 take the
+    32-pattern tile and K5 the 16-pattern one: K4, K3 and K5 against
+    their plain versions."""
     eng, tree, sys_, pm = _generic_setup(cuda, 80, 4, 12, sites=sites)
     assert eng.P == sites
     assert clv.big_geometry(80, 4, sites, 4)["tile"] == 32
-    assert edotp.geometry(80, 4, sites)["tile"] == 32
+    assert edotp.geometry(80, 4, sites)["tile"] == 16
     _big_checks(eng, tree, sys_, pm, eng.tips, AA_TOL)
 
 

@@ -284,32 +284,33 @@ def test_ladder_read_from_the_kernel_sources():
 
 
 def test_big_constants_read_from_the_kernel_sources():
-    """The big bodies' constants come from csrc/big.cuh: every literal
-    `constexpr` of it reaches `_build.BIG` with its value; the derived
-    sizes follow the header's own expressions (a plain piece one m-tile
-    by kBigChunk states, a transposed one kBigChunk rows by one m-tile,
-    two mbarriers of 8 bytes a stage); a warp's columns are whole
-    n-tiles of the mma (8 patterns), both tiles whole warps; the two-block
-    line is half an SM's 233,472 bytes less the 1 KB the runtime keeps a
-    block; and the tile rule picks 32 patterns at 80 states and 16 at
-    160 (7 slots, C = 4)."""
+    """The big bodies' constants come from csrc/big.cuh (K3/K4) and
+    csrc/big_ffma.cuh (K5): every literal `constexpr` of each reaches
+    `_build.BIG` / `_build.BIG_FFMA` with its value; the derived sizes
+    follow the headers' own expressions (a piece one m-tile by kBigChunk
+    states, two mbarriers of 8 bytes a stage, K5's warps the panels in
+    equal rounds); a warp's columns are whole n-tiles of the mma (8
+    patterns), both tiles whole warps; the two-block line is half an
+    SM's 233,472 bytes less the 1 KB the runtime keeps a block; and the
+    tile rule picks 32 patterns at 80 states and 16 at 160 (7 slots,
+    C = 4)."""
     import os
     import re
 
-    with open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
-                           "big.cuh")) as fh:
-        text = fh.read()
-    lits = {k: int(v) for k, v in re.findall(
-        r"constexpr (?:int|size_t) (kBig\w+) = (\d+);", text)}
-    assert lits == _build.BIG and len(lits) >= 9
+    def read(name, prefix):
+        with open(os.path.join(os.path.dirname(_build.__file__), "..",
+                               "csrc", name)) as fh:
+            text = fh.read()
+        return text, {k: int(v) for k, v in re.findall(
+            r"constexpr (?:int|size_t) (%s\w+) = (\d+);" % prefix, text)}
+
+    text, lits = read("big.cuh", "kBig")
+    assert lits == _build.BIG and len(lits) >= 8
     assert _build.BIG_PANEL == lits["kBigPanel"] == 16
     assert _build.BIG_TILES == (lits["kBigTileWide"], lits["kBigTileNarrow"])
     assert "kBigPieceN = kBigPanel * kBigRowN" in text
     assert "kBigRowN = kBigChunk + kBigPadN" in text
     assert _build.BIG_PIECE_N == 16 * (_build.BIG_CHUNK + _build.BIG_PAD_N)
-    assert "kBigPieceT = kBigChunk * kBigRowT" in text
-    assert "kBigRowT = kBigPanel + kBigPadT" in text
-    assert _build.BIG_PIECE_T == _build.BIG_CHUNK * (16 + _build.BIG_PAD_T)
     assert "kBigBarFloats = 2 * kBigStages * 2" in text
     assert _build.BIG_BAR_FLOATS == 4 * _build.BIG_STAGES
     assert _build.BIG_WARP_COLS % 8 == 0 and 32 % _build.BIG_WARP_COLS == 0
@@ -317,13 +318,18 @@ def test_big_constants_read_from_the_kernel_sources():
     assert _build.BIG_CHUNK % 16 == 0 and _build.BIG_STAGES >= 2
     assert _build.BIG_TWO_BLOCKS == 233472 // 2 - 1024
     assert _build.BIG_CLUSTER_MAX == 8   # the portable cluster size
-    # a plain operand's rows are 4 mod 8 floats, a transposed one's 0 mod
-    # 8: the fragment loads are free of bank conflicts
-    assert _build.BIG_PAD_N % 8 == 4 and _build.BIG_PAD_T % 8 == 0
+    # an operand's rows are 4 mod 8 floats: the fragment loads are free
+    # of bank conflicts
+    assert _build.BIG_PAD_N % 8 == 4
     assert _build.big_pass_tile(80, 4, 7) == 32
     assert _build.big_pass_tile(160, 4, 7) == 16
-    assert _build.big_edotp_tile(80) == (32, True)
-    assert _build.big_edotp_tile(160) == (32, False)
+    text, lits = read("big_ffma.cuh", "kFfma")
+    assert lits == _build.BIG_FFMA and len(lits) == 2
+    assert _build.BIG_FFMA_TILE == lits["kFfmaTile"] == 16
+    assert _build.BIG_FFMA_MAX_WARPS == lits["kFfmaMaxWarps"] == 8
+    assert "kFfmaPiece = kBigPanel * kBigPanel" in text
+    assert [_build.big_edotp_warps(NS) for NS in (80, 160, 240, 256)] == \
+        [5, 5, 8, 8]
 
 
 BIG_GEOMETRY_CASES = [65, 67, 72, 80, 100, 128, 160, 200, 240, 256]
@@ -338,9 +344,11 @@ def test_big_bodies_geometry(ns):
     two blocks an SM, else 16, which divides the tips' row padding; one
     warp per 8 patterns and one that stages the ring; K3/K4 a block a
     class, the classes of a tile one cluster; the block's shared memory
-    (mbarriers, ring, slots, tip tiles and class terms; K5's mbarriers,
-    ring, four tiles and a resident V and V^-1) within MAX_BLOCK_SMEM;
-    the streamed route."""
+    (mbarriers, ring, slots, tip tiles and class terms) within
+    MAX_BLOCK_SMEM; K5's 16-pattern tile and at most 8 warps a block, in
+    equal rounds of panels, its shared memory (the warps' rings, the
+    operand tiles, column maxima) within MAX_BLOCK_SMEM; the streamed
+    route."""
     from phyml_tpu_torch.ops.likelihood import kernel_route, \
         single_pass_kernel
 
@@ -372,16 +380,17 @@ def test_big_bodies_geometry(ns):
             4 * _build.BIG_STAGES + _build.BIG_STAGES * 2 * _build.BIG_PIECE_N
             + 8 * (T * ld + T) + 2 * T * ld + 4 * T)
     e = edotp.geometry(ns, 4, 4095)
-    T5, resident = _build.big_edotp_tile(NS)
-    assert e["tile"] == edotp.TILE[ns] == _build.tile("edotp", ns) == T5
-    assert T5 in (wide, narrow) and e["v_resident"] == resident
-    assert e["Pw"] == 4096 and e["threads"] == 32 * (T5 // 8 + 1)
-    assert e["blocks"] == 4096 // T5 * 4
+    panels, W = NS // 16, _build.big_edotp_warps(NS)
+    assert 1 <= W <= 8 and W <= panels
+    assert -(-panels // W) == -(-panels // 8)   # equal rounds
+    assert e["tile"] == edotp.TILE[ns] == _build.tile("edotp", ns) == 16
+    assert e["Pw"] == 4096 and e["threads"] == 32 * W
+    assert e["blocks"] == 256 * 4
     assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
-    assert e["smem_bytes"] == _build.big_edotp_smem(NS, T5, resident)
-    assert resident == (e["smem_bytes"] <= _build.BIG_TWO_BLOCKS
-                        and _build.big_edotp_smem(NS, T5, True)
-                        == e["smem_bytes"])
+    # rings, two children's tiles and the outside partial, two outside
+    # partials, two sets of column maxima (floats)
+    assert e["smem_bytes"] == 4 * (W * 4 * 256 + 3 * (NS + 1) * 16
+                                   + 2 * NS * 16 + 2 * W * 16)
     assert e["workspace_floats_per_node"] == 4 * (NS + 1) * 4096
     assert kernel_route(128, 4, ns) == ("K4", "K5")
     assert kernel_route(3, 4, ns) == ("K4", "K5")

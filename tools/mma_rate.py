@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The rate of mma.sync.m16n8k8 TF32 (the big bodies' products) on one GPU.
+"""The rate of mma.sync.m16n8k8 TF32 (K3/K4's big body's products) on one GPU.
 
     python3 tools/mma_rate.py [--iters N]
 
