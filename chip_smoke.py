@@ -81,12 +81,13 @@
    P-matrices (MGF ones for the Guindon run) against its plain version;
 12. other state counts, on the kernels' ladder (every rung built, ptxas
    checked for spills at each): DNA covarion GTR+G4 `--cov --cov_ncats
-   3` (12 states, 128 taxa), protein covarion LG+G4 (60 states, 64 taxa)
-   and binary `-d generic` (2 states, padded to 4; 128 taxa), each with
+   3` (12 states, 128 taxa) and binary `-d generic` (2 states, padded
+   to 4; 128 taxa), and past the ladder's top rung (32) protein covarion
+   LG+G4 (60 states, padded to 64, 64 taxa: the big bodies), each with
    every kernel of its route against its plain version and the padding's
    cost, its fixed fit and (DNA covarion, binary) its default run at 64
    taxa, the launch counters reset just before and read just after;
-   past the ladder, protein covarion `--cov_ncats 4` (80 states, 64
+   protein covarion `--cov_ncats 4` (80 states, 64
    taxa: the big bodies, csrc/big.cuh, ptxas checked for spills) with
    every kernel of its route against its plain version, K3 at the line
    search's B = 13 and 2, and its fixed fit, which must launch K3 at
@@ -235,7 +236,7 @@ TPU_KERNEL = {
 }
 SOURCE = {"K1": "clv_slots.cu", "K2": "edotp.cu", "K3": "clv.cu",
           "K4": "clv_slots_stream.cu", "K5": "edotp_stream.cu"}
-# past the ladder (more than 64 states) each entry runs a big body
+# past the ladder (more than 32 states) each entry runs a big body
 # (csrc/big.cuh, big_ffma.cuh): K1's and K4's the K4 body, K2's and
 # K5's the K5 body
 BIG_SOURCE = {"K1": "big_slots.cu", "K2": "big_edotp.cu",
@@ -701,8 +702,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
               f"({geo['tile']} patterns, "
               + ("K4's big body: a warp per 8 patterns, 3xTF32 on the "
                  "tensor cores, a block a class" if _build.is_big(NS) else
-                 "a warp per class" if geo["warps_per_block"] == C else
-                 "one warp for the classes in turn") + ", "
+                 "a warp per class") + ", "
               f"{geo['block_smem_bytes'] / 1024:.1f} KB shared memory), "
               f"{blocks} per SM granted "
               f"({blocks * geo['warps_per_block']} warps); peak "
@@ -740,7 +740,7 @@ def kernel_phases(dt, aln_path, tree_path, cuda, regs, model=None,
     rng = np.random.default_rng(SEED)
     # K3's warps a block
     k3_w = clv.big_geometry(ns, C, k, n_slots)["warps_per_block"] \
-        if _build.is_big(NS) else 1 if NS >= _build.WIDE_NS else C
+        if _build.is_big(NS) else C
     tp = 32 * max(1, 4 // C)   # the pattern tile of a workspace kernel
     for B in k3_batches or (1, 2, 13 * len(slots)):
         blocks = clv.blocks_per_sm(ns, C, n_slots)
@@ -2122,7 +2122,8 @@ STATES_CELLS = {
     "DNA covarion": ("nt", ("--cov", "--cov_ncats", "3"), N_TAXA, 64),
     "protein covarion": ("aa", ("--cov", "--cov_ncats", "3"), 64, None),
     "binary generic": ("generic", (), N_TAXA, 64),
-    # past the ladder: 80 states, the big bodies
+    # past the ladder (its top rung is 32), as "protein covarion" (60
+    # states, padded to 64): 80 states, the big bodies
     "protein covarion 4": ("aa", ("--cov", "--cov_ncats", "4"), 64, None),
 }
 # the K3 batch sizes of a cell's rows where not (1, 2, 13 per free
@@ -2141,7 +2142,7 @@ STATES_KERNEL_CELLS = {
 def states_phase(tmp, cuda, regs):
     """The state-count cells (STATES_CELLS): DNA covarion GTR+G4 `--cov
     --cov_ncats 3` (12 states), protein covarion LG+G4 (60 states, the
-    wide rung's design), binary `-d generic` (2 states, padded to 4) and,
+    big bodies at 64), binary `-d generic` (2 states, padded to 4) and,
     past the ladder, protein covarion `--cov_ncats 4` (80 states, the big
     bodies), each on a problem of its own simulated from the script's
     seed: every kernel of its route (and the one beside it) and K3 at the

@@ -4,7 +4,7 @@
 // K5 (with K2's entry; big_edotp.cu) runs the FFMA walk of big_ffma.cuh,
 // which says why.
 //
-// Replace, past 64 states, phyml_tpu/ops/pallas_clv.py:_uppass_kernel
+// Replace, past the top rung, phyml_tpu/ops/pallas_clv.py:_uppass_kernel
 // (K3) and pallas_clv_slots.py:_slot_stream_kernel (K4; _slot_kernel, K1,
 // runs the same body through its entry).  The Pallas kernels take any
 // state count padded to `spad`; the ladder's designs keep whole ns x ns

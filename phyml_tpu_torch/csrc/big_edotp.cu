@@ -1,48 +1,131 @@
 // K5 (with K2's entry) past the ladder: the up sweep, the outside sweep
-// and the per-edge eigen-basis dot products for any state count past 64
-// (big_ffma.cuh gives the panel design and what bounds it).
+// and the per-edge eigen-basis dot products for any state count past
+// the top rung (big_ffma.cuh gives the design and what bounds it).
 //
-// Replaces, past 64 states, phyml_tpu/ops/pallas_edotp.py:
+// Replaces, past the top rung, phyml_tpu/ops/pallas_edotp.py:
 // _edotp_stream_kernel (K5; the K2 entry, _edotp_kernel's, launches it
 // too).  For every edge u it emits, as edotp.cuh,
 //     d[u]    = (V^T O_u) * (V^-1 C_u)        [C, NSp, P]
 //     sc_d[u] = (sc_out[u] + sc[u]) * ln 2    [C, P]
-// the root row zeroed.  Grid (Pw / 16 pattern tiles, C classes, R stacked
-// trees), a block of W warps (ffma_warps) on one tile of one class of one
-// tree; tree z's child table, P-matrices, d, sc_d and workspace lie at
-// 64-bit base offsets (d passes 2^31 floats sooner at 160 states).
+// the root row zeroed.  Grid (Pw / T pattern tiles, C classes, R
+// stacked trees), a block of W warps on T = 16 W patterns of one class
+// of one tree and a warp that stages the ring (ffma_warps); tree z's
+// child table, P-matrices, d, sc_d and workspace lie at 64-bit base
+// offsets (d passes 2^31 floats sooner at 160 states).
 //
-// Each step copies its operand tiles from device memory into shared
-// memory (the children's partials: tip rows, or the up sweep's
-// workspace tile; a down step also its outside partial, already pushed
-// through its own edge), then the warps run their output panels
-// (big_panels), every matrix streamed in 16 x 16 pieces:
+// Each warp, on its own 16 columns, step after step (no block barrier
+// once the walk starts):
 //
-// * up step i: y = (P_0 x_0) * (P_1 x_1), rescaled over all NSp states
-//   of each column, into the workspace ws_clv[i] (row NSp the log2
-//   scale); the root's computes nothing;
-// * down step i (root first): q_k = P_k x_k; the children's outside
-//   partials o_0 = g * q_1, o_1 = g * q_0 (g = pi at the root, else node
-//   i's pushed outside partial from ws_out[i]), each rescaled; then for
-//   each child u = r_k the products V^T o_k (V streamed transposed) and
-//   V^-1 x_k, whose product d[u] goes to device memory from the
-//   registers, and for an internal child P_u^T o_k, the outside partial
-//   its own down step starts from, into ws_out[u] (a walk of its own:
-//   one walk of all three products held 171 registers a thread, one
-//   block of 5 warps an SM at 80 states).
+// * up step i (the root's too): its children's partials copied into its
+//   tiles (tip rows, or the up sweep's workspace tile); q_k = P_k x_k,
+//   kept in the workspace for the down step, and y = q_0 * q_1, stored
+//   unscaled pair by pair with its column maxima kept; each column
+//   rescaled into the workspace ws_clv[i] (row NSp the log2 scale);
+// * down step i (root first): the children's partials and node i's
+//   pushed outside partial g (pi at the root) copied in; the children's
+//   outside partials o_0 = g * q_1 (in g's place) and o_1 = g * q_0 from
+//   the up step's q_k, each rescaled over its column; then for each child
+//   u = r_k the products V^T o_k and V^-1 x_k, whose product d[u] goes
+//   to device memory from the registers, and for an internal child P_u^T
+//   o_k, the outside partial its own down step starts from, into
+//   ws_out[u].
 //
-// Shared memory (big_edotp_smem, floats): the warps' rings W x 2 x 2 x
-// 256, the two children's tiles 2 x (NSp + 1) x 16, the outside partial
-// (NSp + 1) x 16, the two outside partials o_k 2 x NSp x 16 and the
-// column maxima 2 x W x 16: 56 KB at 80 states (W = 5), 92 KB at 160.
-// The workspace is [n_int, C, NSp + 1, Pw] twice, as edotp.cuh's.  Each
-// block checks the child table once and traps on a child outside
-// [0, n_otu + i) in row i.
+// A down step so reads its q_k, the same float32 values as the up step's
+// (same operands, same order of sums), instead of computing them again:
+// 4 of a node's 9 to 10 products.
+//
+// Shared memory (big_edotp_smem, ffma_smem_floats): the mbarriers, the
+// ring kFfmaStages x 2 pieces of 32 x 16, V and V^-1 where resident, and
+// each warp's four tiles of 16 columns: 97 KB at 80 states (W = 4, V
+// streamed, two blocks an SM), 113 KB at 64 (V resident), 177 KB at 160
+// (one block an SM).
+// The workspace is [n_int, C, 2 NSp + 1, Pw] twice: a node's partial
+// (ws_clv) or pushed outside partial (ws_out), row NSp its log2 scale,
+// then its q_0 (ws_clv) or q_1 (ws_out).  Each block checks the child
+// table once and traps on a child outside [0, n_otu + i) in row i.
 #include "big_ffma.cuh"
 
 namespace phyml {
 
-__global__ void __launch_bounds__(32 * kFfmaMaxWarps)
+// The walks' epilogues, functors whose calls inline: the lane's rows of
+// pair mp are 32 mp + 16 h + 4 rg + a, its columns 4 cg .. 4 cg + 3 of
+// its warp's 16; a half pair's lanes of h = 1 store nothing.
+__device__ __forceinline__ int ffma_row(int mp, int a) {
+  const int lane = threadIdx.x;
+  return mp * kFfmaPair + 16 * (lane >> 4) + 4 * ((lane >> 2) & 3) + a;
+}
+
+// An up step: y = q_0 * q_1 unscaled into the warp tile ob ([NSp][16])
+// and its column maxima into cm; q_0 and q_1 into the workspace (q0, q1
+// at the lane's columns, rows ld floats apart).
+struct FfmaUpEpi {
+  float* ob;
+  float* q0;
+  float* q1;
+  size_t ld;
+  float* cm;
+  __device__ __forceinline__ void operator()(
+      int mp, bool full, const float (&acc)[2][4][4]) const {
+    if (!full && (threadIdx.x >> 4)) return;
+    const int cg = threadIdx.x & 3;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ffma_row(mp, a);
+      float y[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        y[b] = acc[0][a][b] * acc[1][a][b];
+        cm[b] = fmaxf(cm[b], y[b]);
+      }
+      *reinterpret_cast<float4*>(ob + r * kFfmaWarpCols + 4 * cg) =
+          make_float4(y[0], y[1], y[2], y[3]);
+      *reinterpret_cast<float4*>(q0 + r * ld) = make_float4(
+          acc[0][a][0], acc[0][a][1], acc[0][a][2], acc[0][a][3]);
+      *reinterpret_cast<float4*>(q1 + r * ld) = make_float4(
+          acc[1][a][0], acc[1][a][1], acc[1][a][2], acc[1][a][3]);
+    }
+  }
+};
+
+// The edge dot products: d[u] = (V^T o) * (V^-1 x) from the registers
+// into device memory (d_u at the lane's columns, rows ld floats apart,
+// the first n of the lane's 4 columns inside the pattern axis).
+struct FfmaDotEpi {
+  float* d_u;
+  size_t ld;
+  int n;
+  __device__ __forceinline__ void operator()(
+      int mp, bool full, const float (&acc)[2][4][4]) const {
+    if (!full && (threadIdx.x >> 4)) return;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float* row = d_u + static_cast<size_t>(ffma_row(mp, a)) * ld;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < n) row[b] = acc[0][a][b] * acc[1][a][b];
+    }
+  }
+};
+
+// An internal child's pushed outside partial P_u^T o into the workspace
+// (h_u at the lane's columns, rows ld floats apart).
+struct FfmaPushEpi {
+  float* h_u;
+  size_t ld;
+  __device__ __forceinline__ void operator()(
+      int mp, bool full, const float (&acc)[1][4][4]) const {
+    if (!full && (threadIdx.x >> 4)) return;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      *reinterpret_cast<float4*>(h_u +
+                                 static_cast<size_t>(ffma_row(mp, a)) * ld) =
+          make_float4(acc[0][a][0], acc[0][a][1], acc[0][a][2],
+                      acc[0][a][3]);
+  }
+};
+
+// two blocks an SM: at most 204 registers a thread
+__global__ void __launch_bounds__(32 * (kFfmaMaxWarps + 1), 2)
     big_edotp_kernel(const int* __restrict__ child,
                      const float* __restrict__ tips,
                      const float* __restrict__ pmats,
@@ -51,8 +134,7 @@ __global__ void __launch_bounds__(32 * kFfmaMaxWarps)
                      const float* __restrict__ pi, float* __restrict__ d,
                      float* __restrict__ scd, float* __restrict__ ws_clv,
                      float* __restrict__ ws_out, int n_otu, int n_int,
-                     int NSp, int P, int Pw) {
-  constexpr int T = kFfmaTile;
+                     int NSp, int P, int Pw, int resident) {
   const size_t M = static_cast<size_t>(NSp) * NSp;
   {
     // my tree (grid.z) of a stack: its operands at 64-bit base offsets
@@ -61,20 +143,28 @@ __global__ void __launch_bounds__(32 * kFfmaMaxWarps)
     pmats += z * n_nodes * C * M;
     d += z * n_nodes * C * NSp * P;
     scd += z * n_nodes * C * P;
-    ws_clv += z * n_int * C * (NSp + 1) * Pw;
-    ws_out += z * n_int * C * (NSp + 1) * Pw;
+    ws_clv += z * n_int * C * (2 * NSp + 1) * Pw;
+    ws_out += z * n_int * C * (2 * NSp + 1) * Pw;
   }
   extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x, wy = threadIdx.y, W = blockDim.y;
-  const int tid = wy * 32 + lane, nthr = 32 * W;
-  const int C = gridDim.y, c = blockIdx.y, p0 = blockIdx.x * T;
-  const int n_nodes = n_otu + n_int, kTile = (NSp + 1) * T;
+  // W warps on the tile's columns, and warp W, which stages the ring
+  const int lane = threadIdx.x, wy = threadIdx.y, W = blockDim.y - 1;
+  const int tid = wy * 32 + lane, nthr = 32 * (W + 1);
+  const int C = gridDim.y, c = blockIdx.y;
+  const int p0 = blockIdx.x * W * kFfmaWarpCols + wy * kFfmaWarpCols;
+  const int n_nodes = n_otu + n_int;
   const size_t sP = P, sW = Pw;
-  float* ring = smem + wy * 2 * 2 * kFfmaPiece;  // my warp's
-  float* xt = smem + W * 2 * 2 * kFfmaPiece;     // [2][NSp+1][T]
-  float* gt = xt + 2 * kTile;                   // [NSp+1][T]
-  float* ob = gt + kTile;                       // [2][NSp][T]
-  float* colmax = ob + 2 * NSp * T;             // [2][W][T]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // full, empty
+  float* ring = smem + kFfmaBarFloats;
+  float* Vt = ring + kFfmaStages * 2 * kFfmaItem;  // V: [k][out]
+  float* Vn = Vt + M;                              // V^-1 (ffma_res_n)
+  const int kTile = (NSp + 1) * kFfmaWarpCols;
+  // my warp's tiles: the children's partials, g (then o_0), o_1
+  float* xt = Vt + (resident ? 2 * M : 0) +
+              static_cast<size_t>(wy) * (4 * kTile - kFfmaWarpCols);
+  float* gt = xt + 2 * kTile;
+  float* ob = gt + kTile;
+  if (tid == 0) ffma_ring_init(bars, W);
   {
     bool bad = false;
     for (int i = tid; i < n_int; i += nthr)
@@ -82,13 +172,64 @@ __global__ void __launch_bounds__(32 * kFfmaMaxWarps)
                  static_cast<unsigned>(n_otu + i) ||
              static_cast<unsigned>(child[2 * i + 1]) >=
                  static_cast<unsigned>(n_otu + i);
-    if (__syncthreads_or(bad)) __trap();
+    if (__syncthreads_or(bad)) __trap();  // also: the barriers are set
   }
+  const float* Vc = V + c * M;
+  const float* Vic = Vinv + c * M;
+  if (resident) {
+    // V's rows as they are, V^-1's laid out by ffma_res_n
+    for (int q = tid; q < NSp * NSp / 4; q += nthr) {
+      const int r = q / (NSp / 4), k = 4 * (q - r * (NSp / 4));
+      cp_async16(Vt + 4 * q, Vc + 4 * q);
+      cp_async16(Vn + ffma_res_n(r, k, NSp), Vic + 4 * q);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  auto pm_of = [&](int u) {
+    return pmats + (static_cast<size_t>(u) * C + c) * M;
+  };
+  if (wy == W) {
+    // the staging warp: every walk's matrices in the reading warps' order
+    FfmaStager sg{ring, bars, bars + kFfmaStages, NSp};
+    for (int i = 0; i < n_int; ++i)
+      sg.walk(pm_of(child[2 * i]), pm_of(child[2 * i + 1]), 2, 0u);
+    for (int i = n_int - 1; i >= 0; --i) {
+      const int u[2] = {child[2 * i], child[2 * i + 1]};
+      for (int k = 0; k < 2; ++k) {
+        if (!resident) sg.walk(Vc, Vic, 2, 1u);
+        if (u[k] >= n_otu) sg.walk(pm_of(u[k]), nullptr, 1, 1u);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  FfmaReader rd{ring, bars, bars + kFfmaStages};
+  const int h = lane >> 4, rg = (lane >> 2) & 3, cg = lane & 3;
+  // a node's tile of my class and columns in a workspace (rows sW
+  // apart), and the q_k it holds from row NSp + 1
+  const size_t ws_class = static_cast<size_t>(2 * NSp + 1) * sW;
+  auto ws_tile = [&](float* ws, int idx) {
+    return ws + (static_cast<size_t>(idx) * C + c) * ws_class + p0;
+  };
+  auto q_tile = [&](float* ws, int idx) {
+    return ws_tile(ws, idx) + static_cast<size_t>(NSp + 1) * sW + 4 * cg;
+  };
+  // child u's partial (tip rows and a zero scale row, or its tile of the
+  // up sweep's workspace) into tile k
+  auto fetch_x = [&](int k, int u) {
+    if (u < n_otu)
+      ffma_copy_tip(xt + k * kTile, tips + static_cast<size_t>(u) * NSp * sP,
+                    sP, NSp, p0, P);
+    else
+      ffma_copy_tile(xt + k * kTile, ws_tile(ws_clv, u - n_otu), sW, NSp);
+  };
   // the root row is meaningless: zeros
   {
     const size_t root = n_nodes - 1;
-    for (int e = tid; e < kTile; e += nthr) {
-      const int r = e / T, p = p0 + e % T;
+    for (int e = lane; e < kTile; e += 32) {
+      const int r = e >> 4, p = p0 + (e & 15);
       if (p >= P) continue;
       if (r < NSp)
         d[((root * C + c) * NSp + r) * sP + p] = 0.0f;
@@ -96,161 +237,157 @@ __global__ void __launch_bounds__(32 * kFfmaMaxWarps)
         scd[(root * C + c) * sP + p] = 0.0f;
     }
   }
-  const float* Vc = V + c * M;
-  const float* Vic = Vinv + c * M;
-  const float* pi_c = pi + static_cast<size_t>(c) * NSp;
-  // a node's tile of my class in a workspace: rows lie sW apart
-  const size_t ws_node = static_cast<size_t>(C) * (NSp + 1) * sW;
-  auto ws_tile = [&](float* ws, int idx) {
-    return ws + idx * ws_node + static_cast<size_t>(c) * (NSp + 1) * sW + p0;
+  // my tile's element (row r, my four columns) of a warp tile
+  auto at = [&](float* t, int r) {
+    return reinterpret_cast<float4*>(t + r * kFfmaWarpCols + 4 * cg);
   };
-  auto pm_of = [&](int u) {
-    return pmats + (static_cast<size_t>(u) * C + c) * M;
-  };
-  // a workspace tile (NSp + 1 rows of 16 floats) into shared memory
-  auto copy_tile = [&](float* dst, const float* src) {
-    for (int q = tid; q < (NSp + 1) * 4; q += nthr) {
-      const int r = q >> 2, c4 = q & 3;
-      cp_async16(dst + r * T + 4 * c4, src + r * sW + 4 * c4);
-    }
-  };
-  // child u's partial (tip rows and a zero scale row, or its tile of
-  // the up sweep's workspace) into xt[k]
-  auto fetch_x = [&](int k, int u) {
-    float* dst = xt + k * kTile;
-    if (u < n_otu) {
-      big_copy_tip(dst, tips + static_cast<size_t>(u) * NSp * sP, NSp, p0,
-                   P, sP, tid, nthr);
-      for (int l = tid; l < T; l += nthr) dst[NSp * T + l] = 0.0f;
-    } else {
-      copy_tile(dst, ws_tile(ws_clv, u - n_otu));
-    }
-  };
-  // the thread's column in the rescales, and its first row
-  const int j = tid % T, r0 = tid / T, rstep = nthr / T;
-  const int rg = lane >> 3, pg = lane & 7;
+  const int n_mp = (NSp + kFfmaPair - 1) / kFfmaPair;
 
-  for (int i = 0; i < n_int - 1; ++i) {  // up sweep; the root's is unused
+  for (int i = 0; i < n_int; ++i) {  // up sweep, the root's too
     const int u0 = child[2 * i], u1 = child[2 * i + 1];
-    __syncthreads();  // the last step is done with xt and ob
+    __syncwarp();  // every lane is done with the last step's tiles
     fetch_x(0, u0);
     fetch_x(1, u1);
     cp_async_commit();
     cp_async_wait<0>();
-    __syncthreads();
-    const float* m[2] = {pm_of(u0), pm_of(u1)};
-    const float* x[2] = {xt, xt + kTile};
-    float cm[2] = {0.0f, 0.0f};
-    big_panels<2, 0u>(ring, m, x, NSp, wy, W,
-                      [&](int o, float (&acc)[2][4][2]) {
-                        float y[4][2];
+    __syncwarp();
+    float cm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* const res[2] = {nullptr, nullptr};
+    const float* const x[2] = {xt, xt + kTile};
+    float* q0 = q_tile(ws_clv, i);
+    float* q1 = q_tile(ws_out, i);
+    ffma_walk<2, 0u>(rd, res, x, NSp, FfmaUpEpi{ob, q0, q1, sW, cm});
+    const float4 s0 = *at(xt, NSp), s1 = *at(xt + kTile, NSp);
+    float s[4] = {s0.x + s1.x, s0.y + s1.y, s0.z + s1.z, s0.w + s1.w};
+    float f[4];
+    ffma_factors(cm, s, f);
+    float* dst = ws_tile(ws_clv, i) + 4 * cg;
+    for (int mp = 0; mp < n_mp; ++mp) {
+      if ((mp + 1) * kFfmaPair > NSp && h) continue;
 #pragma unroll
-                        for (int a = 0; a < 4; ++a)
-#pragma unroll
-                          for (int q = 0; q < 2; ++q)
-                            y[a][q] = acc[0][a][q] * acc[1][a][q];
-                        big_store_tile(ob, o, y, cm);
-                      });
-    big_warp_colmax(cm, colmax, wy);
-    float s = xt[NSp * T + j] + xt[kTile + NSp * T + j];
-    __syncthreads();  // ob and colmax whole
-    const float f = big_column_factor(colmax, W, j, &s);
-    float* dst = ws_tile(ws_clv, i);
-    for (int r = r0; r < NSp; r += rstep) dst[r * sW + j] = ob[r * T + j] * f;
-    if (r0 == 0) dst[NSp * sW + j] = s;
+      for (int a = 0; a < 4; ++a) {
+        const int r = ffma_row(mp, a);
+        const float4 y = *at(ob, r);
+        *reinterpret_cast<float4*>(dst + r * sW) =
+            make_float4(y.x * f[0], y.y * f[1], y.z * f[2], y.w * f[3]);
+      }
+    }
+    if (h == 0 && rg == 0)
+      *reinterpret_cast<float4*>(dst + NSp * sW) =
+          make_float4(s[0], s[1], s[2], s[3]);
   }
 
   for (int i = n_int - 1; i >= 0; --i) {  // down sweep, root first
     const int u[2] = {child[2 * i], child[2 * i + 1]};
-    __syncthreads();  // the last step is done with xt, gt and ob
+    __syncwarp();  // every lane is done with the last step's tiles
     fetch_x(0, u[0]);
     fetch_x(1, u[1]);
     if (i < n_int - 1) {
-      copy_tile(gt, ws_tile(ws_out, i));
+      ffma_copy_tile(gt, ws_tile(ws_out, i), sW, NSp);
     } else {
-      for (int e = tid; e < kTile; e += nthr)
-        gt[e] = e < NSp * T ? pi_c[e / T] : 0.0f;
+      const float* pi_c = pi + static_cast<size_t>(c) * NSp;
+      for (int e = lane; e < kTile; e += 32)
+        gt[e] = e < NSp * kFfmaWarpCols ? pi_c[e >> 4] : 0.0f;
     }
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // the children's outside partials o_k = g * q_(1-k), unscaled
+    // the children's outside partials o_k = g * q_(1-k), unscaled, from
+    // the up step's q_k
+    float cm0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cm1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     {
-      const float* m[2] = {pm_of(u[0]), pm_of(u[1])};
-      const float* x[2] = {xt, xt + kTile};
-      float cm0[2] = {0.0f, 0.0f}, cm1[2] = {0.0f, 0.0f};
-      big_panels<2, 0u>(
-          ring, m, x, NSp, wy, W, [&](int o, float (&acc)[2][4][2]) {
-            const float* g = gt + (o * kBigPanel + 4 * rg) * T + 2 * pg;
-            float o0[4][2], o1[4][2];
+      const float* q0 = q_tile(ws_clv, i);
+      const float* q1 = q_tile(ws_out, i);
+      cp_async_wait<0>();
+      __syncwarp();
+      for (int mp = 0; mp < n_mp; ++mp) {
+        if ((mp + 1) * kFfmaPair > NSp && h) continue;
 #pragma unroll
-            for (int a = 0; a < 4; ++a) {
-              const float2 gv = *reinterpret_cast<const float2*>(g + a * T);
-              o0[a][0] = gv.x * acc[1][a][0], o0[a][1] = gv.y * acc[1][a][1];
-              o1[a][0] = gv.x * acc[0][a][0], o1[a][1] = gv.y * acc[0][a][1];
-            }
-            big_store_tile(ob, o, o0, cm0);
-            big_store_tile(ob + NSp * T, o, o1, cm1);
-          });
-      big_warp_colmax(cm0, colmax, wy);
-      big_warp_colmax(cm1, colmax + W * T, wy);
-    }
-    const float sg = gt[NSp * T + j];
-    const float sx[2] = {xt[NSp * T + j], xt[kTile + NSp * T + j]};
-    __syncthreads();  // ob and colmax whole
-    // each o_k rescaled over its column; its scales into sc_d and, for
-    // an internal child, the scale row of its pushed outside partial
+        for (int a = 0; a < 4; ++a) {
+          const int r = ffma_row(mp, a);
+          const float4 gv = *at(gt, r);
+          const float4 v0 = *reinterpret_cast<const float4*>(q0 + r * sW);
+          const float4 v1 = *reinterpret_cast<const float4*>(q1 + r * sW);
+          const float g[4] = {gv.x, gv.y, gv.z, gv.w};
+          const float a0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float a1[4] = {v1.x, v1.y, v1.z, v1.w};
+          float o0[4], o1[4];
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      float sco = sg + sx[1 - k];
-      const float f = big_column_factor(colmax + k * W * T, W, j, &sco);
-      float* ok = ob + k * NSp * T;
-      for (int r = r0; r < NSp; r += rstep) ok[r * T + j] *= f;
-      if (r0 == 0) {
-        if (p0 + j < P)
-          scd[(static_cast<size_t>(u[k]) * C + c) * sP + p0 + j] =
-              (sco + sx[k]) * kLn2;
-        if (u[k] >= n_otu) ws_tile(ws_out, u[k] - n_otu)[NSp * sW + j] = sco;
+          for (int b = 0; b < 4; ++b) {
+            o0[b] = g[b] * a1[b];
+            o1[b] = g[b] * a0[b];
+            cm0[b] = fmaxf(cm0[b], o0[b]);
+            cm1[b] = fmaxf(cm1[b], o1[b]);
+          }
+          *at(gt, r) = make_float4(o0[0], o0[1], o0[2], o0[3]);
+          *at(ob, r) = make_float4(o1[0], o1[1], o1[2], o1[3]);
+        }
       }
     }
-    __syncthreads();  // o_0 and o_1 rescaled
+    // each o_k rescaled over its column; its scales into sc_d and, for
+    // an internal child, the scale row of its pushed outside partial
+    {
+      const float4 sgv = *at(gt, NSp);
+      const float4 sx0 = *at(xt, NSp), sx1 = *at(xt + kTile, NSp);
+      const float sg[4] = {sgv.x, sgv.y, sgv.z, sgv.w};
+      const float sx[2][4] = {{sx0.x, sx0.y, sx0.z, sx0.w},
+                              {sx1.x, sx1.y, sx1.z, sx1.w}};
+      float sco[2][4], f[2][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        sco[0][b] = sg[b] + sx[1][b];
+        sco[1][b] = sg[b] + sx[0][b];
+      }
+      ffma_factors(cm0, sco[0], f[0]);
+      ffma_factors(cm1, sco[1], f[1]);
+      for (int mp = 0; mp < n_mp; ++mp) {
+        if ((mp + 1) * kFfmaPair > NSp && h) continue;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = ffma_row(mp, a);
+          float4* o0 = at(gt, r);
+          float4* o1 = at(ob, r);
+          const float4 v0 = *o0, v1 = *o1;
+          *o0 = make_float4(v0.x * f[0][0], v0.y * f[0][1], v0.z * f[0][2],
+                            v0.w * f[0][3]);
+          *o1 = make_float4(v1.x * f[1][0], v1.y * f[1][1], v1.z * f[1][2],
+                            v1.w * f[1][3]);
+        }
+      }
+      if (h == 0 && rg == 0) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (p0 + 4 * cg + b < P)
+              scd[(static_cast<size_t>(u[k]) * C + c) * sP + p0 + 4 * cg +
+                  b] = (sco[k][b] + sx[k][b]) * kLn2;
+          if (u[k] >= n_otu)
+            *reinterpret_cast<float4*>(ws_tile(ws_out, u[k] - n_otu) +
+                                       NSp * sW + 4 * cg) =
+                make_float4(sco[k][0], sco[k][1], sco[k][2], sco[k][3]);
+        }
+      }
+    }
+    __syncwarp();  // o_0 and o_1 rescaled
 #pragma unroll 1
     for (int k = 0; k < 2; ++k) {
-      const float* ok = ob + k * NSp * T;
-      const float* x = xt + k * kTile;
-      float* d_u = d + (static_cast<size_t>(u[k]) * C + c) * NSp * sP + p0 +
-                   2 * pg;
+      const float* ok = k == 0 ? gt : ob;
       {
-        // d[u] = (V^T o_k) * (V^-1 x_k): V streamed transposed (bit 0)
-        const float* m[2] = {Vc, Vic};
-        const float* xs[2] = {ok, x};
-        big_panels<2, 1u>(
-            ring, m, xs, NSp, wy, W, [&](int o, float (&acc)[2][4][2]) {
-#pragma unroll
-              for (int a = 0; a < 4; ++a) {
-                const size_t row = o * kBigPanel + 4 * rg + a;
-#pragma unroll
-                for (int q = 0; q < 2; ++q)
-                  if (p0 + 2 * pg + q < P)
-                    d_u[row * sP + q] = acc[0][a][q] * acc[1][a][q];
-              }
-            });
+        // d[u] = (V^T o_k) * (V^-1 x_k)
+        float* d_u = d + (static_cast<size_t>(u[k]) * C + c) * NSp * sP +
+                     p0 + 4 * cg;
+        const int n_cols = min(4, max(0, P - p0 - 4 * cg));
+        const float* const res[2] = {resident ? Vt : nullptr,
+                                     resident ? Vn : nullptr};
+        const float* const x[2] = {ok, xt + k * kTile};
+        ffma_walk<2, 1u>(rd, res, x, NSp, FfmaDotEpi{d_u, sP, n_cols});
       }
       if (u[k] >= n_otu) {
         // an internal child's outside partial pushed through its own
         // edge, P_u^T o_k, which its own down step starts from
-        const float* m[1] = {pm_of(u[k])};
-        const float* xs[1] = {ok};
-        float* h_u = ws_tile(ws_out, u[k] - n_otu) + 2 * pg;
-        big_panels<1, 1u>(
-            ring, m, xs, NSp, wy, W, [&](int o, float (&acc)[1][4][2]) {
-#pragma unroll
-              for (int a = 0; a < 4; ++a) {
-                const size_t row = o * kBigPanel + 4 * rg + a;
-                *reinterpret_cast<float2*>(h_u + row * sW) =
-                    make_float2(acc[0][a][0], acc[0][a][1]);
-              }
-            });
+        float* h_u = ws_tile(ws_out, u[k] - n_otu) + 4 * cg;
+        const float* const res[1] = {nullptr};
+        const float* const x[1] = {ok};
+        ffma_walk<1, 1u>(rd, res, x, NSp, FfmaPushEpi{h_u, sW});
       }
     }
   }
@@ -259,9 +396,7 @@ __global__ void __launch_bounds__(32 * kFfmaMaxWarps)
 
 // bytes of shared memory of one block (the layout of big_edotp_kernel)
 size_t big_edotp_smem(int NSp) {
-  const size_t W = ffma_warps(NSp), T = kFfmaTile;
-  return (W * 2 * 2 * kFfmaPiece + 3 * (NSp + 1) * T + 2 * NSp * T +
-          2 * W * T) *
+  return ffma_smem_floats(NSp, ffma_warps(NSp), ffma_resident(NSp)) *
          sizeof(float);
 }
 
@@ -270,26 +405,27 @@ int big_edotp_launch(const int* child, const float* tips,
                      const float* pi, float* d, float* scd, float* ws_clv,
                      float* ws_out, int n_otu, int n_int, int NSp, int C,
                      int P, int Pw, int R, cudaStream_t stream) {
-  const size_t smem = big_edotp_smem(NSp);
-  if (!big_width(NSp) || Pw % kFfmaTile != 0 || Pw < P ||
-      Pw - P >= kFfmaTile || smem > kMaxSmem)
+  const int W = ffma_warps(NSp), T = W * kFfmaWarpCols;
+  if (!big_width(NSp) || W == 0 || Pw % T != 0 || Pw < P || Pw - P >= T)
     return kUnsupported;
+  const size_t smem = big_edotp_smem(NSp);
   cudaError_t err = allow_smem(big_edotp_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(32, ffma_warps(NSp)), grid(Pw / kFfmaTile, C, R);
+  const dim3 block(32, W + 1), grid(Pw / T, C, R);
   big_edotp_kernel<<<grid, block, smem, stream>>>(
       child, tips, pmats, V, Vinv, pi, d, scd, ws_clv, ws_out, n_otu, n_int,
-      NSp, P, Pw);
+      NSp, P, Pw, ffma_resident(NSp) ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 int big_edotp_occupancy(int NSp, int* blocks_per_sm) {
+  const int W = ffma_warps(NSp);
+  if (!big_width(NSp) || W == 0) return kUnsupported;
   const size_t smem = big_edotp_smem(NSp);
-  if (!big_width(NSp) || smem > kMaxSmem) return kUnsupported;
   cudaError_t err = allow_smem(big_edotp_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, big_edotp_kernel, 32 * ffma_warps(NSp), smem));
+      blocks_per_sm, big_edotp_kernel, 32 * (W + 1), smem));
 }
 
 }  // namespace phyml

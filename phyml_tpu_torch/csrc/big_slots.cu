@@ -1,13 +1,14 @@
 // K3 and K4 (with K1's entry) past the ladder: one Felsenstein pass over
 // the Sethi-Ullman slot schedule, the variable-rate site lnL, for any
-// state count past 64 (big.cuh gives the design and what bounds it).
+// state count past the ladder's top rung (big.cuh gives the design and
+// what bounds it).
 //
-// Replaces, past 64 states, phyml_tpu/ops/pallas_clv.py:_uppass_kernel
+// Replaces, past the top rung, phyml_tpu/ops/pallas_clv.py:_uppass_kernel
 // (K3: kernel big_uppass_kernel, grid (tiles, B x C), entry b its own
 // parameter set, or its own tree: sched_stride / param_stride as in
 // clv.cu) and phyml_tpu/ops/pallas_clv_slots.py:_slot_stream_kernel (K4:
 // big_slot_kernel, B = 1; the K1 entry, _slot_kernel's, launches it
-// too, since no tree's resident matrices fit a warp past 64 states).
+// too, since no tree's resident matrices fit a warp past the top rung).
 // Both compute, per pattern p (and entry b),
 //
 //   lse[p] = logsumexp_c( logw[c] + ln2 * sc_root[c, p]
@@ -21,8 +22,7 @@
 // its columns and a warp that stages the ring.  With up to
 // kBigClusterMax classes a block takes one class, the C blocks of a tile
 // (and entry) one cluster, grid (tiles, B x C); with more, a block walks
-// the classes in turn (the wide rungs' class loop, ladder.cuh), grid
-// (tiles, B).  The ring stages P_0 and P_1 of each step, step after
+// the classes in turn, grid (tiles, B).  The ring stages P_0 and P_1 of each step, step after
 // step.  Each warp, on its own columns, with no block barrier:
 //
 //   1. y = (P_0 x_0) * (P_1 x_1) m-tile by m-tile (big_walk), each

@@ -89,14 +89,7 @@
 // grants (phyml_batched_uppass_occupancy).
 //
 // Other state counts: one instantiation per rung of ladder.cuh, its
-// R x Q tile from the table; the wrapper pads ns to the rung.  On the
-// wide rungs (40 and up) the P-matrix ring of C classes no longer fits
-// (4*C*ns^2 floats: 230 KB at ns = 60, C = 4), so a block is one warp
-// that walks the classes in turn, its ring holding one class's two
-// child matrices a stage (58 KB at ns = 60) and its slots one class's
-// partials; each class's root terms collect in shared memory and the
-// class log-sum-exp stays in this kernel.  The tip rows are copied
-// again for each class (from L2).
+// R x Q tile from the table; the wrapper pads ns to the rung.
 #include "common.cuh"
 #include "big_launch.cuh"
 
@@ -107,15 +100,6 @@ template <int NS>
 constexpr int kRows = Rung<NS>::kBatchRows;
 template <int NS>
 constexpr int kCols = Rung<NS>::kBatchCols;
-
-// warps of one block: one per class, or one that walks the classes (the
-// wide rungs)
-template <int NS>
-constexpr bool kBatchClassLoop = NS >= kWideNS;
-template <int NS>
-int batched_block_warps(int C) {
-  return kBatchClassLoop<NS> ? 1 : C;
-}
 
 // patterns one warp covers, the block's pattern tile
 template <int NS>
@@ -137,7 +121,7 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
   constexpr int T = kTile<NS>;           // the block's pattern tile
   constexpr int kSlot = (NS + 1) * T;    // floats of one slot, class
   extern __shared__ __align__(16) float smem[];
-  const int W = blockDim.y;  // C class warps, or one on the wide rungs
+  const int W = blockDim.y;  // C class warps
   const int lane = threadIdx.x, wy = threadIdx.y;
   const int tid = wy * 32 + lane, nthr = 32 * W;
   const int g = lane % G;             // my state group
@@ -179,19 +163,13 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
       for (int k = 0; k < 7; ++k) st[k] = sched[7 * i + k];
     }
   };
-  // the block's classes c0 .. c0 + W - 1: all C in one pass, or on the
-  // wide rungs one a pass (a compile-time single pass on the others)
-  constexpr bool kLoop = kBatchClassLoop<NS>;
-  const int n_pass = kLoop ? C : 1;
-  int c0 = 0;
   // issue the copies of a step's operands into ring half `stage`
   auto fetch = [&](const int (&st)[7], int stage) {
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       copy_block16(pm_ring + (2 * stage + k) * wmat,
-                   pm_b + static_cast<size_t>(st[3 * k]) * mat +
-                       c0 * NS * NS,
-                   wmat, tid, nthr);
+                   pm_b + static_cast<size_t>(st[3 * k]) * mat, wmat, tid,
+                   nthr);
       if (st[3 * k + 1])
         copy_tip_rows<NS>(tip_ring + (2 * stage + k) * NS * T,
                           tips + static_cast<size_t>(st[3 * k]) * NS * P,
@@ -200,10 +178,8 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
     cp_async_commit();
   };
 
-  for (int pass = 0; pass < n_pass; ++pass) {
-    c0 = kLoop ? pass : 0;
-    const int c = kLoop ? pass : wy;  // my class this pass
-    if (pass > 0) __syncthreads();  // the last pass is done with the ring
+  {
+    const int c = wy;  // my class
     int cur[7], nxt[7], later[7];
     load_step(0, cur);
     load_step(1, nxt);
@@ -300,7 +276,7 @@ __global__ void batched_uppass_kernel(const int* __restrict__ sched,
 template <int NS>
 size_t batched_smem(int C, int n_slots) {
   constexpr size_t T = kTile<NS>;
-  const size_t W = batched_block_warps<NS>(C);
+  const size_t W = C;
   return (4 * W * NS * NS + 4 * NS * T +
           (static_cast<size_t>(n_slots) * (NS + 1) * W + C) * T) *
          sizeof(float);
@@ -317,7 +293,7 @@ int launch_batched(const int* sched, const float* tips, const float* pmats,
   if (smem > kMaxSmem || tiles > 65535) return kUnsupported;
   cudaError_t err = allow_smem(batched_uppass_kernel<NS>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(32, batched_block_warps<NS>(C)), grid(B, tiles);
+  const dim3 block(32, C), grid(B, tiles);
   batched_uppass_kernel<NS><<<grid, block, smem, stream>>>(
       sched, tips, pmats, pi, logw, out, n_otu + n_int, n_int, n_slots, C,
       P, sched_stride, param_stride);
@@ -332,7 +308,7 @@ int occupancy(int C, int n_slots, int* blocks_per_sm) {
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, batched_uppass_kernel<NS>,
-      32 * batched_block_warps<NS>(C), smem));
+      32 * C, smem));
 }
 
 }  // namespace phyml
@@ -370,7 +346,7 @@ extern "C" int phyml_batched_uppass(const int* sched, const float* tips,
   }
 }
 
-// The blocks of K3 (32 * C threads each, 32 on the wide rungs) one SM
+// The blocks of K3 (32 * C threads each) one SM
 // holds at (ns, C, n_slots), as the runtime grants them.
 extern "C" int phyml_batched_uppass_occupancy(int ns, int C, int n_slots,
                                               int* blocks_per_sm) {

@@ -1,8 +1,7 @@
 // Shared device helpers for the Felsenstein-pruning kernels.
 //
-// Every kernel runs one warp per rate class (on the wide rungs of
-// ladder.cuh, K1, K3 and K4 one warp for the classes in turn) and gives
-// each thread a register tile of R states x Q patterns (tile_matmul
+// Every kernel runs one warp per rate class and gives each thread a
+// register tile of R states x Q patterns (tile_matmul
 // below; a pattern column split over NS / R adjacent lanes), its
 // operands staged in shared memory by cp.async.  The arithmetic is
 // plain IEEE float32: build without --use_fast_math, since
@@ -58,71 +57,49 @@ __device__ __forceinline__ void store_q(float* p, const float (&v)[Q]) {
 }
 
 // One 4-state piece of tile_matmul: acc[i][j] += sum_{u<4}
-// pm[i * NS + y0 + u] * x[(y0 + u) * T + j].  Up to 6 rows, the R
-// 16-byte P pieces are loaded first; above (ns = 60: R = 15) the tile's
-// 4 x Q values are, and each row's piece just before its FMAs, which
-// keeps a piece, not all R, live in registers.
+// pm[i * NS + y0 + u] * x[(y0 + u) * T + j], the R 16-byte P pieces
+// loaded first (R <= 6 at every rung).
 template <int NS, int R, int Q>
 __device__ __forceinline__ void tile_matmul_piece(const float* __restrict__ pm,
                                                   const float* __restrict__ x,
                                                   int T, int y0,
                                                   float (&acc)[R][Q]) {
-  if constexpr (R <= 6) {
-    float4 p[R];
+  static_assert(R <= 6, "a lane's R pieces are held in registers");
+  float4 p[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      p[i] = *reinterpret_cast<const float4*>(pm + i * NS + y0);
-    float v[4][Q];
+  for (int i = 0; i < R; ++i)
+    p[i] = *reinterpret_cast<const float4*>(pm + i * NS + y0);
+  float v[4][Q];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) load_q<Q>(x + (y0 + u) * T, v[u]);
+  for (int u = 0; u < 4; ++u) load_q<Q>(x + (y0 + u) * T, v[u]);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float pr[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+  for (int i = 0; i < R; ++i) {
+    const float pr[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+    for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int j = 0; j < Q; ++j) acc[i][j] += pr[u] * v[u][j];
-    }
-  } else {
-    float v[4][Q];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) load_q<Q>(x + (y0 + u) * T, v[u]);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(pm + i * NS + y0);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int j = 0; j < Q; ++j) acc[i][j] += pr[u] * v[u][j];
-    }
+      for (int j = 0; j < Q; ++j) acc[i][j] += pr[u] * v[u][j];
   }
 }
 
 // acc[i][j] = sum_y pm[i * NS + y] * x[y * T + j]: R rows of one
 // row-major NS x NS matrix (16-byte aligned rows) times Q columns of an
 // [NS][T] tile, summed over y in order.  R * Q FMAs for
-// every 16-byte piece of the matrix and every Q-piece of the tile.  The
-// loop over 4-state pieces is unrolled up to 32 states and unrolled
-// twice above, which keeps the wide rungs' code (and build) small.
+// every 16-byte piece of the matrix and every Q-piece of the tile; the
+// loop over 4-state pieces is unrolled (NS <= 32 at every rung).
 template <int NS, int R, int Q>
 __device__ __forceinline__ void tile_matmul(const float* __restrict__ pm,
                                             const float* __restrict__ x,
                                             int T, float (&acc)[R][Q]) {
   static_assert(NS % 4 == 0, "rows are read in 16-byte pieces");
+  static_assert(NS <= 32, "the ladder's top rung");
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < Q; ++j) acc[i][j] = 0.0f;
-  if constexpr (NS <= 32) {
 #pragma unroll
-    for (int y0 = 0; y0 < NS; y0 += 4)
-      tile_matmul_piece<NS, R, Q>(pm, x, T, y0, acc);
-  } else {
-#pragma unroll 2
-    for (int y0 = 0; y0 < NS; y0 += 4)
-      tile_matmul_piece<NS, R, Q>(pm, x, T, y0, acc);
-  }
+  for (int y0 = 0; y0 < NS; y0 += 4)
+    tile_matmul_piece<NS, R, Q>(pm, x, T, y0, acc);
 }
 
 // The transposed product: acc[i][j] = sum_w pm[w * NS + i] * x[w * T + j]
@@ -147,17 +124,13 @@ template <int NS, int R, int Q>
 __device__ __forceinline__ void tile_matmul_t(const float* __restrict__ pm,
                                               const float* __restrict__ x,
                                               int T, float (&acc)[R][Q]) {
+  static_assert(NS <= 32, "the ladder's top rung");
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < Q; ++j) acc[i][j] = 0.0f;
-  if constexpr (NS <= 32) {
 #pragma unroll
-    for (int w = 0; w < NS; ++w) tile_matmul_t_row<NS, R, Q>(pm, x, T, w, acc);
-  } else {
-#pragma unroll 4
-    for (int w = 0; w < NS; ++w) tile_matmul_t_row<NS, R, Q>(pm, x, T, w, acc);
-  }
+  for (int w = 0; w < NS; ++w) tile_matmul_t_row<NS, R, Q>(pm, x, T, w, acc);
 }
 
 // sum / max of v over the G adjacent lanes of a pattern column

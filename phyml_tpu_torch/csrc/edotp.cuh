@@ -69,13 +69,13 @@
 //
 // * Other state counts: one instantiation per rung of ladder.cuh, its
 //   R x Q tile from the table (T = 32 patterns at ns = 4 and 8, 16 up to
-//   24, 8 from 32 to 60, 4 at 64: a down step holds about six R x Q
-//   register tiles, so the wide rungs keep R x Q near ns = 20's 10);
-//   the wrapper pads ns to the rung.
+//   24, 8 at 32: a down step holds about six R x Q register tiles, so
+//   the rungs keep R x Q near ns = 20's 10); the wrapper pads ns to the
+//   rung.
 //
 // Dynamic shared memory per block (kEdotpSmem): ns = 20 20.2 KB, ns = 4
-// 5.1 KB, ns = 60 102 KB (V^T, V^-1 and the P-matrix ring are 6 ns^2
-// floats; above 48 KB a block opts in).  Registers from ptxas
+// 5.1 KB, ns = 32 33.0 KB (V^T, V^-1 and the P-matrix ring are 6 ns^2
+// floats).  Registers from ptxas
 // (chip_smoke.py prints them and the blocks per SM the runtime grants).
 #pragma once
 
@@ -472,7 +472,7 @@ int edotp_occupancy(K* kernel, int* blocks_per_sm) {
 
 // One extern "C" launcher and one occupancy query per kernel, a case per
 // rung of ladder.cuh and, past its top, K5's big body (big_edotp.cu: a
-// state count padded to a multiple of 16, a 16-pattern tile) for both
+// state count padded to a multiple of 16, 16 patterns a warp) for both
 // (-1 for another ns, or a pattern width Pw that is not P rounded up to
 // the tile); R stacked trees (1 for one tree), each with its own child
 // table, P-matrices, outputs and workspace.  The including file defines

@@ -10,18 +10,14 @@
 // lane holds R states x Q patterns of a pattern column split over
 // G = NS / R adjacent lanes (G divides 32; NS % 4 == 0, since
 // tile_matmul reads P-matrix rows in 16-byte pieces), so a warp covers
-// 32 / G * Q patterns.  4, 12, 20 and 60 are exact: DNA, DNA covarion
-// with three hidden classes, amino acids, amino-acid covarion with
-// three.  At 60 a column splits over at most 4 lanes (60 = 4 x 15), so
-// a lane holds 15 states.
+// 32 / G * Q patterns.  4, 12 and 20 are exact: DNA, DNA covarion with
+// three hidden classes, amino acids.
 //
-// Rungs from kWideNS up ("wide") run K1, K4 and K3 as one warp a block
-// that walks the rate classes in turn, reusing one share of shared
-// memory (a block of C class warps would need 346 KB for K4 and 230 KB
-// of P-matrix ring for K3 at ns = 60, C = 4), with K1/K4's ring one step
-// ahead instead of two.  K2/K5 run one warp a block at every rung; their
-// shared memory is dynamic, since above ~32 states it passes the 48 KB
-// a block may hold statically.
+// The top rung is 32: from 33 states on, the big bodies (big.cuh,
+// big_ffma.cuh; ns padded to a multiple of 16) were faster than the
+// rungs of 40, 48, 60 and 64 states, whose K1/K4 and K3 had to walk the
+// rate classes in one warp a block, for every kernel but K3 at B = 2
+// and 40 states (PERF.md).
 #pragma once
 
 #define PHYML_LADDER(X)             \
@@ -31,16 +27,9 @@
   X(16, 4, 4, 4, 4, 4, 2)           \
   X(20, 5, 4, 5, 4, 5, 2)           \
   X(24, 6, 4, 6, 4, 3, 4)           \
-  X(32, 4, 4, 4, 4, 4, 2)           \
-  X(40, 5, 4, 5, 4, 5, 2)           \
-  X(48, 6, 4, 6, 4, 6, 2)           \
-  X(60, 15, 2, 15, 2, 15, 1)        \
-  X(64, 8, 4, 8, 4, 8, 1)
+  X(32, 4, 4, 4, 4, 4, 2)
 
 namespace phyml {
-
-// first wide rung: K1, K4 and K3 walk the classes in one warp
-constexpr int kWideNS = 40;
 
 template <int NS>
 struct Rung;  // defined for the rungs only

@@ -66,16 +66,10 @@
 //
 // * Other state counts: one instantiation per rung of ladder.cuh, its
 //   R x Q tile from the table (T = 32 patterns up to 24 states, 16
-//   above); the wrappers pad ns to the rung.  On the wide rungs (40 and
-//   up) a block is one warp that walks the C classes in turn, reusing
-//   its share (the ring and the slots), with its ring one step ahead
-//   (S = 2): at ns = 60 a warp's share is 58 KB of ring + 15 KB of tip
-//   ring + 3.9 KB a slot, where a block of four class warps with S = 3
-//   would need 346 KB.  The class terms of the tile collect in shared
-//   memory as before, so the class log-sum-exp stays in this kernel.
+//   above); the wrappers pad ns to the rung.
 //
 // Dynamic shared memory per warp (slot_warp_floats; a block holds C of
-// them, one on the wide rungs, and C x T class terms), independent of
+// them and C x T class terms), independent of
 // the tree's size but for K1's matrices and the slot count: K1 at
 // 128-taxon DNA, 4 slots: 16 KB of matrices + 3 KB of tip ring + 2.5 KB
 // of slots; K4 at ns = 20: 9.6 + 15.4 KB + 2.7 KB a slot, so a block of
@@ -100,14 +94,9 @@ constexpr int kSlotCols = Rung<NS>::kSlotCols;
 template <int NS>
 constexpr int kSlotTile = 32 / (NS / kSlotRows<NS>) * kSlotCols<NS>;
 
-// a block is one warp that walks the classes in turn (the wide rungs)
-template <int NS>
-constexpr bool kSlotClassLoop = NS >= kWideNS;
-
 // steps a step's tip rows (and K4's P-matrices) are copied ahead of it;
 // the ring has kSlotAhead + 1 stages
-template <int NS>
-constexpr int kSlotAhead = kSlotClassLoop<NS> ? 1 : 2;
+constexpr int kSlotAhead = 2;
 
 // Floats of shared memory one warp uses: P-matrices (K1: its class's
 // for every child node; K4: the ring), the tip ring and the slots (a
@@ -115,7 +104,7 @@ constexpr int kSlotAhead = kSlotClassLoop<NS> ? 1 : 2;
 template <int NS, bool kResident>
 __host__ __device__ constexpr size_t slot_warp_floats(int n_nodes,
                                                       int n_slots) {
-  constexpr size_t T = kSlotTile<NS>, S = kSlotAhead<NS> + 1;
+  constexpr size_t T = kSlotTile<NS>, S = kSlotAhead + 1;
   const size_t pm = kResident ? static_cast<size_t>(n_nodes - 1) * NS * NS
                               : 2 * S * NS * NS;
   return pm + 2 * S * NS * T + static_cast<size_t>(n_slots) * (NS + 1) * T;
@@ -133,7 +122,7 @@ __device__ __forceinline__ void slot_site_lse_warp(
     float (&term)[kSlotCols<NS>]) {
   constexpr int R = kSlotRows<NS>, G = NS / R, Q = kSlotCols<NS>;
   constexpr int T = kSlotTile<NS>;
-  constexpr int D = kSlotAhead<NS>, S = D + 1;
+  constexpr int D = kSlotAhead, S = D + 1;
   constexpr int M = NS * NS;         // floats of one class's P-matrix
   constexpr int kSlot = (NS + 1) * T;
   constexpr int kTipPieces = NS * T / 4;  // 16-byte pieces of a tip tile
@@ -275,10 +264,9 @@ __device__ __forceinline__ void slot_site_lse_warp(
   }
 }
 
-// The kernel of one route: a block of C warps (threadIdx.y = class; on
-// the wide rungs one warp for the C classes in turn) per pattern tile,
-// each warp on its own share of shared memory, then the class
-// log-sum-exp of the tile's patterns after one barrier.
+// The kernel of one route: a block of C warps (threadIdx.y = class) per
+// pattern tile, each warp on its own share of shared memory, then the
+// class log-sum-exp of the tile's patterns after one barrier.
 template <int NS, bool kResident>
 __device__ __forceinline__ void slot_site_lse_body(
     const int* __restrict__ sched, const float* __restrict__ tips,
@@ -300,12 +288,9 @@ __device__ __forceinline__ void slot_site_lse_body(
       bad |= schedule_row_bad(sched, i, n_otu, n_otu + n_int - 1, n_slots);
     if (__syncthreads_or(bad)) __trap();
   }
-  // one pass for my class, or on the wide rungs (W = 1) one a class
-  constexpr bool kLoop = kSlotClassLoop<NS>;
-  const int n_pass = kLoop ? C : 1;
-  for (int pass = 0; pass < n_pass; ++pass) {
-    const int c = kLoop ? pass : wy;
-    if (pass > 0) __syncwarp();  // every lane is done with the last pass
+  // one pass for my class
+  {
+    const int c = wy;
     float term[Q];
     slot_site_lse_warp<NS, kResident>(smem + wy * wf, sched, tips, pmats,
                                       pi, logw, c, C, p0, n_otu, n_int,
@@ -319,16 +304,9 @@ __device__ __forceinline__ void slot_site_lse_body(
     out[p0 + t] = class_lse(red + t, C, T);
 }
 
-// warps of one block: one per class, or one on the wide rungs
-template <int NS>
-int slot_block_warps(int C) {
-  return kSlotClassLoop<NS> ? 1 : C;
-}
-
 template <int NS, bool kResident>
 size_t slot_smem(int C, int n_nodes, int n_slots) {
-  return (slot_block_warps<NS>(C) *
-              slot_warp_floats<NS, kResident>(n_nodes, n_slots) +
+  return (C * slot_warp_floats<NS, kResident>(n_nodes, n_slots) +
           static_cast<size_t>(C) * kSlotTile<NS>) *
          sizeof(float);
 }
@@ -346,7 +324,7 @@ int launch_slot(K* kernel, const int* sched, const float* tips,
   if (smem > kMaxSmem || !padded) return kUnsupported;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(P + T - 1) / T, dim3(32, slot_block_warps<NS>(C)), smem,
+  kernel<<<(P + T - 1) / T, dim3(32, C), smem,
            stream>>>(sched, tips, pmats, pi, logw, out, n_otu, n_int,
                      n_slots, C, P, ldt);
   return static_cast<int>(cudaGetLastError());
@@ -360,7 +338,7 @@ int slot_occupancy(K* kernel, int C, int n_otu, int n_slots,
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, 32 * slot_block_warps<NS>(C), smem));
+      blocks_per_sm, kernel, 32 * C, smem));
 }
 
 }  // namespace phyml

@@ -66,11 +66,10 @@ _SIGNATURES = {
 }
 
 
-def _read_ladder() -> tuple[dict, int]:
+def _read_ladder() -> dict:
     """The state-count ladder of csrc/ladder.cuh, read from the table the
-    kernels are instantiated from: (rung -> its register tiles {"slot":
-    (R, Q), "batch": (R, Q), "edotp": (R, Q)} of K1/K4, K3 and K2/K5,
-    the first wide rung kWideNS)."""
+    kernels are instantiated from: rung -> its register tiles {"slot":
+    (R, Q), "batch": (R, Q), "edotp": (R, Q)} of K1/K4, K3 and K2/K5."""
     with open(os.path.join(_CSRC, "ladder.cuh")) as fh:
         text = fh.read()
     table = text[text.index("#define PHYML_LADDER(X)"):]
@@ -80,14 +79,12 @@ def _read_ladder() -> tuple[dict, int]:
         ns, sr, sq, br, bq, er, eq = (int(v) for v in row.split(","))
         rungs[ns] = {"slot": (sr, sq), "batch": (br, bq),
                      "edotp": (er, eq)}
-    wide = int(re.search(r"kWideNS = (\d+);", text).group(1))
-    return rungs, wide
+    return rungs
 
 
 # the rungs every kernel is instantiated for (a problem's state count is
-# padded up to the next: rung), and the first rung whose K1, K4 and K3
-# run one warp a block that walks the classes
-RUNGS, WIDE_NS = _read_ladder()
+# padded up to the next: rung); past the top one the big bodies run
+RUNGS = _read_ladder()
 LADDER = tuple(sorted(RUNGS))
 
 
@@ -101,8 +98,9 @@ def _read_big(header: str = "big.cuh", prefix: str = "kBig") -> dict:
     kBigTwoBlocks (the shared memory of a block that leaves two blocks
     an SM) and kBigClusterMax (the classes K3/K4 spread over a cluster
     at most).  csrc/big_ffma.cuh (K5's FFMA walk, prefix "kFfma"):
-    kFfmaTile (a block's tile) and kFfmaMaxWarps (its warps at
-    most)."""
+    kFfmaWarpCols (a warp's pattern columns), kFfmaMaxWarps (the warps
+    on a block's columns at most), kFfmaPair (the output states of a
+    pair, a warp's tile) and kFfmaStages (the ring's stages)."""
     with open(os.path.join(_CSRC, header)) as fh:
         text = fh.read()
     return {name: int(v) for name, v in re.findall(
@@ -113,12 +111,14 @@ def _read_big(header: str = "big.cuh", prefix: str = "kBig") -> dict:
 # to a multiple of BIG_PANEL.  A K3/K4 block (csrc/big.cuh) holds
 # BIG_TILES[0] patterns, or BIG_TILES[1] where that leaves one block an
 # SM, and one warp per BIG_WARP_COLS of them; a K5 block
-# (csrc/big_ffma.cuh) BIG_FFMA_TILE patterns and at most
-# BIG_FFMA_MAX_WARPS warps
+# (csrc/big_ffma.cuh) one warp per BIG_FFMA_WARP_COLS patterns, at most
+# BIG_FFMA_MAX_WARPS of them, and one that stages its ring
 BIG = _read_big()
 BIG_FFMA = _read_big("big_ffma.cuh", "kFfma")
-BIG_FFMA_TILE = BIG_FFMA["kFfmaTile"]
+BIG_FFMA_WARP_COLS = BIG_FFMA["kFfmaWarpCols"]
 BIG_FFMA_MAX_WARPS = BIG_FFMA["kFfmaMaxWarps"]
+BIG_FFMA_PAIR = BIG_FFMA["kFfmaPair"]
+BIG_FFMA_STAGES = BIG_FFMA["kFfmaStages"]
 BIG_PANEL = BIG["kBigPanel"]
 BIG_WARP_COLS = BIG["kBigWarpCols"]
 BIG_CHUNK = BIG["kBigChunk"]
@@ -155,24 +155,42 @@ def big_pass_tile(NS: int, C: int, n_slots: int) -> int:
         else narrow
 
 
+def big_edotp_floats(NS: int, W: int, resident: bool) -> int:
+    """Floats of shared memory of K5's big block of W warps at NS
+    (padded) states (csrc/big_ffma.cuh: ffma_smem_floats): the
+    mbarriers, the ring (BIG_FFMA_STAGES stages of two pieces of
+    BIG_FFMA_PAIR x 16), V and V^-1 where resident, and each warp's
+    tiles: three of (NS + 1) x 16 and one of NS x 16."""
+    return (4 * BIG_FFMA_STAGES + BIG_FFMA_STAGES * 2 * BIG_FFMA_PAIR * 16
+            + (2 * NS * NS if resident else 0)
+            + W * BIG_FFMA_WARP_COLS * (4 * NS + 3))
+
+
 def big_edotp_warps(NS: int) -> int:
-    """Warps of K5's big block at NS (padded) states: the NS / 16 output
-    panels over at most BIG_FFMA_MAX_WARPS warps in equal rounds
-    (csrc/big_ffma.cuh: ffma_warps)."""
-    panels = NS // BIG_PANEL
-    rounds = -(-panels // BIG_FFMA_MAX_WARPS)
-    return -(-panels // rounds)
+    """Warps on the columns of K5's big block at NS (padded) states: the
+    most, up to BIG_FFMA_MAX_WARPS, whose block fits MAX_BLOCK_SMEM with
+    V and V^-1 streamed (csrc/big_ffma.cuh: ffma_warps; 0 where none
+    fits)."""
+    for W in range(BIG_FFMA_MAX_WARPS, 0, -1):
+        if 4 * big_edotp_floats(NS, W, False) <= MAX_BLOCK_SMEM:
+            return W
+    return 0
+
+
+def big_edotp_resident(NS: int) -> bool:
+    """True where K5's big block keeps V and V^-1 in shared memory: the
+    block then still leaves two blocks an SM (csrc/big_ffma.cuh:
+    ffma_resident)."""
+    W = big_edotp_warps(NS)
+    return W > 0 and 4 * big_edotp_floats(NS, W, True) <= BIG_TWO_BLOCKS
 
 
 def big_edotp_smem(NS: int) -> int:
     """Bytes of shared memory of K5's big block (csrc/big_edotp.cu:
-    big_edotp_smem): its warps' rings (W x 2 x 2 pieces of 16 x 16
-    floats), the two children's tiles and the outside partial (3 x
-    (NS + 1) x T), the two outside partials (2 x NS x T) and two sets of
-    column maxima (2 x W x T), T = BIG_FFMA_TILE."""
-    W, T = big_edotp_warps(NS), BIG_FFMA_TILE
-    return 4 * (W * 2 * 2 * BIG_PANEL ** 2 + 3 * (NS + 1) * T
-                + 2 * NS * T + 2 * W * T)
+    big_edotp_smem); where no block fits, a block of one warp's, which
+    the launcher refuses."""
+    return 4 * big_edotp_floats(NS, max(1, big_edotp_warps(NS)),
+                                big_edotp_resident(NS))
 
 
 def rung(ns: int) -> int:
@@ -194,11 +212,12 @@ def tile(family: str, ns: int) -> int:
     """Patterns one block's warp covers at the rung of ns: 32 / G * Q with
     G = rung / R lanes per pattern column (family "slot", "batch" or
     "edotp").  Past the ladder a big block's tile: K5's ("edotp",
-    BIG_FFMA_TILE), or the widest K3/K4 may take ("slot", "batch": it
-    also depends on the slots, big_pass_tile)."""
+    BIG_FFMA_WARP_COLS patterns a warp), or the widest K3/K4 may take
+    ("slot", "batch": it also depends on the slots, big_pass_tile)."""
     NS = rung(ns)
     if is_big(NS):
-        return BIG_FFMA_TILE if family == "edotp" else BIG_TILES[0]
+        return BIG_FFMA_WARP_COLS * max(1, big_edotp_warps(NS)) \
+            if family == "edotp" else BIG_TILES[0]
     R, Q = RUNGS[NS][family]
     return 32 // (NS // R) * Q
 

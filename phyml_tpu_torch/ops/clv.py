@@ -208,8 +208,8 @@ def big_geometry(ns: int, C: int, P: int, n_slots: int) -> dict:
 
 
 def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
-    """Blocks of K3 (32 * C threads each, 32 on the wide rungs,
-    `big_geometry`'s warps past the ladder) one SM of the current
+    """Blocks of K3 (32 * C threads each, `big_geometry`'s warps past
+    the ladder) one SM of the current
     device holds at the rung of ns, as the CUDA runtime grants them."""
     blocks = ctypes.c_int(0)
     NS = _build.rung(ns)

@@ -165,7 +165,7 @@ def uppass_site_lse_slots_plain(sched, tips, pmats, pi, logw, *,
 # and of the big bodies' (16)
 TILE = 32
 # Ring stages: tip rows (and K4's P-matrices) are copied two steps ahead
-# (kSlotAhead + 1), one step on the wide rungs
+# (kSlotAhead + 1)
 STAGES = 3
 # Shared memory one block may use on Hopper (common.cuh kMaxSmem)
 MAX_BLOCK_SMEM = _build.MAX_BLOCK_SMEM
@@ -175,8 +175,8 @@ def geometry(ns: int, C: int, P: int, n_otu: int, n_slots: int,
              resident: bool) -> dict:
     """Launch shape of K1 (resident=True) or K4 at the rung of ns, as
     csrc/slots.cuh computes it: the pattern tile, the grid (one block
-    per tile: of C warps, a warp per class, or on the wide rungs one
-    warp that walks the classes), the dynamic shared memory of one warp
+    per tile of C warps, a warp per class), the dynamic shared memory
+    of one warp
     (slot_warp_floats: its class's P-matrices of every child node (K1)
     or the ring of two per stage (K4), the tip ring and the slots) and
     of a block (its warps and C x tile class terms).  A launch whose
@@ -187,15 +187,11 @@ def geometry(ns: int, C: int, P: int, n_otu: int, n_slots: int,
     if _build.is_big(NS):
         return big_geometry(ns, C, P, n_slots)
     T = _build.tile("slot", ns)
-    wide = NS >= _build.WIDE_NS
-    S = 2 if wide else STAGES
     n_nodes = 2 * n_otu - 1
-    pm = (n_nodes - 1) * NS * NS if resident else 2 * S * NS * NS
-    warp = 4 * (pm + 2 * S * NS * T + n_slots * (NS + 1) * T)
-    warps = 1 if wide else C
-    return dict(tile=T, blocks=-(-P // T), warps_per_block=warps,
-                warp_smem_bytes=warp,
-                block_smem_bytes=warps * warp + 4 * C * T)
+    pm = (n_nodes - 1) * NS * NS if resident else 2 * STAGES * NS * NS
+    warp = 4 * (pm + 2 * STAGES * NS * T + n_slots * (NS + 1) * T)
+    return dict(tile=T, blocks=-(-P // T), warps_per_block=C,
+                warp_smem_bytes=warp, block_smem_bytes=C * warp + 4 * C * T)
 
 
 def _check(name, sched, tips, pmats, pi, logw, n_slots):
@@ -303,8 +299,8 @@ def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
 
 def blocks_per_sm(ns: int, C: int, n_otu: int, n_slots: int,
                   stream: bool) -> int:
-    """Blocks of K1 (stream=False) or K4 (C warps each, one on the wide
-    rungs, `big_geometry`'s warps past the ladder) one SM of the current device holds
+    """Blocks of K1 (stream=False) or K4 (C warps each, `big_geometry`'s
+    warps past the ladder) one SM of the current device holds
     for an n_otu-taxon tree walked with n_slots slots at the rung of ns,
     as the CUDA runtime grants them."""
     fn = "phyml_slot_site_lse_stream_occupancy" if stream \

@@ -35,8 +35,8 @@ as the view of its first ns states: the padded states' rows of d are
 zero.  Past the top rung both entries launch K5's big body
 (`csrc/big_edotp.cu`, the design in `csrc/big_ffma.cuh`), whose state
 count is a run-time argument: ns is padded to a multiple of 16
-(`_build.rung`) the same way, the tile is 16 patterns and a block holds
-`_build.big_edotp_warps` warps.
+(`_build.rung`) the same way, a block holds `_build.big_edotp_warps`
+warps of 16 patterns each on its tile and one that stages its ring.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
 
 class _TileTable(dict):
     """Patterns per thread block by state count (kEdotpTile in
-    csrc/edotp.cuh at the rungs, kFfmaTile past them): the workspace's
+    csrc/edotp.cuh at the rungs, 16 a warp past them): the workspace's
     pattern axis is P rounded up to it.  Keyed by the ladder's rungs,
     and defined for every other state count through `_build.tile`."""
 
@@ -125,13 +125,16 @@ def geometry(ns: int, C: int, P: int) -> dict:
     grid (one block of one warp per pattern tile and class), the block's
     dynamic shared memory (kEdotpSmem) and the workspace floats per
     internal node.  Past the ladder, the big body's (csrc/big_edotp.cu):
-    a block of `_build.big_edotp_warps` warps per 16-pattern tile and
-    class, its shared memory `_build.big_edotp_smem`."""
+    per tile and class a block of `_build.big_edotp_warps` warps on 16
+    patterns each and one that stages the ring, V and V^-1 resident
+    where `_build.big_edotp_resident`, its shared memory
+    `_build.big_edotp_smem`; its workspace rows hold a node's two child
+    products too (`workspace_rows`)."""
     NS = _build.rung(ns)
     T = TILE[NS]
     Pw = -(-P // T) * T
     if _build.is_big(NS):
-        W = _build.big_edotp_warps(NS)
+        W = max(1, _build.big_edotp_warps(NS)) + 1
         smem = _build.big_edotp_smem(NS)
     else:
         W = 1
@@ -139,7 +142,16 @@ def geometry(ns: int, C: int, P: int) -> dict:
                 + 2 * NS * T) * 4
     return dict(tile=T, Pw=Pw, blocks=Pw // T * C, threads=32 * W,
                 warps_per_block=W, smem_bytes=smem,
-                workspace_floats_per_node=C * (NS + 1) * Pw)
+                workspace_floats_per_node=C * workspace_rows(NS) * Pw)
+
+
+def workspace_rows(NS: int) -> int:
+    """Rows of a class's tile of a node in each of the two workspace
+    tensors at the kernels' state count NS: the partial (or pushed
+    outside partial) and its log2 scale, NS + 1; past the ladder also
+    one of the node's two child products P_k x_k, which the big body's
+    up sweep keeps for its down sweep (csrc/big_edotp.cu), 2 NS + 1."""
+    return 2 * NS + 1 if _build.is_big(NS) else NS + 1
 
 
 def check_child_table(name: str, child, n_otu: int) -> None:
@@ -194,7 +206,8 @@ def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
     d = torch.empty(lead + (n_nodes, C, ns, P), **f32)
     sc_d = torch.empty(lead + (n_nodes, C, P), **f32)
     # partials and pushed outside partials, row ns their log2 scales
-    ws = [torch.empty(lead + (n_int, C, ns + 1, Pw), **f32)
+    # (past the ladder then a child product each)
+    ws = [torch.empty(lead + (n_int, C, workspace_rows(ns), Pw), **f32)
           for _ in range(2)]
     R = lead[0] if lead else 1
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())

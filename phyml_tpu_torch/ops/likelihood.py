@@ -115,9 +115,8 @@ def single_pass_kernel(route: str, ns: int, C: int, n_otu: int,
     slot count, else K3 at B = 1.  K1's route is chosen at the worst
     slot count, so only K4 can miss: its C warps each hold a ring and
     the slots (at 20 states, 25 KB + 2.7 KB a slot a warp), so a block
-    of 8 classes holds one slot only, and one of 4 classes twelve.  On
-    the wide rungs (40 states and up) a block is one warp.  Past the
-    ladder K4 and K3 run one big body whose block is the same, so the
+    of 8 classes holds one slot only, and one of 4 classes twelve.  Past
+    the ladder K4 and K3 run one big body whose block is the same, so the
     route's K4 is named (a block that does not fit refuses at launch,
     naming its shape)."""
     if _build.is_big(_build.rung(ns)):

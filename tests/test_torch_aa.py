@@ -212,16 +212,18 @@ def test_empirical_freqs_match_phyml_tpu(datatype, alphabet):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
-def test_unbuilt_state_count_names_its_roadmap_item():
-    """Past the kernels' ladder (more than 64 states) no state count is
+def test_every_state_count_has_a_width_and_a_refusal_names_its_shape():
+    """Past the kernels' ladder (more than 32 states) no state count is
     unbuilt: `rung` pads it to a multiple of 16, the big bodies' panel
-    (80 stays 80, 65 goes to 80).  The one refusal left, the launcher's
-    'unsupported' code, names the shape it was given."""
+    (80 stays 80, 65 goes to 80, 60 to 64).  The one refusal left, the
+    launcher's 'unsupported' code, names the shape it was given."""
     from phyml_tpu_torch.ops import _build
 
     assert _build.rung(80) == 80 and _build.is_big(80)
     assert _build.rung(65) == 80 and _build.rung(161) == 176
-    assert _build.rung(64) == 64 and not _build.is_big(64)
+    assert _build.rung(64) == 64 and _build.is_big(64)
+    assert _build.rung(60) == 64 and _build.rung(33) == 48
+    assert _build.rung(32) == 32 and not _build.is_big(32)
     with pytest.raises(NotImplementedError, match="rate classes"):
         _build.check(-1, "edge_dotprods", 20)
     with pytest.raises(NotImplementedError,

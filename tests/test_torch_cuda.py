@@ -35,6 +35,9 @@ pytestmark = pytest.mark.gpu
 
 K13_TOL = 5e-4
 K2_TOL = 2e-3
+# K5's big body past the ladder, held as chip_smoke.py holds K2/K5: its
+# per-edge site terms against the float32 plain version's (EDGE_TOL)
+EDGE_TOL = 2e-3
 AA_TOL = 2e-3
 
 
@@ -140,6 +143,21 @@ def _site_terms_gaps(eng, tree, sys_, pm, kernel, tips=None):
                                          tree.blen.double())[0][free])
     return (float((sites[0] - sites[2]).abs().max()),
             float((sites[1] - sites[2]).abs().max()))
+
+
+def _raw_edge_gap(eng, tree, sys_, pm, kernel, tips=None):
+    """The largest gap between the per-edge site terms (free edges) of an
+    edge-dot-product kernel and of K2's plain version, both float32 on
+    the card, on the engine's tips or `tips`."""
+    tips = eng.tips if tips is None else tips
+    lam, V, Vinv, pi, w, _ = sys_
+    child, _, _ = eng._topology(tree.child)
+    aux = eng._aux(sys_, None)
+    free = _free_edges(eng, tree)
+    site = [eng.edge_site_terms(*f(child, tips, pm, V, Vinv, pi), aux,
+                                tree.blen)[0][free]
+            for f in (kernel, edotp.edge_dotprods_plain)]
+    return float((site[0] - site[1]).abs().max())
 
 
 @pytest.mark.parametrize("datatype,C", [("nt", 4), ("aa", 4), ("aa", 1)])
@@ -1446,7 +1464,8 @@ LADDER_CASES = sorted(set(_build.LADDER) | {2, 7, 36})
 @pytest.mark.parametrize("ns", LADDER_CASES)
 def test_every_kernel_at_every_rung(cuda, ns):
     """K1-K5 against their plain versions at every rung of the ladder and
-    at 2, 7 and 36 states, which the wrappers pad to 4, 8 and 40: 5e-4
+    at 2, 7 and 36 states, which the wrappers pad to 4, 8 and (past the
+    top rung, the big bodies) 48: 5e-4
     per site below 20 states, 2e-3 from 20 up (and for K2/K5's edge
     terms, beyond the float32 plain version's own gap)."""
     tol = K13_TOL if ns < 20 else AA_TOL
@@ -1482,7 +1501,7 @@ def test_every_kernel_at_every_rung(cuda, ns):
             assert float((got - ref).abs().max()) < tol, name
 
 
-def test_past_the_ladder_is_refused(cuda):
+def test_past_the_ladder_runs_the_big_bodies_on_the_card(cuda):
     """More than 64 states are no longer refused: an engine at 80 states
     (amino-acid covarion at four hidden classes) builds on the card, runs
     its lnL through the big bodies (K4, its host lnL) and lands within
@@ -1510,14 +1529,15 @@ def test_past_the_ladder_is_refused(cuda):
 
 
 # ----------------------------------------------------------------------
-# past the ladder: the big bodies (csrc/big.cuh) at a run-time state
-# count padded to a multiple of 16
+# past the ladder: the big bodies (csrc/big.cuh, big_ffma.cuh) at a
+# run-time state count padded to a multiple of 16
 # ----------------------------------------------------------------------
-# 67, 72 and 80 run at 80, where K3/K4 take the 32-pattern tile at 7
-# slots, 96 the next width; 128 and 144 lie each side of 128 states (K5:
-# 8 warps of one panel, then 5 of up to two); 80, 112 (100) and 144 end
-# in a 16-state chunk of K3/K4's ring, 96, 128 and 160 do not
-BIG_CASES = [67, 72, 80, 96, 100, 128, 144, 160]
+# 40, 48, 60 and 64, once the ladder's top rungs, run at 48 and 64
+# (K5 with V and V^-1 resident); 67, 72 and 80 run at 80, where K3/K4
+# take the 32-pattern tile at 7 slots, 96 the next width; 48, 80, 112
+# (100) and 144 end in a half pair of K5's 32-state tiles and a 16-state
+# chunk of K3/K4's ring, 64, 96, 128 and 160 do not
+BIG_CASES = [40, 48, 60, 64, 67, 72, 80, 96, 100, 128, 144, 160]
 
 
 def _big_tips_at(eng, state, cols):
@@ -1536,12 +1556,14 @@ def test_big_bodies_match_plain(cuda, ns):
     three trees with a schedule each), K5 and K2's entry (one tree, and
     a grid.z stack of three) past the ladder against their plain
     versions at C = 4: 2e-3 per site for K1/K3/K4, the float32 plain
-    version's own gap plus 2e-3 for K2/K5's edge terms.  A third of the
+    version's own gap plus 2e-3 for K2/K5's edge terms, and their raw
+    gap to the float32 plain version's within EDGE_TOL.  A third of the
     columns carry every taxon at the last real state, in the last
-    16-state panel (beside the padded states at 67, 72 and 100), so
-    their maximum lies there at every step: K5's raw sc_d, whose log2
-    scales come from the cross-warp column maxima, must equal the
-    plain version's (up to an exponent flipped by rounding)."""
+    16-state panel (beside the padded states at 40, 60, 67, 72 and
+    100), so their maximum lies there at every step: K5's raw sc_d,
+    whose log2 scales come from each warp's column maxima over every
+    state, must equal the plain version's (up to an exponent flipped by
+    rounding)."""
     eng, tree, sys_, pm = _generic_setup(cuda, ns, 4, 12, sites=150)
     NS = _build.rung(ns)
     assert NS % 16 == 0 and NS >= ns and _build.is_big(NS)
@@ -1581,6 +1603,8 @@ def test_big_bodies_match_plain(cuda, ns):
     for name in ("K2", "K5"):
         err, plain = _site_terms_gaps(eng, tree, sys_, pm, _edotp_kernel(name))
         assert err < plain + K2_TOL, (name, err, plain)
+        raw = _raw_edge_gap(eng, tree, sys_, pm, _edotp_kernel(name), tips)
+        assert raw <= EDGE_TOL, (name, raw)
     d_k, sc_k = edotp.edge_dotprods_stream(child, tips, pm, V, Vinv, pi)
     d_p, sc_p = edotp.edge_dotprods_plain(child, tips, pm, V, Vinv, pi)
     torch.cuda.synchronize()
@@ -1603,7 +1627,8 @@ def test_big_bodies_match_plain(cuda, ns):
 def _big_checks(eng, tree, sys_, pm, tips, tol, ref=None):
     """K4 and K3 (B = 2) on `tips` against the plain version (float32 on
     the card, or `ref`) within tol per site, and K5's edge terms within
-    the float32 plain version's own gap plus K2_TOL."""
+    the float32 plain version's own gap plus K2_TOL and within EDGE_TOL
+    of the float32 plain version's."""
     child, sched, n_slots = eng._topology(tree.child)
     pi, logw = sys_[3], eng._logw(sys_[4])
     if ref is None:
@@ -1622,18 +1647,21 @@ def _big_checks(eng, tree, sys_, pm, tips, tol, ref=None):
     err, plain = _site_terms_gaps(eng, tree, sys_, pm,
                                   edotp.edge_dotprods_stream, tips)
     assert err < plain + K2_TOL, (err, plain)
+    raw = _raw_edge_gap(eng, tree, sys_, pm, edotp.edge_dotprods_stream, tips)
+    assert raw <= EDGE_TOL, raw
 
 
 @pytest.mark.parametrize("sites", [5, 33, 47])
 def test_big_bodies_ragged_tiles(cuda, sites):
     """Pattern counts below one narrow tile (5), one wide tile and one
     (33) and a ragged wide tile (47) at 80 states, where K3/K4 take the
-    32-pattern tile and K5 the 16-pattern one: K4, K3 and K5 against
-    their plain versions."""
+    32-pattern tile and K5 the 64-pattern one (four warps of 16, some
+    of them wholly past the last pattern): K4, K3 and K5 against their
+    plain versions."""
     eng, tree, sys_, pm = _generic_setup(cuda, 80, 4, 12, sites=sites)
     assert eng.P == sites
     assert clv.big_geometry(80, 4, sites, 4)["tile"] == 32
-    assert edotp.geometry(80, 4, sites)["tile"] == 16
+    assert edotp.geometry(80, 4, sites)["tile"] == 64
     _big_checks(eng, tree, sys_, pm, eng.tips, AA_TOL)
 
 

@@ -10,8 +10,9 @@ on the CPU.
   between the ladder's rungs goes up to the next rung): each plain
   kernel (K1/K4's, K3's, K2/K5's) on operands padded to the next rung
   equals its unpadded result within 1e-12 in float64, at 2, 7, 12, 36
-  and 60 states (12 and 60 are rungs: padded to the next one up), and
-  the padded states' rows of d are zero.  No kernel runs here, so this
+  and 60 states (12 is a rung: padded to the next one up; 36 and 60
+  pass the top rung, 32, and are padded to 48 and 64, the big bodies'
+  widths), and the padded states' rows of d are zero.  No kernel runs here, so this
   holds the padding logic in the CPU tests.
 * The ladder read from csrc/ladder.cuh, and the rules that size the
   search and the bootstrap (`default_batch_k`, `rep_chunk_for`) read
@@ -263,15 +264,38 @@ def test_plain_kernels_unchanged_by_padding(ns):
     assert float(d1[:, :, ns:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("ns,NS", [(60, 64), (40, 48)])
+def test_edge_dotprods_plain_unchanged_by_padding_to_the_big_width(ns, NS):
+    """K5's plain version in float64 at the amino-acid covarion widths
+    the big body runs padded (60 -> 64, 40 -> 48): its call on every
+    operand zero-padded to NS states equals its call at ns within 1e-12
+    in d's first ns rows and in sc_d, and the padded rows of d are
+    zero, so the big body's padded states add nothing to its sums."""
+    assert _build.rung(ns) == NS
+    o = _plain_operands(ns, C=4, n=12, P=53)
+    pad = _build.pad_states
+    d0, s0 = edotp.edge_dotprods_plain(o["child"], o["tips"], o["pm"],
+                                       o["V"], o["Vinv"], o["pi"])
+    d1, s1 = edotp.edge_dotprods_plain(
+        o["child"], pad(o["tips"], NS, (1,)), pad(o["pm"], NS, (2, 3)),
+        pad(o["V"], NS, (1, 2)), pad(o["Vinv"], NS, (1, 2)),
+        pad(o["pi"], NS, (1,)))
+    assert d1.shape[2] == NS and d0.dtype == torch.float64
+    np.testing.assert_allclose(d1[:, :, :ns].numpy(), d0.numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(s1.numpy(), s0.numpy(), rtol=0, atol=1e-12)
+    assert float(d1[:, :, ns:].abs().max()) == 0.0
+
+
 def test_ladder_read_from_the_kernel_sources():
-    """The rungs and tiles come from csrc/ladder.cuh: eleven rungs or
-    fewer cover every ns from 2 to 64, 4, 12, 20 and 60 are exact, a
-    warp's tile divides the tips' padding and the edge kernels' tile
-    divides 32; past 64 states `rung` pads to a multiple of 16 (the big
-    bodies' panel), the first past the top rung being 80."""
-    assert {4, 12, 20, 60} <= set(_build.LADDER)
-    assert _build.LADDER[-1] == 64 and len(_build.LADDER) <= 11
-    for ns in range(2, 65):
+    """The rungs and tiles come from csrc/ladder.cuh: seven rungs or
+    fewer cover every ns from 2 to 32, 4, 12 and 20 are exact, a warp's
+    tile divides the tips' padding and the edge kernels' tile divides
+    32; past the top rung, 32, `rung` pads to a multiple of 16 (the big
+    bodies' panel): 40 to 48, 60 to 64, 65 to 80."""
+    assert {4, 12, 20} <= set(_build.LADDER)
+    assert _build.LADDER[-1] == 32 and len(_build.LADDER) <= 7
+    for ns in range(2, 33):
         NS = _build.rung(ns)
         assert NS >= ns and NS % 4 == 0
         assert clv_slots.TILE % _build.tile("slot", ns) == 0
@@ -279,8 +303,10 @@ def test_ladder_read_from_the_kernel_sources():
         for family in ("slot", "batch", "edotp"):
             R, _ = _build.RUNGS[NS][family]
             assert 32 % (NS // R) == 0 and NS % R == 0
-    assert edotp.geometry(60, 4, 4096)["tile"] == 8
-    assert _build.rung(65) == 80 and _build.rung(65) % _build.BIG_PANEL == 0
+    assert edotp.geometry(32, 4, 4096)["tile"] == 8
+    assert [_build.rung(ns) for ns in (33, 40, 48, 60, 64, 65)] == \
+        [48, 48, 48, 64, 64, 80]
+    assert not _build.is_big(32) and _build.is_big(48)
 
 
 def test_big_constants_read_from_the_kernel_sources():
@@ -288,12 +314,13 @@ def test_big_constants_read_from_the_kernel_sources():
     csrc/big_ffma.cuh (K5): every literal `constexpr` of each reaches
     `_build.BIG` / `_build.BIG_FFMA` with its value; the derived sizes
     follow the headers' own expressions (a piece one m-tile by kBigChunk
-    states, two mbarriers of 8 bytes a stage, K5's warps the panels in
-    equal rounds); a warp's columns are whole n-tiles of the mma (8
+    states, or for K5 one pair of m-tiles by 16, two mbarriers of 8
+    bytes a stage); a warp's columns are whole n-tiles of the mma (8
     patterns), both tiles whole warps; the two-block line is half an
-    SM's 233,472 bytes less the 1 KB the runtime keeps a block; and the
+    SM's 233,472 bytes less the 1 KB the runtime keeps a block; the
     tile rule picks 32 patterns at 80 states and 16 at 160 (7 slots,
-    C = 4)."""
+    C = 4); K5 takes four warps until its block passes MAX_BLOCK_SMEM
+    and keeps V and V^-1 resident where two blocks still fit an SM."""
     import os
     import re
 
@@ -324,15 +351,23 @@ def test_big_constants_read_from_the_kernel_sources():
     assert _build.big_pass_tile(80, 4, 7) == 32
     assert _build.big_pass_tile(160, 4, 7) == 16
     text, lits = read("big_ffma.cuh", "kFfma")
-    assert lits == _build.BIG_FFMA and len(lits) == 2
-    assert _build.BIG_FFMA_TILE == lits["kFfmaTile"] == 16
-    assert _build.BIG_FFMA_MAX_WARPS == lits["kFfmaMaxWarps"] == 8
-    assert "kFfmaPiece = kBigPanel * kBigPanel" in text
-    assert [_build.big_edotp_warps(NS) for NS in (80, 160, 240, 256)] == \
-        [5, 5, 8, 8]
+    assert lits == _build.BIG_FFMA and len(lits) == 4
+    assert _build.BIG_FFMA_WARP_COLS == lits["kFfmaWarpCols"] == 16
+    assert _build.BIG_FFMA_MAX_WARPS == lits["kFfmaMaxWarps"] == 4
+    assert _build.BIG_FFMA_PAIR == lits["kFfmaPair"] == 2 * _build.BIG_PANEL
+    assert _build.BIG_FFMA_STAGES == lits["kFfmaStages"] >= 2
+    assert "kFfmaItem = kFfmaPair * kBigPanel" in text
+    assert "kFfmaBarFloats = 2 * kFfmaStages * 2" in text
+    # four warps up to 208 states, then fewer as the warps' tiles grow
+    assert [_build.big_edotp_warps(NS) for NS in (48, 80, 160, 208, 224,
+                                                  512)] == [4, 4, 4, 4, 3, 1]
+    # V and V^-1 resident where two blocks still fit an SM: 48 and 64
+    assert [_build.big_edotp_resident(NS) for NS in (48, 64, 80, 160)] == \
+        [True, True, False, False]
 
 
-BIG_GEOMETRY_CASES = [65, 67, 72, 80, 100, 128, 160, 200, 240, 256]
+BIG_GEOMETRY_CASES = [33, 40, 60, 64, 65, 67, 72, 80, 100, 128, 160, 200,
+                      240, 256]
 
 
 @pytest.mark.parametrize("ns", BIG_GEOMETRY_CASES)
@@ -345,10 +380,10 @@ def test_big_bodies_geometry(ns):
     warp per 8 patterns and one that stages the ring; K3/K4 a block a
     class, the classes of a tile one cluster; the block's shared memory
     (mbarriers, ring, slots, tip tiles and class terms) within
-    MAX_BLOCK_SMEM; K5's 16-pattern tile and at most 8 warps a block, in
-    equal rounds of panels, its shared memory (the warps' rings, the
-    operand tiles, column maxima) within MAX_BLOCK_SMEM; the streamed
-    route."""
+    MAX_BLOCK_SMEM; K5's block of up to four warps of 16 patterns and
+    one that stages its ring, its shared memory (mbarriers, ring, V and
+    V^-1 where resident, the warps' operand tiles) within
+    MAX_BLOCK_SMEM; the streamed route."""
     from phyml_tpu_torch.ops.likelihood import kernel_route, \
         single_pass_kernel
 
@@ -380,30 +415,39 @@ def test_big_bodies_geometry(ns):
             4 * _build.BIG_STAGES + _build.BIG_STAGES * 2 * _build.BIG_PIECE_N
             + 8 * (T * ld + T) + 2 * T * ld + 4 * T)
     e = edotp.geometry(ns, 4, 4095)
-    panels, W = NS // 16, _build.big_edotp_warps(NS)
-    assert 1 <= W <= 8 and W <= panels
-    assert -(-panels // W) == -(-panels // 8)   # equal rounds
-    assert e["tile"] == edotp.TILE[ns] == _build.tile("edotp", ns) == 16
-    assert e["Pw"] == 4096 and e["threads"] == 32 * W
-    assert e["blocks"] == 256 * 4
+    W = _build.big_edotp_warps(NS)
+    assert 1 <= W <= 4
+    # a warp per 16 patterns, and the warp that stages the ring
+    T = 16 * W
+    assert e["tile"] == edotp.TILE[ns] == _build.tile("edotp", ns) == T
+    assert e["Pw"] == -(-4095 // T) * T and e["threads"] == 32 * (W + 1)
+    assert e["blocks"] == e["Pw"] // T * 4
     assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
-    # rings, two children's tiles and the outside partial, two outside
-    # partials, two sets of column maxima (floats)
-    assert e["smem_bytes"] == 4 * (W * 4 * 256 + 3 * (NS + 1) * 16
-                                   + 2 * NS * 16 + 2 * W * 16)
-    assert e["workspace_floats_per_node"] == 4 * (NS + 1) * 4096
+    # mbarriers, the ring (stages x two pieces of 32 x 16), V and V^-1
+    # where resident (only where two blocks still fit an SM), each warp's
+    # three tiles of (NS + 1) x 16 and one of NS x 16 (floats)
+    res = _build.big_edotp_resident(NS)
+    assert e["smem_bytes"] == 4 * (
+        4 * _build.BIG_FFMA_STAGES + _build.BIG_FFMA_STAGES * 2 * 512
+        + (2 * NS * NS if res else 0) + W * (3 * (NS + 1) + NS) * 16)
+    assert not res or e["smem_bytes"] <= _build.BIG_TWO_BLOCKS
+    # the most warps (up to 4) that fit
+    assert W == 4 or 4 * _build.big_edotp_floats(NS, W + 1, False) > \
+        clv_slots.MAX_BLOCK_SMEM
+    # a node's partial, its scale and one of its child products a class
+    assert e["workspace_floats_per_node"] == 4 * (2 * NS + 1) * e["Pw"]
     assert kernel_route(128, 4, ns) == ("K4", "K5")
     assert kernel_route(3, 4, ns) == ("K4", "K5")
     assert single_pass_kernel("K4", ns, 4, 128, 8) == "K4"
 
 
 def test_big_geometry_every_state_count():
-    """Every state count from 65 to 256: the padded width and the tiles
-    as test_big_bodies_geometry, and K3/K4's block at 8 slots and K5's
-    within MAX_BLOCK_SMEM, on the streamed route."""
+    """Every state count from 33, past the top rung, to 256: the padded
+    width and the tiles as test_big_bodies_geometry, and K3/K4's block at
+    8 slots and K5's within MAX_BLOCK_SMEM, on the streamed route."""
     from phyml_tpu_torch.ops.likelihood import kernel_route
 
-    for ns in range(65, 257):
+    for ns in range(_build.LADDER[-1] + 1, 257):
         NS = _build.rung(ns)
         assert NS % 16 == 0 and ns <= NS < ns + 16
         assert clv_slots.TILE % _build.tile("slot", ns) == 0
@@ -416,20 +460,44 @@ def test_big_geometry_every_state_count():
         assert kernel_route(128, 4, ns) == ("K4", "K5")
 
 
-def test_wide_rungs_run_one_warp_a_block():
-    """From WIDE_NS up K1/K4 run one warp a block (a ring one step
-    ahead) whose share fits a block at ns = 60; below, C class warps."""
-    g = clv_slots.geometry(60, 4, 4096, 64, 7, resident=False)
-    assert g["warps_per_block"] == 1 and g["tile"] == 16
-    assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
-    assert g["block_smem_bytes"] == g["warp_smem_bytes"] + 4 * 4 * 16
-    # ring 2 x 2 x 60^2, tip ring 2 x 2 x 60 x 16, 7 slots of 61 x 16
-    assert g["warp_smem_bytes"] == 4 * (4 * 3600 + 4 * 60 * 16 + 7 * 61 * 16)
+def test_k5_geometry_where_no_block_fits():
+    """Past ~850 states not even one warp's tiles fit K5's big block:
+    its geometry still reports a shape (a warp of 16 patterns and the
+    staging warp) whose shared memory passes MAX_BLOCK_SMEM, which the
+    launcher refuses and `_build.check` names, as at 1008 states."""
+    assert _build.big_edotp_warps(848) == 0
+    e = edotp.geometry(1000, 4, 100)
+    assert e["tile"] == 16 and e["Pw"] == 112 and e["threads"] == 64
+    assert e["smem_bytes"] > clv_slots.MAX_BLOCK_SMEM
+    with pytest.raises(NotImplementedError, match="ns=1000, C=4"):
+        _build.check(-1, "edge_dotprods_stream", 1000, C=4,
+                     block_smem_bytes=e["smem_bytes"])
+
+
+def test_past_the_top_rung_every_state_count_takes_the_big_bodies():
+    """Every ns from 33, past the top rung, to 64 (once the ladder's
+    top rungs) takes the streamed route to the big bodies on any
+    tree: K4 for a single pass, K3/K4's block at 8 slots and K5's within
+    MAX_BLOCK_SMEM; below, 12 states run a block of C class warps."""
+    from phyml_tpu_torch.ops.likelihood import kernel_route, \
+        single_pass_kernel
+
+    for ns in range(_build.LADDER[-1] + 1, 65):
+        NS = _build.rung(ns)
+        assert _build.is_big(NS) and NS in (48, 64)
+        for n in (3, 64, 128):
+            assert kernel_route(n, 4, ns) == ("K4", "K5")
+        assert single_pass_kernel("K4", ns, 4, 128, 8) == "K4"
+        g = clv_slots.geometry(ns, 4, 4096, 128, 8, resident=False)
+        assert g == clv.big_geometry(ns, 4, 4096, 8)
+        assert g["block_smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+        e = edotp.geometry(ns, 4, 4096)
+        assert e["smem_bytes"] <= clv_slots.MAX_BLOCK_SMEM
+        assert e["warps_per_block"] == 4 + 1 and e["tile"] == 64
     g12 = clv_slots.geometry(12, 4, 4096, 128, 8, resident=False)
     assert g12["warps_per_block"] == 4 and g12["tile"] == 32
     # 12 states at 128 taxa: K1's whole-tree matrices pass 48 KiB a warp,
     # so the engine takes the streamed route
-    from phyml_tpu_torch.ops.likelihood import kernel_route
     assert kernel_route(128, 4, 12) == ("K4", "K5")
     assert kernel_route(128, 4, 2) == ("K1", "K2")
 

@@ -96,7 +96,7 @@ def test_batched_class_system_matches_single():
                                        atol=1e-14)
 
 
-def test_covarion_not_ported_yet():
+def test_covarion_past_the_ladder_runs_the_big_bodies():
     """Nothing of covarion is left unported on the card: a process of
     more than 64 states (amino acids at four hidden classes, 80 states)
     runs the big bodies, at a state count padded to a multiple of 16

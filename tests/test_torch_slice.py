@@ -104,7 +104,7 @@ def test_gpu_platform_without_cuda_names_cpu(tmp_path, capsys,
     assert "--platform cpu" in capsys.readouterr().err
 
 
-def test_unported_flags_stop_the_run(tmp_path, monkeypatch):
+def test_distributed_flag_without_a_group_is_the_plain_run(tmp_path, monkeypatch):
     """--distributed, once refused, now runs: with no distributed
     environment (no WORLD_SIZE, no process group) it is the plain run,
     the same tree file and lnL."""

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's fixed-topology fit goes, on one GPU.
 
-    python3 tools/profile_torch_fit.py [nt] [aa] [cov80]  # from the repo root
+    python3 tools/profile_torch_fit.py [nt] [aa] [cov60] [cov80]
 
-For each problem (chip_smoke.py's bench problems from the same seed:
-128 taxa x 4096 sites under GTR+G4 or LG+G4; cov80, the state-count
-cell past the ladder: 64 taxa x 4096 sites, `-d aa -m LG -a e --cov
---cov_ncats 4`, 80 states, the big bodies) the CLI fit that
+(from the repo root.)  For each problem (chip_smoke.py's bench problems
+from the same seed: 128 taxa x 4096 sites under GTR+G4 or LG+G4; cov60
+and cov80, its state-count cells past the ladder: 64 taxa x 4096
+sites, `-d aa -m LG -a e --cov --cov_ncats 3` or `4`, 60 states
+(padded to 64) or 80, the big bodies) the CLI fit that
 chip_smoke.py drives runs four times in this process:
 
 1. the first run (CUDA context set-up and the kernel library's load;
@@ -93,7 +94,8 @@ def device_times(prof):
 
 
 # problems past the ladder: (datatype, extra CLI flags, taxa)
-CELLS = {"cov80": ("aa", ["--cov", "--cov_ncats", "4"], 64)}
+CELLS = {"cov60": ("aa", ["--cov", "--cov_ncats", "3"], 64),
+         "cov80": ("aa", ["--cov", "--cov_ncats", "4"], 64)}
 
 
 def profile_problem(dt, tmp):

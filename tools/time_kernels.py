@@ -3,13 +3,14 @@
 
     python3 tools/time_kernels.py [--root DIR] [--label NAME]
         [--kernels K2,K5] [--data random|smoke] [--taxa N]
-        [--compare PARENT] [nt] [aa] [cov60] [cov80] [cov160]
+        [--compare PARENT] [nt] [aa] [cov40] [cov48] [cov60] [cov64]
+        [cov80] [cov160]
 
-For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; cov60,
-cov80 and cov160, amino-acid covarion LG+G4 at three, four and eight
-hidden classes (60 states, the ladder's wide rung; 80 and 160, past
-the ladder, the big bodies) on random sequences of 64, 64 and 32 taxa,
-K3 at B = 2 and 13; with
+For each problem (nt: GTR+G4 at ns=4, aa: LG+G4 at ns=20, C=4; the
+covarion problems on random sequences, K3 at B = 2 and 13: cov40, cov60,
+cov80 and cov160, amino-acid covarion LG+G4 at two, three, four and
+eight hidden classes, and cov48 and cov64, DNA covarion GTR+G4 at 12
+and 16, of 64 taxa, 32 at 160 states; with
 --data random, the default, a random tree of --taxa taxa (128) and 4096
 random sites under the model's initial parameters; with --data smoke,
 chip_smoke.py's bench problem, the sequences simulated down its tree,
@@ -64,10 +65,11 @@ def window_ms(fn, reps=7, n=50):
     return statistics.median(ms)
 
 
-# amino-acid covarion at this many hidden classes (20 times as many
-# states: 60 on the ladder's wide rung, 80 and 160 past it, the big
-# bodies) and its taxa
-COVARION = {"cov60": (3, 64), "cov80": (4, 64), "cov160": (8, 32)}
+# covarion problems: (datatype, hidden classes, taxa); 20 (amino acids)
+# or 4 (DNA) times as many states as hidden classes
+COVARION = {"cov40": ("aa", 2, 64), "cov48": ("nt", 12, 64),
+            "cov60": ("aa", 3, 64), "cov64": ("nt", 16, 64),
+            "cov80": ("aa", 4, 64), "cov160": ("aa", 8, 32)}
 
 
 def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
@@ -97,14 +99,15 @@ def load_problem(dt: str, data: str, tmp: str, seed: int = 7, n: int = 128):
                            freqs_mode="model")
         return aln, rv, m, chip_smoke.true_params(dt, m.init_params())
     rng = np.random.default_rng(seed)
-    ns = 4 if dt == "nt" else 20
+    kind = COVARION[dt][0] if dt in COVARION else dt
+    ns = 4 if kind == "nt" else 20
     enc = np.zeros((n, sites, ns), np.float32)
     enc[np.arange(n)[:, None], np.arange(sites)[None],
         rng.integers(0, ns, size=(n, sites))] = 1
     if dt in COVARION:
-        aln = compact(enc, [f"t{i}" for i in range(n)], "aa")
-        m = SubstModel(datatype="aa", name="LG", n_classes=4, covarion=True,
-                       n_hidden=COVARION[dt][0])
+        aln = compact(enc, [f"t{i}" for i in range(n)], kind)
+        m = SubstModel(datatype=kind, name="LG" if kind == "aa" else "GTR",
+                       n_classes=4, covarion=True, n_hidden=COVARION[dt][1])
         rv = Topology.random(n, rng, mean_blen=0.08).rooted()
         return aln, rv, m, m.init_params(aln.obs_state_freqs)
     aln = compact(enc, [f"t{i}" for i in range(n)], dt)
@@ -180,7 +183,7 @@ def main() -> int:
     ap.add_argument("--data", choices=["random", "smoke"], default="random")
     ap.add_argument("--taxa", type=int, default=None,
                     help="taxa of the random tree (--data random; default "
-                    "128, cov80 64, cov160 32)")
+                    "128, the covarion problems 64, cov160 32)")
     ap.add_argument("--compare", metavar="PARENT",
                     help="tree to time against: parent, this, this, parent")
     ap.add_argument("problems", nargs="*", default=["nt", "aa"])
@@ -212,7 +215,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     for dt in args.problems:
-        taxa = args.taxa or COVARION.get(dt, (0, 128))[1]
+        taxa = args.taxa or COVARION.get(dt, (0, 0, 128))[2]
         times = time_problem(dt, args.kernels.split(","), args.data, taxa)
         print(f"{args.label} {dt} ({args.data}, {taxa} taxa): "
               + "  ".join(f"{name} {ms:.4f}" if isinstance(ms, float)
