@@ -257,7 +257,7 @@ def fail(msg: str) -> None:
 
 
 def wrappers():
-    """Kernel name -> its wrapper (each carries a launch counter)."""
+    """Kernel name -> its wrapper."""
     from phyml_tpu_torch.ops import clv, clv_slots, edotp
     return {"K1": clv_slots.uppass_site_lse_slots,
             "K2": edotp.edge_dotprods,
@@ -266,13 +266,36 @@ def wrappers():
             "K5": edotp.edge_dotprods_stream}
 
 
+# the port's counters (phyml_tpu_torch/utils/trace.py) at the last
+# reset_counts: a phase's launches are read as differences from them
+_counted_from: dict = {}
+
+
 def reset_counts():
-    """Every kernel wrapper's launch counters to 0."""
-    for fn in wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_trees"):
-            fn.launches_by_trees = {}
-    wrappers()["K3"].launches_by_batch = {}
+    """Start a phase's launch counts here."""
+    from phyml_tpu_torch.utils import trace
+    global _counted_from
+    _counted_from = trace.snapshot()
+
+
+def _counted():
+    from phyml_tpu_torch.utils import trace
+    return trace.since(_counted_from)
+
+
+def launch_counts():
+    """Kernel name -> its launches since reset_counts."""
+    moved = _counted()
+    return {k: moved.get(f"launch.{k}", 0) for k in wrappers()}
+
+
+def launches_by(kernel, kind):
+    """{B or R: launches} of `kernel` since reset_counts, by the batch
+    size of one schedule (kind "batch", K3) or by the size of a stack
+    of trees ("trees": K2, K3, K5)."""
+    head = f"launch.{kernel}.{kind}."
+    return {int(k[len(head):]): v for k, v in _counted().items()
+            if k.startswith(head)}
 
 
 def simulate(topo, model, params, n_sites, rng):
@@ -985,7 +1008,6 @@ def main_path(dt, aln_path, tree_path, cuda, extra=(), runs=2, tag=None):
                                  tree_arrays(rv, device=cuda)))
     del eng
     path = route_path(aln, model)
-    W = wrappers()
     walls = []
     for run in range(runs):
         reset_counts()
@@ -999,8 +1021,8 @@ def main_path(dt, aln_path, tree_path, cuda, extra=(), runs=2, tag=None):
             torch.cuda.synchronize()
         walls.append(time.time() - t1)
         if run == 0:
-            counts = {name: fn.launches for name, fn in W.items()}
-            k3_by_b = dict(W["K3"].launches_by_batch)
+            counts = launch_counts()
+            k3_by_b = launches_by("K3", "batch")
             text = out.getvalue()
             peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
             busy = statistics.mean(util) if util else None
@@ -1247,7 +1269,6 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
     aln = read_alignment(aln_path, datatype=dt)
     model = cli._build_model(args, aln)
     path = route_path(aln, model)
-    W = wrappers()
     reset_counts()
     out = io.StringIO()
     with search_probes() as st, utilization_sampler() as util:
@@ -1261,8 +1282,8 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
         wall = time.time() - t1
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
-    counts = {name: fn.launches for name, fn in W.items()}
-    k3_by_b = dict(W["K3"].launches_by_batch)
+    counts = launch_counts()
+    k3_by_b = launches_by("K3", "batch")
     if rc != 0:
         fail(f"[{tag}] the default run returned {rc}")
     text = out.getvalue()
@@ -1421,7 +1442,6 @@ def supports_phase(dt, aln_path, cuda):
             fail(f"[{dt}] -b {b}: supports outside [0, 1] or edges missing")
 
     R = REPLICATES[dt]
-    W = wrappers()
     reset_counts()
     out = io.StringIO()
     torch.cuda.synchronize()
@@ -1435,10 +1455,9 @@ def supports_phase(dt, aln_path, cuda):
         torch.cuda.synchronize()
         wall = time.time() - t
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    counts = {name: fn.launches for name, fn in W.items()}
-    stacked = {name: dict(fn.launches_by_trees) for name, fn in W.items()
-               if hasattr(fn, "launches_by_trees")}
-    k3_by_b = dict(W["K3"].launches_by_batch)
+    counts = launch_counts()
+    stacked = {k: launches_by(k, "trees") for k in ("K2", "K3", "K5")}
+    k3_by_b = launches_by("K3", "batch")
     if rc != 0:
         fail(f"[{dt}] the rapid bootstrap returned {rc}")
     text = out.getvalue()
@@ -1632,7 +1651,6 @@ def mixture_fit(aln_path, tree_path, cuda):
         rv = Topology.from_newick(fh.read(), aln.names).rooted()
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
     tree = tree_arrays(rv, device=cuda)
-    W = wrappers()
     reset_counts()
     out = io.StringIO()
     torch.cuda.synchronize()
@@ -1643,8 +1661,8 @@ def mixture_fit(aln_path, tree_path, cuda):
                                            verbose=True)
     torch.cuda.synchronize()
     wall = time.time() - t
-    counts = {name: fn.launches for name, fn in W.items()}
-    k3_by_b = dict(W["K3"].launches_by_batch)
+    counts = launch_counts()
+    k3_by_b = launches_by("K3", "batch")
     from phyml_tpu_torch.models.rates import freerate_normalize
     r, w = freerate_normalize(params["class_rates_raw"],
                               params["class_weights_raw"])
@@ -1794,7 +1812,6 @@ def partitioned_phase(aln_path, tree_path, cuda):
                       hi)
     xml = os.path.join(d, "run.xml")
     partition_xml(xml, ["gene1.phy", "gene2.phy"], "nni")
-    W = wrappers()
     reset_counts()
     out = io.StringIO()
     with search_probes(PARTITION_PROBES) as st, \
@@ -1809,8 +1826,8 @@ def partitioned_phase(aln_path, tree_path, cuda):
         wall = time.time() - t
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
-    counts = {name: fn.launches for name, fn in W.items()}
-    k3_by_b = dict(W["K3"].launches_by_batch)
+    counts = launch_counts()
+    k3_by_b = launches_by("K3", "batch")
     if rc != 0:
         fail(f"the partitioned XML run returned {rc}")
     with open(os.path.join(d, "xml_run.log"), "w") as fh:
@@ -2560,7 +2577,6 @@ def phytime_run(label, aln_path, tree_path, cuda):
     phytime_xml(xml, os.path.basename(aln_path), tree_path, dt, cals,
                 lineagerates, topo_moves)
     path = ("K1", "K2") if dt == "nt" else ("K4", "K5")
-    W = wrappers()
     reset_counts()
     with chain_probes() as rec, utilization_sampler() as util:
         torch.cuda.synchronize()
@@ -2570,7 +2586,7 @@ def phytime_run(label, aln_path, tree_path, cuda):
         rc = run_xml(xml, quiet=True, device=cuda, mcmc_iter_cap=n_iter)
         torch.cuda.synchronize()
         wall = time.time() - t1
-    counts = {name: fn.launches for name, fn in W.items()}
+    counts = launch_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
     if rc != 0:
@@ -2947,8 +2963,7 @@ def aux_probes():
             c[0] += 1
             c[1] += time.time() - t
             if label == "fit":
-                rec["fit launches"] = {name: w.launches
-                                       for name, w in wrappers().items()}
+                rec["fit launches"] = launch_counts()
             return out
         return run
 
@@ -3096,7 +3111,7 @@ def aux_run(label, aln_path, tree_path, cuda):
         wall = time.time() - t1
     if rc != 0:
         fail(f"[aux {label}] the run returned {rc}")
-    counts = {name: fn.launches for name, fn in W.items()}
+    counts = launch_counts()
     fit = rec.pop("fit launches")
     after = {k: counts[k] - fit[k] for k in counts}
     busy = statistics.mean(util) if util else None
@@ -3175,7 +3190,6 @@ def fastlk_run(aln_path, tree_path, cuda):
                      (torch.cuda.max_memory_allocated() - base) / 2 ** 30))
         return na
 
-    W = wrappers()
     reset_counts()
     fastlk.fit_normal_approx = fit
     try:
@@ -3190,7 +3204,7 @@ def fastlk_run(aln_path, tree_path, cuda):
             wall = time.time() - t1
     finally:
         fastlk.fit_normal_approx = real
-    counts = {name: fn.launches for name, fn in W.items()}
+    counts = launch_counts()
     na, fit_s, fit_gib = fits[0]
     st = res.state
     gap = float(st.lnL) - float(res.mcmc._lnL(st))
@@ -3499,7 +3513,7 @@ def phyrex_probes():
         return timed_fn(make_seq(engine, params), "seq lnL")
 
     def run_phyrex(*a, **k):
-        rec["at_start"].append({n: f.launches for n, f in wrappers().items()})
+        rec["at_start"].append(launch_counts())
         rec["results"].append(real_run(*a, **k))
         return rec["results"][-1]
 
@@ -3627,7 +3641,6 @@ def phyrex_run(label, d, cuda):
     xml = os.path.join(d, "phyrex.xml")
     phyrex_xml(xml, os.path.basename(aln), tree, os.path.basename(coords),
                spatial, lineagerates, topo_moves)
-    W = wrappers()
     reset_counts()
     with phyrex_probes() as rec, utilization_sampler() as util:
         torch.cuda.synchronize()
@@ -3637,7 +3650,7 @@ def phyrex_run(label, d, cuda):
         rc = run_xml(xml, quiet=True, device=cuda, mcmc_iter_cap=cap)
         torch.cuda.synchronize()
         wall = time.time() - t1
-    counts = {name: fn.launches for name, fn in W.items()}
+    counts = launch_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
     if rc != 0:
@@ -3910,7 +3923,6 @@ def farm_run(argv):
     import torch
     from phyml_tpu_torch import cli
 
-    W = wrappers()
     reset_counts()
     torch.cuda.synchronize()
     t = time.time()
@@ -3918,8 +3930,8 @@ def farm_run(argv):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     return dict(rc=rc, wall_s=time.time() - t,
-                launches={k: fn.launches for k, fn in W.items()},
-                k3_by_batch=dict(W["K3"].launches_by_batch))
+                launches=launch_counts(),
+                k3_by_batch=launches_by("K3", "batch"))
 
 
 def sharded_checks(spec, rank, world):
@@ -3952,7 +3964,6 @@ def sharded_checks(spec, rank, world):
     mesh = make_mesh(1, world)
     seng = sharded_engine(aln, model, mesh, device=cuda)
     ueng = LikelihoodEngine(aln, model, device=cuda)
-    W = wrappers()
 
     torch.cuda.synchronize()
     dist.barrier()
@@ -3961,8 +3972,8 @@ def sharded_checks(spec, rank, world):
     lnl_s = float(seng.loglik(params, tree))
     _, round_s = optimize_branch_lengths(seng, params, tree, max_rounds=1)
     torch.cuda.synchronize()
-    out = dict(launches={k: fn.launches for k, fn in W.items()},
-               k3_by_batch=dict(W["K3"].launches_by_batch),
+    out = dict(launches=launch_counts(),
+               k3_by_batch=launches_by("K3", "batch"),
                P=seng.n_patterns, P_padded=seng.n_padded, P_local=seng.P,
                lnl_sharded=lnl_s, round_sharded=round_s)
 

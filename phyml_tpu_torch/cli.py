@@ -22,7 +22,11 @@ analyses (io/xmlcfg.py: mixtures, partitions, phytime and phyrex).  With no
 arguments it opens the interactive menu (interface.py).  `--distributed`
 joins the process group `torchrun` describes (parallel/boot.py): every
 rank runs the analysis, `-b N` farms the replicates over the ranks, and
-rank 0 alone prints and writes the outputs.
+rank 0 alone prints and writes the outputs.  `--profile_out PATH` runs
+the whole command under `torch.profiler` (the CPU, and the card on
+`--platform gpu`) and writes its Chrome trace to PATH: the program's
+`phyml.*` spans (utils/trace.py) beside every operation, and the run's
+counters under the trace's `phyml_counters` key.
 
     python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b 0 \\
         --platform gpu                       # BioNJ, then NNI search
@@ -42,16 +46,21 @@ rank 0 alone prints and writes the outputs.
     python -m phyml_tpu_torch.cli            # the interactive menu
     torchrun --nproc_per_node 2 -m phyml_tpu_torch.cli --distributed \
         -i aln.phy -m GTR -c 4 -b 100 --platform gpu   # farmed bootstrap
+    python -m phyml_tpu_torch.cli -i aln.phy -m GTR -c 4 -b -5 \
+        --platform gpu --profile_out run.json   # a profiler trace
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
 import numpy as np
 import torch
+
+from phyml_tpu_torch.utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,6 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint file; resumes if it exists")
     p.add_argument("--checkpoint_every", type=int, default=300,
                    help="checkpoint interval, seconds")
+    p.add_argument("--profile_out", default=None,
+                   help="write a torch.profiler Chrome trace of the run, "
+                        "with the program's spans and counters, here")
     return p
 
 
@@ -313,17 +325,20 @@ def _run_all(args, device) -> int:
     site_w = read_site_weights(args.weights) if args.weights else None
     if args.datatype == "gen":
         args.datatype = "generic"
-    if args.multiple > 1:
-        alns = read_alignments_multi(
-            args.input, args.multiple, datatype=args.datatype,
-            interleaved=not args.sequential, site_weights=site_w)
-    else:
-        alns = [read_alignment(args.input, datatype=args.datatype,
-                               interleaved=not args.sequential,
-                               site_weights=site_w, codpos=args.codpos)]
-    if args.no_gap:
-        from phyml_tpu_torch.io.alignment import remove_ambiguous_patterns
-        alns = [remove_ambiguous_patterns(a) for a in alns]
+    with trace.span("cli.read"):
+        if args.multiple > 1:
+            alns = read_alignments_multi(
+                args.input, args.multiple, datatype=args.datatype,
+                interleaved=not args.sequential, site_weights=site_w)
+        else:
+            alns = [read_alignment(args.input, datatype=args.datatype,
+                                   interleaved=not args.sequential,
+                                   site_weights=site_w, codpos=args.codpos)]
+        if args.no_gap:
+            from phyml_tpu_torch.io.alignment import (
+                remove_ambiguous_patterns,
+            )
+            alns = [remove_ambiguous_patterns(a) for a in alns]
     rc = 0
     for set_idx, aln in enumerate(alns):
         if len(alns) > 1 and not args.quiet:
@@ -445,9 +460,13 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
         print(f". {aln.n_patterns} patterns found (out of a total of "
               f"{aln.n_sites} sites).")
 
-    model = _build_model(args, aln)
-    params = _init_params(args, model, aln)
-    engine = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+    with trace.span("cli.engine"):
+        model = _build_model(args, aln)
+        params = _init_params(args, model, aln)
+        engine = LikelihoodEngine(aln, model, dtype=dtype, device=device)
+        if device.type == "cuda":
+            from phyml_tpu_torch.ops import _build
+            _build.library()
 
     # ---- topological constraint (reference --constraint_file) ---------
     constraint = None
@@ -456,33 +475,34 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
         constraint = Constraint.from_file(args.constraint_file, aln.names)
 
     # ---- starting tree ------------------------------------------------
-    if args.user_tree:
-        with open(args.user_tree) as fh:
-            user_nwk = fh.read()
-        if dup_indices:
-            topo = Topology.from_newick(user_nwk, orig_names) \
-                .without_leaves(set(dup_indices))
+    with trace.span("cli.start"):
+        if args.user_tree:
+            with open(args.user_tree) as fh:
+                user_nwk = fh.read()
+            if dup_indices:
+                topo = Topology.from_newick(user_nwk, orig_names) \
+                    .without_leaves(set(dup_indices))
+            else:
+                topo = Topology.from_newick(user_nwk, aln.names)
+            if constraint is not None and not constraint.is_compatible(topo):
+                print("!! the user tree violates the constraint tree",
+                      file=sys.stderr)
+                return 1
+            start_desc = f"user tree ({args.user_tree})"
+        elif constraint is not None:
+            topo = constraint.random_resolution(rng)
+            start_desc = f"constraint resolution ({args.constraint_file})"
+        elif args.rand_start:
+            topo = Topology.random(aln.n_otu, rng)
+            start_desc = "random"
+        elif args.pars_start:
+            from phyml_tpu_torch.search.stepwise import stepwise_addition_tree
+            topo = stepwise_addition_tree(aln, rng)
+            start_desc = "stepwise-addition parsimony"
         else:
-            topo = Topology.from_newick(user_nwk, aln.names)
-        if constraint is not None and not constraint.is_compatible(topo):
-            print("!! the user tree violates the constraint tree",
-                  file=sys.stderr)
-            return 1
-        start_desc = f"user tree ({args.user_tree})"
-    elif constraint is not None:
-        topo = constraint.random_resolution(rng)
-        start_desc = f"constraint resolution ({args.constraint_file})"
-    elif args.rand_start:
-        topo = Topology.random(aln.n_otu, rng)
-        start_desc = "random"
-    elif args.pars_start:
-        from phyml_tpu_torch.search.stepwise import stepwise_addition_tree
-        topo = stepwise_addition_tree(aln, rng)
-        start_desc = "stepwise-addition parsimony"
-    else:
-        from phyml_tpu_torch.search.bionj import bionj_start
-        topo = bionj_start(engine, params)
-        start_desc = "BioNJ"
+            from phyml_tpu_torch.search.bionj import bionj_start
+            topo = bionj_start(engine, params)
+            start_desc = "BioNJ"
 
     # ---- optimize -----------------------------------------------------
     opt_topo = "t" in args.optimize
@@ -505,38 +525,42 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
     # side outputs of one data set of several must not clobber
     # another's
     side = f"{prefix}_set{set_idx + 1}" if n_sets > 1 else prefix
-    trace = None
+    tracer = None
     if args.print_trace or args.json_trace:
         from phyml_tpu_torch.io.output import TraceWriter
-        trace = TraceWriter(
+        tracer = TraceWriter(
             aln.names,
             newick_path=(f"{side}_phyml_trace.txt"
                          if args.print_trace else None),
             json_path=(f"{side}_phyml_trace.json"
                        if args.json_trace else None))
     if opt_topo:
-        topo, params, lnl = _search(args, engine, model, params, topo, rng,
-                                    seed, opt_rates, constraint, trace)
+        with trace.span("cli.search"):
+            topo, params, lnl = _search(args, engine, model, params, topo,
+                                        rng, seed, opt_rates, constraint,
+                                        tracer)
         search_desc = args.search
     else:
         search_desc = "none"
-        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
-        if opt_len or opt_rates:
-            params, ta, lnl = round_optimize(
-                engine, model, params, ta,
-                opt_blen=opt_len, opt_params=opt_rates,
-                verbose=not args.quiet,
-            )
-        else:
-            lnl = float(engine.loglik(params, ta))
-        rv = topo.rooted()
-        topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
+        with trace.span("cli.fit"):
+            ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+            if opt_len or opt_rates:
+                params, ta, lnl = round_optimize(
+                    engine, model, params, ta,
+                    opt_blen=opt_len, opt_params=opt_rates,
+                    verbose=not args.quiet,
+                )
+            else:
+                lnl = float(engine.loglik(params, ta))
+            rv = topo.rooted()
+            topo.set_blen_from_rooted(rv, ta.blen.double().cpu().numpy())
 
     if checkpointer is not None:
         checkpointer.save(topo, params, "search_done", force=True)
 
-    support, support_fmt = _supports(args, engine, model, params, topo,
-                                     seed)
+    with trace.span("cli.supports"):
+        support, support_fmt = _supports(args, engine, model, params, topo,
+                                         seed)
 
     # ---- outputs ------------------------------------------------------
     from phyml_tpu_torch.parallel.boot import process_layout
@@ -544,36 +568,37 @@ def _run_dataset(args, aln, rng, seed, device, dtype, set_idx=0,
         # rank 0 writes (mpi_boot.c:282-314); every rank took part in
         # the count reduction above
         return 0
-    il_lines = []
-    if "il_sigma" in params:
-        il_lines = [
-            ". Integrated length (IL) model: \tyes",
-            f"  - IL variance parameter sigma: \t"
-            f"{float(np.exp(float(params['il_sigma']))):.5f}",
-        ]
-    stats = format_stats(
-        input_name=args.input, aln=aln, model=model, params=params,
-        lnl=lnl, topo=topo, search_desc=search_desc,
-        start_tree_desc=start_desc, runtime_s=time.time() - t_start,
-        seed=seed, n_parsimony=parsimony_score(engine, topo),
-        extra_lines=il_lines,
-    )
-    # every data set after the first appends to the same two files
-    tree_path, stats_path = write_results(
-        prefix, topo, aln.names, stats, support=support,
-        support_fmt=support_fmt, append=(set_idx > 0 or args.append),
-    )
-    if dup_name_pairs:
-        from phyml_tpu_torch.io.newick import insert_duplicate_leaves
-        with open(tree_path) as fh:
-            full = insert_duplicate_leaves(fh.read(), dup_name_pairs)
-        with open(tree_path, "w") as fh:
-            fh.write(full + "\n")
-    if args.print_site_lnl:
-        ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
-        write_site_lnl(f"{side}_phyml_lk.txt", aln,
-                       engine.site_logliks(params, ta))
-    _tools(args, engine, model, aln, params, topo, rng, seed, side)
+    with trace.span("cli.output"):
+        il_lines = []
+        if "il_sigma" in params:
+            il_lines = [
+                ". Integrated length (IL) model: \tyes",
+                f"  - IL variance parameter sigma: \t"
+                f"{float(np.exp(float(params['il_sigma']))):.5f}",
+            ]
+        stats = format_stats(
+            input_name=args.input, aln=aln, model=model, params=params,
+            lnl=lnl, topo=topo, search_desc=search_desc,
+            start_tree_desc=start_desc, runtime_s=time.time() - t_start,
+            seed=seed, n_parsimony=parsimony_score(engine, topo),
+            extra_lines=il_lines,
+        )
+        # every data set after the first appends to the same two files
+        tree_path, stats_path = write_results(
+            prefix, topo, aln.names, stats, support=support,
+            support_fmt=support_fmt, append=(set_idx > 0 or args.append),
+        )
+        if dup_name_pairs:
+            from phyml_tpu_torch.io.newick import insert_duplicate_leaves
+            with open(tree_path) as fh:
+                full = insert_duplicate_leaves(fh.read(), dup_name_pairs)
+            with open(tree_path, "w") as fh:
+                fh.write(full + "\n")
+        if args.print_site_lnl:
+            ta = tree_arrays(topo.rooted(), dtype=dtype, device=device)
+            write_site_lnl(f"{side}_phyml_lk.txt", aln,
+                           engine.site_logliks(params, ta))
+        _tools(args, engine, model, aln, params, topo, rng, seed, side)
     if not args.quiet:
         print(f". Log-likelihood: {lnl:.5f}")
         print(f". Results written to {tree_path} and {stats_path}")
@@ -664,15 +689,40 @@ def main(argv=None) -> int:
         return launch_interface()
     parser = build_parser()
     args = parser.parse_args(real_argv)
+    if args.xml is None and args.input is None:
+        parser.error("the following arguments are required: -i/--input")
+    if args.profile_out:
+        return _profiled(args)
+    return _run_command(args)
+
+
+def _run_command(args) -> int:
     if args.xml:
         from phyml_tpu_torch.io.xmlcfg import run_xml
         device = _device(args)
         if device is None:
             return 1
         return run_xml(args.xml, quiet=args.quiet, device=device)
-    if args.input is None:
-        parser.error("the following arguments are required: -i/--input")
     return run_analysis(args)
+
+
+def _profiled(args) -> int:
+    """The command under torch.profiler (the CPU's operations, and the
+    card's on `--platform gpu`); its Chrome trace goes to
+    `--profile_out` with the counters that moved during the run (their
+    differences, utils/trace.py) under the key `phyml_counters`."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if args.platform == "gpu" and torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    before = trace.snapshot()
+    with torch.profiler.profile(activities=acts) as prof:
+        rc = _run_command(args)
+        if len(acts) > 1:
+            torch.cuda.synchronize()
+        prof.add_metadata_json("phyml_counters",
+                               json.dumps(trace.since(before)))
+    prof.export_chrome_trace(args.profile_out)
+    return rc
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from phyml_tpu_torch.ops import _build
+from phyml_tpu_torch.utils import trace
 
 LN2 = 0.6931471805599453
 
@@ -177,10 +178,12 @@ def uppass_site_lse(child, tips, pmats, pi, logw, *, sched, n_slots: int):
             ptr(out), n_otu, n_nodes - n_otu, n_slots, ns, C, P, B,
             int(per_entry), int(shared), _build.stream_of(tips))
     _build.check(rc, name, ns, C=C, n_slots=n_slots, P=P, B=B)
-    uppass_site_lse.launches += 1
-    by_b = uppass_site_lse.launches_by_trees if per_entry \
-        else uppass_site_lse.launches_by_batch
-    by_b[B] = by_b.get(B, 0) + 1
+    # by batch size B of one schedule (the optimizer's probes are B = 1
+    # and 2, its line-search grid 13 per free scalar), or by the number
+    # of stacked trees with a schedule each (the rapid bootstrap's)
+    trace.count("launch.K3")
+    trace.count(f"launch.K3.trees.{B}" if per_entry
+                else f"launch.K3.batch.{B}")
     return out if batched else out[0]
 
 
@@ -217,12 +220,3 @@ def blocks_per_sm(ns: int, C: int, n_slots: int) -> int:
         NS, C, n_slots, ctypes.byref(blocks))
     _build.check(rc, "uppass_site_lse blocks_per_sm", NS)
     return blocks.value
-
-
-# launches in all; by batch size B of one schedule (the optimizer's
-# probes are B = 1 and 2, its line-search grid 13 per free scalar), and
-# by the number of stacked trees with a schedule each (the rapid
-# bootstrap's replicates)
-uppass_site_lse.launches = 0
-uppass_site_lse.launches_by_batch = {}
-uppass_site_lse.launches_by_trees = {}

@@ -54,6 +54,7 @@ from phyml_tpu_torch.ops import _build
 from phyml_tpu_torch.ops.clv import (
     LN2, big_geometry, check_schedule, pow2_rescale,
 )
+from phyml_tpu_torch.utils import trace
 
 
 def build_slot_schedule(n_otu: int, child: np.ndarray):
@@ -276,7 +277,7 @@ def uppass_site_lse_slots(sched, tips, pmats, pi, logw, *, n_slots: int):
                                            n_slots=n_slots)
     out = _launch_slots("phyml_slot_site_lse", name, sched, tips, pmats,
                         pi, logw, n_slots)
-    uppass_site_lse_slots.launches += 1
+    trace.count("launch.K1")
     return out
 
 
@@ -293,7 +294,7 @@ def uppass_site_lse_slots_stream(sched, tips, pmats, pi, logw, *,
                                            n_slots=n_slots)
     out = _launch_slots("phyml_slot_site_lse_stream", name, sched, tips,
                         pmats, pi, logw, n_slots)
-    uppass_site_lse_slots_stream.launches += 1
+    trace.count("launch.K4")
     return out
 
 
@@ -311,7 +312,3 @@ def blocks_per_sm(ns: int, C: int, n_otu: int, n_slots: int,
                                        ctypes.byref(blocks))
     _build.check(rc, fn, NS)
     return blocks.value
-
-
-uppass_site_lse_slots.launches = 0
-uppass_site_lse_slots_stream.launches = 0

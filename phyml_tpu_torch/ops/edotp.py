@@ -47,6 +47,7 @@ import torch
 
 from phyml_tpu_torch.ops import _build
 from phyml_tpu_torch.ops.clv import LN2, pow2_rescale
+from phyml_tpu_torch.utils import trace
 
 
 def edge_dotprods_plain(child, tips, pmats, V, Vinv, pi):
@@ -180,12 +181,12 @@ def _check_shapes(name, child, tips, pmats, V, Vinv, pi):
         check_child_table(name, child, n_otu)
 
 
-def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
+def _launch_edotp(name, kernel, fn_name, child, tips, pmats, V, Vinv,
+                  pi):
     """Check the operands and launch one of the edge-dot-product
     kernels (K2, K5), which share a C signature, once for one tree or
-    a stack of R trees (grid.z); count the launch on `wrapper`, by R for
-    a stack.  Returns (d, sc_d)."""
-    name = wrapper.__name__
+    a stack of R trees (grid.z); count the launch as `kernel`'s, and by
+    R for a stack.  Returns (d, sc_d)."""
     _build.check_operands(name, ints=(child,),
                           floats=(tips, pmats, V, Vinv, pi))
     ns_true = tips.shape[1]
@@ -218,9 +219,9 @@ def _launch_edotp(wrapper, fn_name, child, tips, pmats, V, Vinv, pi):
             C, P, Pw, R, _build.stream_of(tips))
     _build.check(rc, name, ns, C=C, n_otu=n_otu, P=P, trees=R,
                  block_smem_bytes=geometry(ns, C, P)["smem_bytes"])
-    wrapper.launches += 1
+    trace.count(f"launch.{kernel}")
     if lead:
-        wrapper.launches_by_trees[R] = wrapper.launches_by_trees.get(R, 0) + 1
+        trace.count(f"launch.{kernel}.trees.{R}")
     return d[..., :ns_true, :], sc_d
 
 
@@ -230,8 +231,8 @@ def edge_dotprods(child, tips, pmats, V, Vinv, pi):
     _check_shapes("edge_dotprods", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    return _launch_edotp(edge_dotprods, "phyml_edge_dotprods", child,
-                         tips, pmats, V, Vinv, pi)
+    return _launch_edotp("edge_dotprods", "K2", "phyml_edge_dotprods",
+                         child, tips, pmats, V, Vinv, pi)
 
 
 def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
@@ -242,7 +243,7 @@ def edge_dotprods_stream(child, tips, pmats, V, Vinv, pi):
     _check_shapes("edge_dotprods_stream", child, tips, pmats, V, Vinv, pi)
     if tips.device.type == "cpu":
         return edge_dotprods_plain(child, tips, pmats, V, Vinv, pi)
-    return _launch_edotp(edge_dotprods_stream,
+    return _launch_edotp("edge_dotprods_stream", "K5",
                          "phyml_edge_dotprods_stream", child, tips, pmats,
                          V, Vinv, pi)
 
@@ -258,10 +259,3 @@ def blocks_per_sm(ns: int, stream: bool) -> int:
     rc = getattr(_build.library(), fn)(NS, ctypes.byref(blocks))
     _build.check(rc, fn, NS)
     return blocks.value
-
-
-# launches in all, and those of a stack of trees by the stack's size R
-edge_dotprods.launches = 0
-edge_dotprods.launches_by_trees = {}
-edge_dotprods_stream.launches = 0
-edge_dotprods_stream.launches_by_trees = {}

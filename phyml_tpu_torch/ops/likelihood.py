@@ -79,6 +79,7 @@ from phyml_tpu_torch.ops.clv_slots import (
 )
 from phyml_tpu_torch.ops.clv_slots import geometry as slot_geometry
 from phyml_tpu_torch.ops.edotp import edge_dotprods, edge_dotprods_stream
+from phyml_tpu_torch.utils.trace import traced
 
 # K1 holds each class's P-matrices of the whole tree in its warp's
 # shared memory, K4 streams each step's two through a ring; K2 and K5 are
@@ -331,6 +332,7 @@ class LikelihoodEngine(nn.Module):
         return tuple(x.to(self.device, dtype or self.dtype).contiguous()
                      for x in (lam, V, Vinv, pi, w, pinv))
 
+    @traced("engine.pmats")
     def _pmats(self, lam, V, Vinv, blen):
         """P [..., n_nodes, C, ns, ns]; class rates are folded into
         lam, whose leading batch shape (if any) leads the result, or
@@ -511,6 +513,7 @@ class LikelihoodEngine(nn.Module):
         mb = m.reshape(lead + (1, 1, 1))
         return p * (1.0 - mb) + mb, s * (1.0 - m.reshape(lead + (1, 1)))
 
+    @traced("engine.up_pass")
     def _up_pass(self, pmats, child, mask=None):
         """Inside partials: (pup, clv, sc) [*lead, n_nodes, C, ns, P] /
         [*lead, n_nodes, C, P].
@@ -622,6 +625,7 @@ class LikelihoodEngine(nn.Module):
             sc_out[c1, ar] = sc_out[u] + s0 + torch.log(m1[..., 0, :])
         return out.movedim(0, 1), sc_out.movedim(0, 1)
 
+    @traced("engine.down_pass")
     def _down_pass(self, pmats, child, pup, sc, pi, mask=None):
         """Outside partials O[u]: the likelihood of all data outside
         subtree(u), conditional on the state at u's parent.  `mask` as

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from phyml_tpu_torch.ops.likelihood import TreeArrays
+from phyml_tpu_torch.utils import trace
 
 BL_MIN = 1e-8   # utilities.h:483
 BL_MAX = 100.0  # utilities.h:484
@@ -41,7 +42,9 @@ _N_NEWTON = 10
 _MAX_BACKTRACK = 15
 
 
+@trace.traced("blen.newton")
 def _newton_all_edges(engine, d, sc_d, aux, t0, mask):
+    trace.count("blen.newton_iters", _N_NEWTON)
     t = t0
     for _ in range(_N_NEWTON):
         _, d1, d2 = engine.edge_lnl_terms(d, sc_d, aux, t)
@@ -58,9 +61,11 @@ def _newton_all_edges(engine, d, sc_d, aux, t0, mask):
     return t
 
 
+@trace.traced("blen.round")
 def _round(engine, sys, tree: TreeArrays, lnl0: float, weights):
     """One Newton round with backtracking; returns (tree, lnL) and
     never a worse tree than it started from."""
+    trace.count("blen.rounds")
     d, sc_d, aux = engine.edge_dotprods_sys(sys, tree, weights)
     n_nodes = engine.n_nodes
     idx = torch.arange(n_nodes, device=tree.blen.device)
@@ -73,8 +78,8 @@ def _round(engine, sys, tree: TreeArrays, lnl0: float, weights):
     t = torch.where(mask, t1, t0)
 
     def lnl_at(t):
-        return float(engine._loglik_sys(sys, TreeArrays(tree.child, t),
-                                        weights))
+        return float(trace.to_host(engine._loglik_sys(
+            sys, TreeArrays(tree.child, t), weights), "blen.probe"))
 
     lnl = lnl_at(t)
     k = 0
@@ -82,11 +87,13 @@ def _round(engine, sys, tree: TreeArrays, lnl0: float, weights):
         t = torch.where(mask, 0.5 * (t + t0), t0)
         lnl = lnl_at(t)
         k += 1
+        trace.count("blen.backtracks")
     if lnl < lnl0:
         return tree, lnl0
     return TreeArrays(tree.child, t), lnl
 
 
+@trace.traced("blen.optimize")
 def optimize_branch_lengths(
     engine,
     params,
@@ -103,7 +110,8 @@ def optimize_branch_lengths(
     """
     sys = engine.system_of(params)
     weights = engine.weights if weights is None else weights
-    lnl0 = float(engine._loglik_sys(sys, tree, weights))
+    lnl0 = float(trace.to_host(engine._loglik_sys(sys, tree, weights),
+                               "blen.start"))
     tree, lnl = _round(engine, sys, tree, lnl0, weights)
     prev, i = lnl0, 1
     while i < max_rounds and lnl - prev >= tol:
@@ -113,12 +121,14 @@ def optimize_branch_lengths(
     return tree, lnl
 
 
+@trace.traced("blen.round")
 def _round_batched(engine, sys, tree: TreeArrays, lnl0, weights):
     """_round for a stack of trees (weights [R, P], lnl0 [R] host
     float64), each replicate with its own backtracking and guard, as
     phyml_tpu's jax.vmap of one round: a replicate whose probe no longer
     loses stops backtracking while the others go on.  Returns (stacked
     tree, lnL [R] host float64)."""
+    trace.count("blen.rounds")
     d, sc_d, aux = engine.edge_dotprods_sys(sys, tree, weights)
     n_nodes = engine.n_nodes
     dev = tree.blen.device
@@ -135,7 +145,8 @@ def _round_batched(engine, sys, tree: TreeArrays, lnl0, weights):
     def lnl_at(rows, t_rows):
         sub = TreeArrays(tree.child[torch.as_tensor(rows)], t_rows)
         w = weights[torch.as_tensor(rows, device=weights.device)]
-        return engine._loglik_sys(sys, sub, w).double().cpu().numpy()
+        return trace.to_host(engine._loglik_sys(sys, sub, w).double(),
+                             "blen.probe").numpy()
 
     all_rows = np.arange(t.shape[0])
     lnl = lnl_at(all_rows, t)
@@ -146,6 +157,7 @@ def _round_batched(engine, sys, tree: TreeArrays, lnl0, weights):
         r = torch.as_tensor(rows, device=dev)
         t[r] = torch.where(mask[r], 0.5 * (t[r] + t0[r]), t0[r])
         lnl[rows] = lnl_at(rows, t[r])
+        trace.count("blen.backtracks")
     # final guard: never a worse tree than a replicate started from
     worse = lnl < lnl0
     if worse.any():
@@ -155,6 +167,7 @@ def _round_batched(engine, sys, tree: TreeArrays, lnl0, weights):
     return TreeArrays(tree.child, t), lnl
 
 
+@trace.traced("blen.optimize")
 def optimize_branch_lengths_batched(engine, params, trees: TreeArrays,
                                     weights, tol: float = 1e-4,
                                     max_rounds: int = 32):
@@ -167,7 +180,8 @@ def optimize_branch_lengths_batched(engine, params, trees: TreeArrays,
     weights = torch.as_tensor(weights, dtype=torch.float64,
                               device=engine.device)
     dev = trees.blen.device
-    lnl0 = engine._loglik_sys(sys, trees, weights).double().cpu().numpy()
+    lnl0 = trace.to_host(engine._loglik_sys(sys, trees, weights).double(),
+                         "blen.start").numpy()
     trees, lnl = _round_batched(engine, sys, trees, lnl0, weights)
     child, blen = trees
     prev, i = lnl0, 1

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from phyml_tpu_torch.optim.blen import optimize_branch_lengths
+from phyml_tpu_torch.utils import trace
 
 
 def _logit(p):
@@ -141,6 +142,7 @@ def _batched_params(params, slots, S: np.ndarray) -> dict:
     return p
 
 
+@trace.traced("round.scalars")
 def optimize_scalars(engine, model, params, tree, lnl0=None,
                      brent_tol: float = 1e-4, weights=None,
                      grid: int = 12, zooms: int = 16):
@@ -153,15 +155,17 @@ def optimize_scalars(engine, model, params, tree, lnl0=None,
     brent_tol (the reference's per-parameter Brent searches,
     Generic_Brent_Lk optimiz.c:2475, all parameters jointly)."""
     slots = free_scalar_slots(model, params)
-    lnl = float(engine.loglik(params, tree, weights)) \
-        if lnl0 is None else lnl0
+    lnl = float(trace.to_host(engine.loglik(params, tree, weights),
+                              "round.lnl")) if lnl0 is None else lnl0
     if not slots:
         return params, lnl
     n = len(slots)
 
     def lnl_of(S):
+        trace.count("round.probe_rows", S.shape[0])
         sys = engine._system(_batched_params(params, slots, S))
-        vals = engine.loglik_batch(sys, tree, weights).cpu().numpy()
+        vals = trace.to_host(engine.loglik_batch(sys, tree, weights),
+                             "round.probes").numpy()
         return np.where(np.isfinite(vals), vals, -np.inf)
 
     lo = np.asarray([sl[3] for sl in slots])
@@ -171,34 +175,36 @@ def optimize_scalars(engine, model, params, tree, lnl0=None,
                         for name, idx, tf, _, _ in slots])
     zoom = 0
     while zoom < zooms and np.max((b - a) / (grid - 1)) >= brent_tol:
-        step = (b - a) / (grid - 1)
-        # candidate matrix [n, grid+1]: linspace + current
-        xs = a[:, None] + step[:, None] * np.arange(grid)[None, :]
-        xs = np.concatenate([xs, s_cur[:, None]], axis=1)
-        # variant s-vectors: slot j takes xs[j, k], others current
-        svar = np.broadcast_to(s_cur, (n, grid + 1, n)).copy()
-        for j in range(n):
-            svar[j, :, j] = xs[j]
-        vals = lnl_of(svar.reshape(n * (grid + 1), n)).reshape(n,
-                                                                grid + 1)
-        k_best = np.argmax(vals, axis=1)
-        best_val = vals[np.arange(n), k_best]
-        best_x = xs[np.arange(n), k_best]
-        improved = best_val > lnl + 1e-9
-        if improved.any():
-            s_joint = np.where(improved, best_x, s_cur)
-            i_star = int(np.argmax(np.where(improved, best_val, -np.inf)))
-            s_single = s_cur.copy()
-            s_single[i_star] = best_x[i_star]
-            pair = lnl_of(np.stack([s_joint, s_single]))
-            if pair[0] >= pair[1] and pair[0] > lnl:
-                s_cur, lnl = s_joint, float(pair[0])
-            elif pair[1] > lnl:
-                s_cur, lnl = s_single, float(pair[1])
-        # shrink every bracket around its best grid point
-        a = np.maximum(lo, best_x - step)
-        b = np.minimum(hi, best_x + step)
-        zoom += 1
+        trace.count("round.zooms")
+        with trace.span("round.zoom"):
+            step = (b - a) / (grid - 1)
+            # candidate matrix [n, grid+1]: linspace + current
+            xs = a[:, None] + step[:, None] * np.arange(grid)[None, :]
+            xs = np.concatenate([xs, s_cur[:, None]], axis=1)
+            # variant s-vectors: slot j takes xs[j, k], others current
+            svar = np.broadcast_to(s_cur, (n, grid + 1, n)).copy()
+            for j in range(n):
+                svar[j, :, j] = xs[j]
+            vals = lnl_of(svar.reshape(n * (grid + 1), n))
+            vals = vals.reshape(n, grid + 1)
+            k_best = np.argmax(vals, axis=1)
+            best_val = vals[np.arange(n), k_best]
+            best_x = xs[np.arange(n), k_best]
+            improved = best_val > lnl + 1e-9
+            if improved.any():
+                s_joint = np.where(improved, best_x, s_cur)
+                i_star = int(np.argmax(np.where(improved, best_val, -np.inf)))
+                s_single = s_cur.copy()
+                s_single[i_star] = best_x[i_star]
+                pair = lnl_of(np.stack([s_joint, s_single]))
+                if pair[0] >= pair[1] and pair[0] > lnl:
+                    s_cur, lnl = s_joint, float(pair[0])
+                elif pair[1] > lnl:
+                    s_cur, lnl = s_single, float(pair[1])
+            # shrink every bracket around its best grid point
+            a = np.maximum(lo, best_x - step)
+            b = np.minimum(hi, best_x + step)
+            zoom += 1
     for j, (name, idx, tf, lo_, hi_) in enumerate(slots):
         params = _set(params, name, idx, tf(float(s_cur[j])))
     return params, lnl
@@ -220,16 +226,19 @@ def round_optimize(
     """Alternate branch-length and model-parameter optimization until
     a full round gains < tol log units (Round_Optimize optimiz.c:669).
     Returns (params, tree, lnL)."""
-    lnl = float(engine.loglik(params, tree, weights))
+    lnl = float(trace.to_host(engine.loglik(params, tree, weights),
+                              "round.lnl"))
     for it in range(max_rounds):
         start = lnl
-        if opt_blen:
-            tree, lnl = optimize_branch_lengths(
-                engine, params, tree, tol=blen_tol, weights=weights
-            )
-        if opt_params:
-            params, lnl = optimize_scalars(engine, model, params, tree,
-                                           lnl0=lnl, weights=weights)
+        trace.count("round.rounds")
+        with trace.span("round.round"):
+            if opt_blen:
+                tree, lnl = optimize_branch_lengths(
+                    engine, params, tree, tol=blen_tol, weights=weights
+                )
+            if opt_params:
+                params, lnl = optimize_scalars(engine, model, params, tree,
+                                               lnl0=lnl, weights=weights)
         if verbose:
             print(f"  round {it}: lnL {lnl:.5f}")
         if lnl - start < tol:

@@ -31,6 +31,7 @@ import torch
 from phyml_tpu_torch.models.eigen import pmat
 from phyml_tpu_torch.ops.likelihood import TreeArrays, tree_arrays
 from phyml_tpu_torch.optim.blen import BL_MAX, BL_MIN, optimize_branch_lengths
+from phyml_tpu_torch.utils import trace
 
 
 def candidate_arrays(rv):
@@ -53,6 +54,7 @@ def candidate_arrays(rv):
     return out
 
 
+@trace.traced("nni.newton")
 def _newton(engine, d, sc_d, aux, t, iters=5):
     """Safeguarded Newton on every configuration's length t [E, 3]."""
     for _ in range(iters):
@@ -65,6 +67,7 @@ def _newton(engine, d, sc_d, aux, t, iters=5):
     return t
 
 
+@trace.traced("nni.score")
 def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     """Scores every internal edge's 3 configurations with the FOUR
     local branch lengths (central + the three adjacent pendants)
@@ -85,26 +88,9 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     out, sc_out = engine._down_pass(pmats, tree.child, pup, sc, pi)
     del pup
 
-    cand = torch.as_tensor(np.asarray(cand), dtype=torch.long,
-                           device=engine.device)
-    lead = cand.shape[:-1]                  # (E,), or (R, E) for a stack
-    cand = cand.reshape(-1, 5)
-    aux = engine._aux(sys, weights)
-    if len(lead) == 2:
-        # row r * E + e is edge e of tree r
-        rows = torch.arange(lead[0], device=engine.device) \
-            .repeat_interleave(lead[1])
-        at = lambda x, k: x[rows, k]
-        aux["weights"] = aux["weights"][rows][:, None, :]
-    else:
-        at = lambda x, k: x[k]
-    v, u, a, b, s = (cand[:, k] for k in range(5))
-    # out[v] = (P_u^T out[u]) . pup[s]: the config-independent
-    # outside factor above the central edge
-    G = torch.einsum("ecwz,ecwp->eczp", at(pmats, u), at(out, u))
-    sc_tot = at(sc, a) + at(sc, b) + at(sc, s) + at(sc_out, u)  # [E, C, P]
     C, ns = engine.C, engine.ns
-    E = cand.shape[0]
+    lead = np.shape(cand)[:-1]              # (E,), or (R, E) for a stack
+    E = int(np.prod(lead))
 
     def newton(d, t):
         sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
@@ -126,46 +112,65 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
     def pushT(P, x):
         return torch.einsum("ekcyx,ekcyp->ekcxp", P, x)
 
-    # per-config subtree roles: children (x1, x2) and sibling x3
-    ca, cb, cs = at(clv, a), at(clv, b), at(clv, s)
-    C1 = torch.stack([ca, ca, cb], 1)                    # [E, 3, C, ns, P]
-    C2 = torch.stack([cb, cs, cs], 1)
-    C3 = torch.stack([cs, cb, ca], 1)
-    del clv, out, ca, cb, cs
-    la, lb, ls = at(blen, a), at(blen, b), at(blen, s)
-    t1 = torch.stack([la, la, lb], 1)
-    t2 = torch.stack([lb, ls, ls], 1)
-    t3 = torch.stack([ls, lb, la], 1)
-    tc = at(blen, v)[:, None].expand(E, 3)
-    t1, t2, t3, tc = (torch.clamp(t, BL_MIN, BL_MAX)
-                      for t in (t1, t2, t3, tc))
-    Gb = G[:, None]                                      # [E, 1, C, ns, P]
+    with trace.span("nni.outside"):
+        cand = torch.as_tensor(np.asarray(cand), dtype=torch.long,
+                               device=engine.device).reshape(-1, 5)
+        aux = engine._aux(sys, weights)
+        if len(lead) == 2:
+            # row r * E + e is edge e of tree r
+            rows = torch.arange(lead[0], device=engine.device) \
+                .repeat_interleave(lead[1])
+            at = lambda x, k: x[rows, k]
+            aux["weights"] = aux["weights"][rows][:, None, :]
+        else:
+            at = lambda x, k: x[k]
+        v, u, a, b, s = (cand[:, k] for k in range(5))
+        # out[v] = (P_u^T out[u]) . pup[s]: the config-independent
+        # outside factor above the central edge
+        G = torch.einsum("ecwz,ecwp->eczp", at(pmats, u), at(out, u))
+        sc_tot = at(sc, a) + at(sc, b) + at(sc, s) + at(sc_out, u)
+        # per-config subtree roles: children (x1, x2) and sibling x3
+        ca, cb, cs = at(clv, a), at(clv, b), at(clv, s)
+        C1 = torch.stack([ca, ca, cb], 1)                # [E, 3, C, ns, P]
+        C2 = torch.stack([cb, cs, cs], 1)
+        C3 = torch.stack([cs, cb, ca], 1)
+        del clv, out, ca, cb, cs
+        la, lb, ls = at(blen, a), at(blen, b), at(blen, s)
+        t1 = torch.stack([la, la, lb], 1)
+        t2 = torch.stack([lb, ls, ls], 1)
+        t3 = torch.stack([ls, lb, la], 1)
+        tc = at(blen, v)[:, None].expand(E, 3)
+        t1, t2, t3, tc = (torch.clamp(t, BL_MIN, BL_MAX)
+                          for t in (t1, t2, t3, tc))
+        Gb = G[:, None]                                  # [E, 1, C, ns, P]
 
     for _ in range(2):
+        with trace.span("nni.sweep"):
+            Q1 = push(P_of(t1), C1)
+            Q2 = push(P_of(t2), C2)
+            Q3 = push(P_of(t3), C3)
+            # central edge
+            tc = newton(dots(Q1 * Q2, Gb * Q3), tc)
+            Pc = P_of(tc)
+            # pendant 1: W = Pc^T (G.Q3)
+            W = pushT(Pc, Gb * Q3)
+            t1 = newton(dots(C1, W * Q2), t1)
+            Q1 = push(P_of(t1), C1)
+            # pendant 2
+            t2 = newton(dots(C2, W * Q1), t2)
+            Q2 = push(P_of(t2), C2)
+            # pendant 3 (sibling)
+            t3 = newton(dots(C3, Gb * push(Pc, Q1 * Q2)), t3)
+            del W, Q3
+    with trace.span("nni.final"):
         Q1 = push(P_of(t1), C1)
         Q2 = push(P_of(t2), C2)
         Q3 = push(P_of(t3), C3)
-        # central edge
-        tc = newton(dots(Q1 * Q2, Gb * Q3), tc)
-        Pc = P_of(tc)
-        # pendant 1: W = Pc^T (G.Q3)
-        W = pushT(Pc, Gb * Q3)
-        t1 = newton(dots(C1, W * Q2), t1)
-        Q1 = push(P_of(t1), C1)
-        # pendant 2
-        t2 = newton(dots(C2, W * Q1), t2)
-        Q2 = push(P_of(t2), C2)
-        # pendant 3 (sibling)
-        t3 = newton(dots(C3, Gb * push(Pc, Q1 * Q2)), t3)
-        del W, Q3
-    Q1 = push(P_of(t1), C1)
-    Q2 = push(P_of(t2), C2)
-    Q3 = push(P_of(t3), C3)
-    d = dots(Q1 * Q2, Gb * Q3)
-    sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
-    site, _, _ = engine.edge_site_terms(d, sc_d, aux, tc)
-    lnl = engine._sum_sites(torch.sum(site.double() * aux["weights"],
-                                      dim=-1))                # [E, 3]
+        d = dots(Q1 * Q2, Gb * Q3)
+        sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
+        site, _, _ = engine.edge_site_terms(d, sc_d, aux, tc)
+        lnl = engine._sum_sites(torch.sum(site.double() * aux["weights"],
+                                          dim=-1))                # [E, 3]
     return lnl.reshape(lead + (3,)), \
         tuple(t.reshape(lead + (3,)) for t in (t1, t2, t3, tc)), \
         site.reshape(lead + (3, -1))
@@ -181,9 +186,11 @@ def nni_scores(engine, params, tree: TreeArrays, cand: np.ndarray,
     gathered over its ranks)."""
     lnl, ts, site = _nni_scorer(engine, engine.system_of(params), tree,
                                 cand, engine._w(weights))
-    out = (lnl.cpu().numpy(), tuple(t.cpu().numpy() for t in ts))
+    out = (trace.to_host(lnl, "nni.lnl").numpy(),
+           tuple(trace.to_host(t, "nni.lengths").numpy() for t in ts))
     if return_site:
-        out = out + (engine.gather_sites(site).cpu().numpy(),)
+        out = out + (trace.to_host(engine.gather_sites(site),
+                                   "nni.site").numpy(),)
     return out
 
 
@@ -198,7 +205,8 @@ def nni_scores_batched(engine, params, trees: TreeArrays, cands, weights):
     batch)."""
     lnl, ts, _ = _nni_scorer(engine, engine.system_of(params), trees,
                              cands, weights)
-    return lnl.cpu().numpy(), tuple(t.cpu().numpy() for t in ts)
+    return trace.to_host(lnl, "nni.lnl").numpy(), \
+        tuple(trace.to_host(t, "nni.lengths").numpy() for t in ts)
 
 
 def _apply_swaps(topo, rv, cand, chosen, t_opt):
@@ -252,7 +260,7 @@ def _select_disjoint(cand, gains, min_gain):
 
 
 def _host_blen(tree: TreeArrays) -> np.ndarray:
-    return tree.blen.double().cpu().numpy()
+    return trace.to_host(tree.blen.double(), "nni.blen").numpy()
 
 
 def nni_round(engine, params, topo, lnl0=None, min_gain: float = 1e-4,

@@ -34,6 +34,7 @@ import torch
 
 from phyml_tpu_torch.ops.likelihood import TreeArrays, tree_arrays
 from phyml_tpu_torch.search.nni import candidate_arrays, nni_scores
+from phyml_tpu_torch.utils import trace
 
 
 # ----------------------------------------------------------------------
@@ -69,6 +70,7 @@ def rell_weights(w, n_rell: int, seed: int) -> np.ndarray:
     return W[:, :P].astype(np.float64)
 
 
+@trace.traced("support.alrt")
 def alrt_supports(
     engine,
     model,
@@ -92,7 +94,8 @@ def alrt_supports(
     cand = candidate_arrays(rv)
     lnl_cfg, _, site = nni_scores(engine, params, ta, cand,
                                   weights=weights, return_site=True)
-    w = np.asarray(engine.gather_sites(engine._w(weights)).cpu())
+    w = trace.to_host(engine.gather_sites(engine._w(weights)),
+                      "support.weights").numpy()
     out: dict[int, float] = {}
 
     if method in ("sh", "rell"):
@@ -104,15 +107,15 @@ def alrt_supports(
                             site_d)
         if method == "rell":
             rell = (sums[..., 0] >= sums[..., 1:].amax(-1)).double()
-            frac = rell.mean(-1).cpu().numpy()
+            frac = trace.to_host(rell.mean(-1), "support.frac").numpy()
         else:
             c = (site_d * torch.as_tensor(w, **f64)).sum(-1)  # [E, 3]
             srt = torch.sort(c, dim=-1, descending=True).values
             delta_obs = srt[:, 0] - srt[:, 1]
             s_srt = torch.sort(sums - c[:, None, :], dim=-1).values
             delta_local = s_srt[..., 2] - s_srt[..., 1]
-            frac = (delta_obs[:, None] > delta_local).double().mean(-1) \
-                .cpu().numpy()
+            frac = trace.to_host((delta_obs[:, None] > delta_local)
+                                 .double().mean(-1), "support.frac").numpy()
         del sums
 
     for k, row in enumerate(cand):
@@ -388,7 +391,7 @@ def bootstrap_supports_batched(
         W_live = W[torch.as_tensor(live, device=W.device)]
         trees, _ = optimize_branch_lengths_batched(engine, params, trees,
                                                    W_live)
-        blens = trees.blen.double().cpu().numpy()
+        blens = trace.to_host(trees.blen.double(), "support.blen").numpy()
         cands = np.stack([candidate_arrays(rv) for rv in rvs])
         lnl_cfg, t_opt = nni_scores_batched(engine, params, trees, cands,
                                             W_live)

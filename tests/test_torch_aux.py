@@ -198,6 +198,8 @@ def test_menu_matches_phyml_tpu(keys):
     vj, vt = vars(aj), vars(at)
     assert vt.pop("platform") == "gpu"
     vj.pop("platform")
+    # the port's own profiler flag, which the menu leaves unset
+    assert vt.pop("profile_out") is None
     assert vt == vj
 
 

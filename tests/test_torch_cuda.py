@@ -30,6 +30,7 @@ from phyml_tpu_torch.models.substitution import SubstModel
 from phyml_tpu_torch.ops import _build, clv, clv_slots, edotp
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
 from phyml_tpu_torch.topology import Topology
+from phyml_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -39,6 +40,28 @@ K2_TOL = 2e-3
 # per-edge site terms against the float32 plain version's (EDGE_TOL)
 EDGE_TOL = 2e-3
 AA_TOL = 2e-3
+
+
+# the kernel each wrapper launches, as the port's counters name it
+KERNEL = {"uppass_site_lse_slots": "K1", "edge_dotprods": "K2",
+          "uppass_site_lse": "K3", "uppass_site_lse_slots_stream": "K4",
+          "edge_dotprods_stream": "K5"}
+
+
+def launches(f, by=""):
+    """The port's count of launches of wrapper f's kernel (utils/
+    trace.py), or of those of one batch size ("batch.<B>") or stack of
+    trees ("trees.<R>")."""
+    name = "launch." + KERNEL[f.__name__] + ("." + by if by else "")
+    return trace.snapshot().get(name, 0)
+
+
+def launches_by(f, kind):
+    """{B or R: launches} of wrapper f's kernel by batch size (kind
+    "batch") or by the size of a stack of trees ("trees")."""
+    head = f"launch.{KERNEL[f.__name__]}.{kind}."
+    return {int(k[len(head):]): v for k, v in trace.snapshot().items()
+            if k.startswith(head)}
 
 
 @pytest.fixture
@@ -169,13 +192,13 @@ def test_streamed_kernels_match_plain(cuda, datatype, C):
     tol = K13_TOL if datatype == "nt" else AA_TOL
     _, sched, _ = eng._topology(tree.child)
     pi, logw = sys_[3], eng._logw(sys_[4])
-    n0 = clv_slots.uppass_site_lse_slots_stream.launches
+    n0 = launches(clv_slots.uppass_site_lse_slots_stream)
     k4 = clv_slots.uppass_site_lse_slots_stream(
         sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
     ref = clv_slots.uppass_site_lse_slots_plain(
         sched, eng.tips, pm, pi, logw, n_slots=eng.slot_count)
     torch.cuda.synchronize()
-    assert clv_slots.uppass_site_lse_slots_stream.launches == n0 + 1
+    assert launches(clv_slots.uppass_site_lse_slots_stream) == n0 + 1
     assert float((k4 - ref).abs().max()) < tol
     k5_err, plain_err = _site_terms_gaps(eng, tree, sys_, pm,
                                          edotp.edge_dotprods_stream)
@@ -225,13 +248,13 @@ def test_aa_engine_takes_the_streamed_route(cuda):
                                 datatype="aa")
     assert (eng.lnl_route, eng.edotp_route) == ("K4", "K5")
     params = eng.model.init_params(eng.aln.obs_state_freqs)
-    n4 = clv_slots.uppass_site_lse_slots_stream.launches
-    n5 = edotp.edge_dotprods_stream.launches
+    n4 = launches(clv_slots.uppass_site_lse_slots_stream)
+    n5 = launches(edotp.edge_dotprods_stream)
     lnl = float(eng.loglik(params, tree))
     eng.edge_dotprods_sys(eng.system_of(params), tree)
     torch.cuda.synchronize()
-    assert clv_slots.uppass_site_lse_slots_stream.launches == n4 + 1
-    assert edotp.edge_dotprods_stream.launches == n5 + 1
+    assert launches(clv_slots.uppass_site_lse_slots_stream) == n4 + 1
+    assert launches(edotp.edge_dotprods_stream) == n5 + 1
     eng64 = LikelihoodEngine(eng.aln, eng.model, dtype=torch.float64,
                              device=cuda)
     want = float(torch.sum(eng64.site_logliks_scan(
@@ -261,12 +284,12 @@ def test_k3_matches_plain(cuda, datatype, C, B):
     eng, tree, sys_, pm = _setup(cuda, C, seed=5, datatype=datatype)
     child, sched, n_slots = eng._topology(tree.child)
     pmb, pib, lwb = _k3_batch(eng, tree, sys_, pm, B)
-    n0 = clv.uppass_site_lse.launches
+    n0 = launches(clv.uppass_site_lse)
     got = clv.uppass_site_lse(child, eng.tips, pmb, pib, lwb, sched=sched,
                               n_slots=n_slots)
     ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, pib, lwb)
     torch.cuda.synchronize()
-    assert clv.uppass_site_lse.launches == n0 + 1
+    assert launches(clv.uppass_site_lse) == n0 + 1
     assert got.shape == (B, eng.P) and bool(torch.isfinite(got).all())
     tol = K13_TOL if datatype == "nt" else AA_TOL
     assert float((got - ref).abs().max()) < tol
@@ -455,10 +478,10 @@ def test_edotp_tree_shapes(cuda, kernel, datatype, C, shape):
     eng, tree, sys_, pm = _simulated_setup(cuda, C, n, 400, 9, datatype,
                                            topo)
     f = _edotp_kernel(kernel)
-    n0 = f.launches
+    n0 = launches(f)
     k_err, plain_err = _site_terms_gaps(eng, tree, sys_, pm, f)
     torch.cuda.synchronize()
-    assert f.launches == n0 + 1
+    assert launches(f) == n0 + 1
     assert k_err < plain_err + K2_TOL
 
 
@@ -570,10 +593,10 @@ def _slot_check(eng, tree, sys_, pm, kernel, rel=0.0):
     tol = (K13_TOL if eng.ns == 4 else AA_TOL) + rel * ref.abs()
     assert eng.slot_tips.stride(1) % 32 == 0
     for tips in (eng.slot_tips, eng.tips):
-        n0 = f.launches
+        n0 = launches(f)
         got = f(sched, tips, pm, pi, logw, n_slots=n_slots)
         torch.cuda.synchronize()
-        assert f.launches == n0 + 1
+        assert launches(f) == n0 + 1
         assert got.shape == (eng.P,) and bool(torch.isfinite(got).all())
         assert bool(((got - ref).abs() < tol).all())
         assert bool(((got - k3).abs() < tol).all())
@@ -677,11 +700,11 @@ def test_single_passes_go_to_k3_where_k4_does_not_fit(cuda, C, n, shape,
     eng, tree, sys_, pm = _simulated_setup(cuda, C, n, 33, 18, "aa", topo)
     _, sched, n_slots = eng._topology(tree.child)
     f4, k3 = clv_slots.uppass_site_lse_slots_stream, clv.uppass_site_lse
-    n4, n3 = f4.launches, k3.launches_by_batch.get(1, 0)
+    n4, n3 = launches(f4), launches(k3, "batch.1")
     got = eng._site_logliks_sys(sys_, tree)
     torch.cuda.synchronize()
     ran = {(1, 0): "K4", (0, 1): "K3"}[
-        (f4.launches - n4, k3.launches_by_batch.get(1, 0) - n3)]
+        (launches(f4) - n4, launches(k3, "batch.1") - n3)]
     assert (eng.lnl_route, ran) == ("K4", want)
     lse = clv_slots.uppass_site_lse_slots_plain(
         sched, eng.tips, pm, sys_[3], eng._logw(sys_[4]), n_slots=n_slots)
@@ -697,13 +720,13 @@ def test_single_systems_take_the_slot_kernels(cuda, datatype):
     eng, tree, sys_, pm = _setup(cuda, 4, n=n, sites=301, seed=16,
                                  datatype=datatype)
     f = _slot_kernel(eng.lnl_route)
-    n_slot, n_k3 = f.launches, clv.uppass_site_lse.launches
+    n_slot, n_k3 = launches(f), launches(clv.uppass_site_lse)
     one = eng._loglik_sys(sys_, tree)
     torch.cuda.synchronize()
-    assert (f.launches, clv.uppass_site_lse.launches) == (n_slot + 1, n_k3)
+    assert (launches(f), launches(clv.uppass_site_lse)) == (n_slot + 1, n_k3)
     two = eng._loglik_sys(tuple(torch.stack([x, x]) for x in sys_), tree)
     torch.cuda.synchronize()
-    assert (f.launches, clv.uppass_site_lse.launches) == (n_slot + 1,
+    assert (launches(f), launches(clv.uppass_site_lse)) == (n_slot + 1,
                                                           n_k3 + 1)
     assert abs(float(one) - float(two[0])) < 1e-2
 
@@ -916,11 +939,11 @@ def test_k3_schedule_per_entry_matches_plain_and_single_launches(
     if not shared:
         pi = torch.stack([pi, pi.flip(-1), pi])
         logw = logw.expand(3, eng.C).contiguous()
-    n0 = clv.uppass_site_lse.launches_by_trees.get(3, 0)
+    n0 = launches(clv.uppass_site_lse, "trees.3")
     got = clv.uppass_site_lse(child, eng.tips, pm, pi, logw, sched=sched,
                               n_slots=n_slots)
     torch.cuda.synchronize()
-    assert clv.uppass_site_lse.launches_by_trees[3] == n0 + 1
+    assert launches(clv.uppass_site_lse, "trees.3") == n0 + 1
     ref = clv.uppass_site_lse_plain(child, eng.tips, pm, pi, logw)
     tol = K13_TOL if datatype == "nt" else AA_TOL
     torch.testing.assert_close(got, ref, rtol=0, atol=tol)
@@ -945,10 +968,10 @@ def test_edotp_tree_axis_matches_plain_and_single_launches(cuda, kernel,
     lam, V, Vinv, pi, w, _ = sys_
     f = _edotp_kernel(kernel)
     child, _, _ = eng._topology(stack.child)
-    n0, b0 = f.launches, f.launches_by_trees.get(3, 0)
+    n0, b0 = launches(f), launches(f, "trees.3")
     d, sc = f(child, eng.tips, pm, V, Vinv, pi)
     torch.cuda.synchronize()
-    assert (f.launches, f.launches_by_trees[3]) == (n0 + 1, b0 + 1)
+    assert (launches(f), launches(f, "trees.3")) == (n0 + 1, b0 + 1)
     assert d.shape == (3, eng.n_nodes, eng.C, eng.ns, eng.P)
     for r, t in enumerate(trees):
         c1, _, _ = eng._topology(t.child)
@@ -969,15 +992,15 @@ def test_stacks_take_one_launch_in_the_engine(cuda):
     rng = np.random.default_rng(4)
     W = torch.as_tensor(rng.integers(0, 3, (3, eng.P)), dtype=torch.float64,
                         device=cuda)
-    k3 = clv.uppass_site_lse.launches
+    k3 = launches(clv.uppass_site_lse)
     lnl = eng._loglik_sys(sys_, stack, W)
-    assert clv.uppass_site_lse.launches == k3 + 1
+    assert launches(clv.uppass_site_lse) == k3 + 1
     for r, t in enumerate(trees):
         one = float(torch.sum(eng._site_logliks_sys(sys_, t).double() * W[r]))
         assert abs(float(lnl[r]) - one) <= K13_TOL * float(W[r].sum())
-    k2 = edotp.edge_dotprods.launches
+    k2 = launches(edotp.edge_dotprods)
     d, sc_d, aux = eng.edge_dotprods_sys(sys_, stack, W)
-    assert edotp.edge_dotprods.launches == k2 + 1
+    assert launches(edotp.edge_dotprods) == k2 + 1
     assert aux["weights"].shape == (3, 1, eng.P)
 
 
@@ -1060,15 +1083,15 @@ def test_batched_branch_lengths_on_the_card(cuda, datatype):
         tas = [tree_arrays(rv, dtype=dt, device=dev) for rv in rvs]
         stack = TreeArrays(torch.stack([t.child for t in tas]),
                            torch.stack([t.blen for t in tas]))
-        n3, ne = dict(clv.uppass_site_lse.launches_by_trees), edge.launches
-        k3b = dict(clv.uppass_site_lse.launches_by_batch)
+        n3, ne = launches_by(clv.uppass_site_lse, "trees"), launches(edge)
+        k3b = launches_by(clv.uppass_site_lse, "batch")
         out[dev if dev == "cpu" else "gpu"] = optimize_branch_lengths_batched(
             e, params, stack, torch.as_tensor(W, device=dev))
         if dev != "cpu":
-            assert edge.launches_by_trees and edge.launches > ne
-            assert sum(clv.uppass_site_lse.launches_by_trees.values()) > \
+            assert launches_by(edge, "trees") and launches(edge) > ne
+            assert sum(launches_by(clv.uppass_site_lse, "trees").values()) > \
                 sum(n3.values())
-            assert clv.uppass_site_lse.launches_by_batch == k3b
+            assert launches_by(clv.uppass_site_lse, "batch") == k3b
     (tg, lg), (tc, lc) = out["gpu"], out["cpu"]
     np.testing.assert_allclose(lg, lc, rtol=0, atol=BATCHED_LNL_TOL)
     assert np.all(np.isfinite(tg.blen.cpu().numpy()))
@@ -1249,12 +1272,12 @@ def test_k3_at_the_line_search_grid_of_a_mixture(cuda, kind):
     pmb = eng._pmats(sysb[0], sysb[1], sysb[2], tree.blen)
     child, sched, n_slots = eng._topology(tree.child)
     logw = eng._logw(sysb[4])
-    n0 = clv.uppass_site_lse.launches
+    n0 = launches(clv.uppass_site_lse)
     got = clv.uppass_site_lse(child, eng.tips, pmb, sysb[3], logw,
                               sched=sched, n_slots=n_slots)
     ref = clv.uppass_site_lse_plain(child, eng.tips, pmb, sysb[3], logw)
     torch.cuda.synchronize()
-    assert clv.uppass_site_lse.launches == n0 + 1
+    assert launches(clv.uppass_site_lse) == n0 + 1
     assert got.shape == (len(S), eng.P) and bool(torch.isfinite(got).all())
     tol = K13_TOL if eng.ns == 4 else AA_TOL
     assert float((got - ref).abs().max()) < tol
@@ -1277,9 +1300,9 @@ def test_lg4x_fit_card_against_cpu(cuda, tmp_path):
         f"{nm:<10s}  {sq}\n" for nm, sq in zip(names, seqs)))
     lnl = {}
     for platform in ("cpu", "gpu"):
-        n4, n5 = (clv_slots.uppass_site_lse_slots_stream.launches,
-                  edotp.edge_dotprods_stream.launches)
-        n3 = clv.uppass_site_lse.launches
+        n4, n5 = (launches(clv_slots.uppass_site_lse_slots_stream),
+                  launches(edotp.edge_dotprods_stream))
+        n3 = launches(clv.uppass_site_lse)
         assert cli.main(["-i", str(tmp_path / "aln.phy"), "-u",
                          str(tmp_path / "tree.nwk"), "-d", "aa", "-m",
                          "LG4X", "-o", "lr", "-b", "0", "--platform",
@@ -1287,9 +1310,9 @@ def test_lg4x_fit_card_against_cpu(cuda, tmp_path):
         text = (tmp_path / "aln.phy_phyml_stats.txt").read_text()
         lnl[platform] = float(text.split(". Log-likelihood:")[1].split()[0])
         if platform == "gpu":
-            assert clv_slots.uppass_site_lse_slots_stream.launches > n4
-            assert edotp.edge_dotprods_stream.launches > n5
-            assert clv.uppass_site_lse.launches > n3
+            assert launches(clv_slots.uppass_site_lse_slots_stream) > n4
+            assert launches(edotp.edge_dotprods_stream) > n5
+            assert launches(clv.uppass_site_lse) > n3
     assert abs(lnl["gpu"] - lnl["cpu"]) <= BATCHED_LNL_TOL, lnl
 
 
@@ -1330,7 +1353,7 @@ def test_two_partition_xml_card_against_cpu(cuda, tmp_path):
     (tmp_path / "run.xml").write_text(xml)
     out = {}
     for platform in ("cpu", "gpu"):
-        n1 = clv_slots.uppass_site_lse_slots.launches
+        n1 = launches(clv_slots.uppass_site_lse_slots)
         assert run_xml(str(tmp_path / "run.xml"), quiet=True,
                        device=platform if platform == "cpu" else cuda) == 0
         stats = (tmp_path / "joint_part1_phyml_stats.txt").read_text()
@@ -1340,7 +1363,7 @@ def test_two_partition_xml_card_against_cpu(cuda, tmp_path):
             for k in (1, 2)]
         out[platform] = (combined, trees)
         if platform == "gpu":
-            assert clv_slots.uppass_site_lse_slots.launches > n1
+            assert launches(clv_slots.uppass_site_lse_slots) > n1
     (lc, tc), (lg, tg) = out["cpu"], out["gpu"]
     assert abs(lg - lc) <= BATCHED_LNL_TOL, (lg, lc)
     assert all(a.rf_distance(b) == 0 for a, b in zip(tg, tc))
@@ -1405,12 +1428,12 @@ def test_dating_chain_on_the_card(cuda, rate_kind):
     went through K1 and none through K3."""
     mcmc, _ = _chain_setup(cuda, rate_kind=rate_kind)
     assert mcmc.move_w[-1] == 0.0
-    n1 = clv_slots.uppass_site_lse_slots.launches
-    n3 = clv.uppass_site_lse.launches
+    n1 = launches(clv_slots.uppass_site_lse_slots)
+    n3 = launches(clv.uppass_site_lse)
     st, trace, _ = mcmc.run()
     torch.cuda.synchronize()
-    assert clv.uppass_site_lse.launches == n3
-    assert clv_slots.uppass_site_lse_slots.launches - n1 > 100
+    assert launches(clv.uppass_site_lse) == n3
+    assert launches(clv_slots.uppass_site_lse_slots) - n1 > 100
     again = mcmc._lnL(st)
     assert float(again) == float(mcmc._lnL(st))
     assert abs(float(st.lnL) - float(again)) <= 1e-6
@@ -1519,9 +1542,9 @@ def test_past_the_ladder_runs_the_big_bodies_on_the_card(cuda):
     rv = Topology.random(n, rng, mean_blen=0.2).rooted()
     eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
     assert (eng.lnl_route, eng.edotp_route) == ("K4", "K5")
-    n0 = clv_slots.uppass_site_lse_slots_stream.launches
+    n0 = launches(clv_slots.uppass_site_lse_slots_stream)
     card = float(eng.loglik(params, tree_arrays(rv, device=cuda)))
-    assert clv_slots.uppass_site_lse_slots_stream.launches == n0 + 1
+    assert launches(clv_slots.uppass_site_lse_slots_stream) == n0 + 1
     eng64 = LikelihoodEngine(aln, model, dtype=torch.float64, device="cpu")
     cpu = float(eng64.loglik(params, tree_arrays(rv, dtype=torch.float64,
                                                  device="cpu")))
@@ -1613,10 +1636,10 @@ def test_big_bodies_match_plain(cuda, ns):
     same = (sc_k[free] - sc_p[free]).abs() < 1e-3
     assert float(same.double().mean()) > 0.99
     # grid.z: a stack of trees in one launch, each against one launch
-    n1 = edotp.edge_dotprods_stream.launches
+    n1 = launches(edotp.edge_dotprods_stream)
     d_s, sc_s = edotp.edge_dotprods_stream(eng._topology(childs)[0], tips,
                                            pms, V, Vinv, pi)
-    assert edotp.edge_dotprods_stream.launches == n1 + 1
+    assert launches(edotp.edge_dotprods_stream) == n1 + 1
     for r in range(B):
         d_r, sc_r = edotp.edge_dotprods_stream(
             eng._topology(childs[r])[0], tips, pms[r], V, Vinv, pi)
@@ -1846,15 +1869,15 @@ def test_phyrex_chain_lnl_card_against_cpu(cuda, kind):
     for u in range(tt.n_nodes - 2, -1, -1):
         x[u] = x[par[u]] + rng.normal(size=2) * np.sqrt(dt[u])
     x = x[:tt.n_otu]
-    n1 = clv_slots.uppass_site_lse_slots.launches
-    n3 = clv.uppass_site_lse.launches
+    n1 = launches(clv_slots.uppass_site_lse_slots)
+    n3 = launches(clv.uppass_site_lse)
     res = run_phyrex(card.engine.aln, x, tt, model=card.engine.model,
                      trait_kind=kind, settings=MCMCSettings(
                          n_iter=500, burnin=250, batch=250, seed=4),
                      engine=card.engine)
     torch.cuda.synchronize()
-    assert clv.uppass_site_lse.launches == n3
-    assert clv_slots.uppass_site_lse_slots.launches - n1 > 20
+    assert launches(clv.uppass_site_lse) == n3
+    assert launches(clv_slots.uppass_site_lse_slots) - n1 > 20
     assert np.isfinite(res.anc_locations).all()
     params = cpu.engine.model.init_params(cpu.engine.aln.obs_state_freqs)
     if kind == "slfv":

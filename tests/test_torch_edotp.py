@@ -38,6 +38,7 @@ from phyml_tpu_torch.io.alignment import compact as tcompact
 from phyml_tpu_torch.models.substitution import SubstModel as TModel
 from phyml_tpu_torch.ops import _build, edotp
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine as TEngine
+from phyml_tpu_torch.utils import trace
 
 LNL_TOL = 1e-6     # float64 engines
 EDGE_TOL = 2e-3    # float32 plain version against Pallas (test_pallas.py)
@@ -210,12 +211,14 @@ def _operands():
 @pytest.mark.parametrize("wrapper", ["edge_dotprods", "edge_dotprods_stream"])
 def test_wrapper_runs_the_plain_version_on_cpu_tensors(wrapper):
     ops = _operands()
-    n0 = getattr(edotp, wrapper).launches
+    kernel = {"edge_dotprods": "K2", "edge_dotprods_stream": "K5"}[wrapper]
+    n0 = trace.snapshot().get(f"launch.{kernel}", 0)
     d, sc = getattr(edotp, wrapper)(**ops)
     want_d, want_sc = edotp.edge_dotprods_plain(**ops)
     torch.testing.assert_close(d, want_d, rtol=0, atol=0)
     torch.testing.assert_close(sc, want_sc, rtol=0, atol=0)
-    assert getattr(edotp, wrapper).launches == n0   # no kernel launched
+    # no kernel launched
+    assert trace.snapshot().get(f"launch.{kernel}", 0) == n0
     assert bool((d[-1] == 0).all()) and bool((sc[-1] == 0).all())
 
 

@@ -28,6 +28,7 @@ from phyml_tpu_torch.io.alignment import compact as tcompact
 from phyml_tpu_torch.models.substitution import SubstModel as TModel
 from phyml_tpu_torch.ops import clv, clv_slots, likelihood
 from phyml_tpu_torch.ops.likelihood import LikelihoodEngine as TEngine
+from phyml_tpu_torch.utils import trace
 
 LNL_TOL = 1e-6
 N_TAXA, N_SITES = 16, 110
@@ -137,11 +138,11 @@ def test_engine_passes_the_schedules_own_slot_count(monkeypatch, shape,
 def test_both_wrappers_run_the_plain_version_on_cpu_tensors():
     ops = _operands()
     want = clv_slots.uppass_site_lse_slots_plain(**ops)
-    for f in (clv_slots.uppass_site_lse_slots,
-              clv_slots.uppass_site_lse_slots_stream):
-        n0 = f.launches
+    for f, kernel in ((clv_slots.uppass_site_lse_slots, "K1"),
+                      (clv_slots.uppass_site_lse_slots_stream, "K4")):
+        n0 = trace.snapshot().get(f"launch.{kernel}", 0)
         torch.testing.assert_close(f(**ops), want, rtol=0, atol=0)
-        assert f.launches == n0
+        assert trace.snapshot().get(f"launch.{kernel}", 0) == n0
 
 
 def _operands(n=8, ns=4, P=33, C=4, dtype=torch.float64):
