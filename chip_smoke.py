@@ -473,6 +473,15 @@ def ptxas_regs(log_path):
         if big[1] != 0:
             fail(f"{fragment} spills {big[1]} bytes")
         regs[kname]["big"] = big
+    # K6, the Newton solve: one instantiation (ns a run-time argument)
+    k6 = ptxas_report(log_path, "edge_newton_kernel").get("big", (None, 0))
+    print(f". K6 edge_newton_kernel ptxas: {k6[0]} registers, {k6[1]} B "
+          "spilled")
+    if k6[0] is None:
+        fail("no ptxas report for edge_newton_kernel")
+    if k6[1] != 0:
+        fail(f"edge_newton_kernel spills {k6[1]} bytes")
+    regs["K6"] = {"any": k6}
     return regs
 
 
@@ -4198,6 +4207,218 @@ def distributed_phase(tmp, cuda):
     return out, row
 
 
+# K6 (ops/newton.py, csrc/edge_newton.cu) at the benchmark cells' shapes
+# and the default run's SPR scorer's
+NEWTON_CELLS = ("nt120x10240.abayes", "aa120x10240.abayes")
+NEWTON_SEED = 2026101820
+# K6 held to the plain version as tests/test_torch_newton.py holds it
+# (reasons there): each row's float64 lnL at K6's length within
+# NEWTON_LNL_TOL of its |lnL| plus NEWTON_SLOPE_LEN of |t dlnL/dt| (at
+# the float64 plain version's length) of that at the float32 plain
+# version's; the median relative gap of the lengths to that version's at
+# most NEWTON_LEN_TOL; the median and 99th percentile of the lengths'
+# gaps to the float64 plain version's within NEWTON_F64_TIMES of the
+# float32 plain version's; rows under a False mask keep t0 exactly
+NEWTON_LNL_TOL = 1e-8
+NEWTON_SLOPE_LEN = 1e-3
+NEWTON_LEN_TOL = 1e-5
+NEWTON_F64_TIMES = 4.0
+# K6's time at the NNI shapes at most this many times its bound
+NEWTON_OF_BOUND = 3.0
+
+
+def newton_check(eng, name, solves):
+    """Hold K6's lengths to the plain version's, float32 and float64,
+    over every solve in `solves` [(d, sc, aux, t, iters, mask, got)];
+    fail() when they are off.  Returns the readings."""
+    import torch
+    from phyml_tpu_torch.ops import newton
+
+    rel, lnl_over, to64 = [], 0.0, ([], [])
+    for d, sc, aux, t, iters, mask, got in solves:
+        plain = newton.solve_plain(eng, d, sc, aux, t, iters, mask)
+        d64, sc64 = d.double(), sc.double()
+        aux64 = {k: v.double() for k, v in aux.items()}
+        exact = newton.solve_plain(eng, d64, sc64, aux64, t.double(), iters,
+                                   mask)
+        if mask is not None:
+            keep = ~mask.expand(t.shape)
+            if not torch.equal(got[keep], t[keep]):
+                fail(f"[{name}] K6 moved lengths that its row mask keeps")
+        lnl_k, lnl_p = (eng.edge_lnl_terms(d64, sc64, aux64, x.double())[0]
+                        for x in (got, plain))
+        lnl_x, d1_x, _ = eng.edge_lnl_terms(d64, sc64, aux64, exact)
+        tol = (NEWTON_LNL_TOL * lnl_x.abs()
+               + NEWTON_SLOPE_LEN * (exact * d1_x).abs())
+        lnl_over = max(lnl_over, float(((lnl_k - lnl_p).abs() / tol).max()))
+        rel.append(((got.double() - plain.double()).abs()
+                    / plain.double().abs()).flatten())
+        for out, x in zip(to64, (got, plain)):
+            out.append(((x.double() - exact).abs() / exact).flatten())
+        del d64, sc64, aux64, exact, plain
+    rel = torch.cat(rel)
+    q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=rel.device)
+    qk, qp = (torch.quantile(torch.cat(x), q).tolist() for x in to64)
+    res = dict(max_rel_gap=float(rel.max()),
+               median_rel_gap=float(rel.median()), lnl_over=lnl_over,
+               to_f64_median=[qk[0], qp[0]], to_f64_p99=[qk[1], qp[1]])
+    print(f"  K6 [{name}] against the plain version over {rel.numel()} "
+          f"rows: lengths max {res['max_rel_gap']:.3e} median "
+          f"{res['median_rel_gap']:.3e} (tol {NEWTON_LEN_TOL:g}); lnL "
+          f"gap at most {lnl_over:.3e} of its tolerance; to "
+          f"float64, median / 99th percentile K6 {qk[0]:.3e} / "
+          f"{qk[1]:.3e}, float32 plain {qp[0]:.3e} / {qp[1]:.3e} (K6 "
+          f"within {NEWTON_F64_TIMES:g}x)")
+    if not lnl_over <= 1.0:
+        fail(f"[{name}] K6's lengths lose {lnl_over:.3g} times the lnL "
+             "tolerance against the plain version's")
+    if not res["median_rel_gap"] <= NEWTON_LEN_TOL:
+        fail(f"[{name}] K6's lengths are off the plain version's by a "
+             f"median {res['median_rel_gap']:.3e}")
+    if not (qk[0] <= NEWTON_F64_TIMES * qp[0]
+            and qk[1] <= NEWTON_F64_TIMES * qp[1]):
+        fail(f"[{name}] K6's lengths are further from float64 than the "
+             f"float32 plain version's: {qk} against {qp}")
+    return res
+
+
+def captured_solves(eng, run):
+    """The newton_solve calls `run()` makes on `eng`, each with its
+    result: [(d, sc, aux, t, iters, mask, got)]."""
+    calls, real = [], eng.newton_solve
+
+    def keep(d, sc, aux, t, iters, mask=None):
+        got = real(d, sc, aux, t, iters, mask)
+        calls.append((d, sc, aux, t, iters, mask, got))
+        return got
+
+    eng.newton_solve = keep
+    try:
+        run()
+    finally:
+        del eng.newton_solve
+    return calls
+
+
+def newton_time(eng, name, solve, nni):
+    """One row: K6's median of REPS windows of LAUNCHES launches on
+    `solve`, the bound (the iterations' reads of d over HBM bandwidth),
+    the plain loop's time on the same card tensors (launches=1) and the
+    launch geometry (the cluster a row is split over, the blocks the
+    card holds at once, rows an SM).  fail() when K6 is not faster than
+    the plain loop, or at the NNI shapes (`nni`) more than
+    NEWTON_OF_BOUND times its bound."""
+    from phyml_tpu_torch.ops import newton
+
+    d, sc, aux, t, iters, mask = solve[:6]
+    n_rows = int(np.prod(d.shape[:-3]))
+    _, ms = timed(lambda: eng.newton_solve(d, sc, aux, t, iters, mask))
+    _, plain_ms = timed(lambda: newton.solve_plain(
+        eng, d, sc, aux, t, iters, mask), launches=1)
+    bound_ms = iters * d.numel() * 4 / PEAK_BYTES * 1e3
+    geo = newton.geometry(n_rows, eng.P, eng.C, eng.ns)
+    print(f"  K6 [{name}] {tuple(d.shape)} x {iters}: {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({100 * bound_ms / ms:.1f} %), plain "
+          f"{plain_ms:.3f} ms; cluster {geo['cluster']}, {geo['slots']} "
+          f"slots, {geo['rows_per_sm']:.2f} rows an SM")
+    if not ms < plain_ms:
+        fail(f"[{name}] K6 takes {ms:.3f} ms, the plain loop {plain_ms:.3f}")
+    if nni and not ms <= NEWTON_OF_BOUND * bound_ms:
+        fail(f"[{name}] K6 takes {ms:.3f} ms, more than "
+             f"{NEWTON_OF_BOUND:g}x its bound {bound_ms:.3f} ms")
+    return dict(name=f"K6 {name}", shape=list(d.shape), iters=iters, ms=ms,
+                bound_ms=bound_ms, bound="bytes", of_bound=bound_ms / ms,
+                plain_ms=plain_ms, **geo)
+
+
+def newton_phase(workdir, cuda):
+    """K6 where the port runs it.  Each benchmark cell set up as
+    portbench/harness.py sets it up (the seed's inputs, the set-up fit):
+    its NNI scorer's 8 solves captured from one support unit (the
+    central edge's: [117, 3, C, ns, P], 5 iterations, stride-0 scales),
+    and the fit's branch-length solve on the fitted tree ([239, C, ns,
+    P], 10 iterations, the row mask).  And the default run's SPR scorer
+    (DEFAULT_RUN_TAXA, one call of spr.default_batch_k candidates on the
+    simulating tree): its 6 solves ([N, K, C, ns, P], 6 iterations).
+    Every solve is held to the plain version (newton_check); the first
+    of each kind is timed (newton_time).  Returns the rows, with the K6
+    launches of the support unit."""
+    import torch
+    from portbench import gen, harness, units
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops import newton
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.search import spr
+    from phyml_tpu_torch.topology import Topology
+    from phyml_tpu_torch.utils import trace
+
+    bench = harness.manifest()
+    rows = []
+    for cell in NEWTON_CELLS:
+        _, _, config, traffic, _ = harness.cell_of(bench, cell)
+        aln, tree_path = gen.write_problem(config, NEWTON_SEED,
+                                           os.path.join(workdir, cell))
+        unit = units.unit_of(traffic, config, aln, tree_path, "gpu",
+                             NEWTON_SEED % (2 ** 31))
+        unit.setup()
+        eng, model, params, topo = unit.state
+        before = trace.snapshot()
+        calls = captured_solves(eng, unit.run)
+        torch.cuda.synchronize()
+        unit_launches = trace.since(before).get("launch.K6", 0)
+        if unit_launches != 8 or len(calls) != 8:
+            fail(f"[{cell}] {unit_launches} K6 launches, {len(calls)} "
+                 "solves in a unit (want 8)")
+        checks = {"nni": newton_check(eng, f"{cell} nni", calls)}
+        nni_solve = calls[0]
+        del calls
+        rv = topo.rooted()
+        tree = tree_arrays(rv, dtype=torch.float32, device=eng.device)
+        d, sc, aux = eng.edge_dotprods_sys(eng.system_of(params), tree)
+        idx = torch.arange(eng.n_nodes, device=eng.device)
+        mask = (idx != eng.n_nodes - 1) & (idx != int(tree.child[-1, 1]))
+        t = torch.clamp(tree.blen, newton.BL_MIN, newton.BL_MAX)
+        blen_solve = (d, sc, aux, t, 10, mask,
+                      eng.newton_solve(d, sc, aux, t, 10, mask))
+        checks["blen"] = newton_check(eng, f"{cell} blen", [blen_solve])
+        for label, solve in (("nni", nni_solve), ("blen", blen_solve)):
+            rows.append(dict(newton_time(eng, f"{cell} {label}", solve,
+                                         label == "nni"),
+                             unit_launches=unit_launches, **checks[label]))
+        unit.free()
+        del nni_solve, blen_solve, d, sc, aux
+        torch.cuda.empty_cache()
+    for dt in ("nt", "aa"):
+        n_taxa = DEFAULT_RUN_TAXA[dt]
+        aln_path, tree_path = write_problem(
+            os.path.join(workdir, f"spr_{dt}{n_taxa}"), dt, n_taxa, N_SITES,
+            SEED)
+        args = cli.build_parser().parse_args(default_argv(dt, aln_path,
+                                                          "gpu"))
+        aln = read_alignment(aln_path, datatype=dt)
+        model = cli._build_model(args, aln)
+        params = cli._init_params(args, model, aln)
+        eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+        with open(tree_path) as fh:
+            rv = Topology.from_newick(fh.read(), aln.names).rooted()
+        tree = tree_arrays(rv, dtype=torch.float32, device=cuda)
+        vs = spr.prune_candidates(rv)[:spr.default_batch_k(eng, rv)]
+        moves = [spr.spr_move_arrays(rv, v) for v in vs]
+        calls = captured_solves(eng, lambda: spr.spr_scores_batched(
+            eng, params, tree, np.stack([m for m, _ in moves]), vs,
+            np.stack([v for _, v in moves])))
+        if len(calls) != 6:
+            fail(f"[{dt} SPR] {len(calls)} solves in a scorer call (want 6)")
+        name = f"{dt}{n_taxa} default run SPR"
+        check = newton_check(eng, name, calls)
+        rows.append(dict(newton_time(eng, name, calls[0], False),
+                         candidates=len(vs), **check))
+        del calls, eng
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4241,6 +4462,8 @@ def main() -> int:
 
     rows, runs, supports, mix = [], {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        newton_rows = newton_phase(tmp, cuda)
+        torch.cuda.empty_cache()
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
                 os.path.join(tmp, dt), dt, N_TAXA, N_SITES, SEED)
@@ -4325,6 +4548,7 @@ def main() -> int:
     print(json.dumps({"aux_tools": aux}, default=str))
     print(json.dumps({"phyrex": phyrex}, default=str))
     print(json.dumps({"distributed": distributed}, default=str))
+    print(json.dumps({"newton": newton_rows}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,12 @@ _SIGNATURES = {
     # ns | blocks per SM (int*)
     "phyml_edge_dotprods_occupancy": [_I, _P],
     "phyml_edge_dotprods_stream_occupancy": [_I, _P],
+    # d sc t_in mask wts lam w pinv inv_lk invar_ok | out | strides
+    # (int64[12]) | rows lead_b C ns P iters invar w_group | stream
+    "phyml_edge_newton": [_P] * 12 + [_I] * 8 + [_P],       # K6
+    "phyml_edge_newton_sums": [_P] * 12 + [_I] * 8 + [_P],  # K6, sums
+    # rows P C ns | cluster, resident blocks, SMs (int[3])
+    "phyml_edge_newton_geometry": [_I] * 4 + [_P],
 }
 
 

@@ -71,7 +71,7 @@ from torch import nn
 from phyml_tpu_torch.io.alignment import Alignment
 from phyml_tpu_torch.models.eigen import mgf_rates, pmat
 from phyml_tpu_torch.models.substitution import SubstModel
-from phyml_tpu_torch.ops import _build
+from phyml_tpu_torch.ops import _build, newton
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
     MAX_BLOCK_SMEM, build_slot_schedule, padded_tips, uppass_site_lse_slots,
@@ -826,3 +826,12 @@ class LikelihoodEngine(nn.Module):
         return self._sum_sites(torch.sum(site.double() * wts, dim=-1),
                                torch.sum(dln.double() * wts, dim=-1),
                                torch.sum(d2ln.double() * wts, dim=-1))
+
+    def newton_solve(self, d, sc, aux, t, iters, mask=None):
+        """`iters` safeguarded Newton steps on every row's edge length t
+        [*lead] (at most two leading axes), each row on its own curve
+        edge_lnl_terms(d, sc, aux, t) with d [*lead, C, ns, P] and sc
+        [*lead, C, P]; rows where `mask` (broadcast to t) is False keep
+        their length.  One K6 launch on the card, the plain loop on the
+        CPU (ops/newton.py)."""
+        return newton.solve(self, d, sc, aux, t, iters, mask)

@@ -34,10 +34,9 @@ import numpy as np
 import torch
 
 from phyml_tpu_torch.ops.likelihood import TreeArrays
+from phyml_tpu_torch.ops.newton import BL_MAX, BL_MIN
 from phyml_tpu_torch.utils import trace
 
-BL_MIN = 1e-8   # utilities.h:483
-BL_MAX = 100.0  # utilities.h:484
 _N_NEWTON = 10
 _MAX_BACKTRACK = 15
 
@@ -45,20 +44,7 @@ _MAX_BACKTRACK = 15
 @trace.traced("blen.newton")
 def _newton_all_edges(engine, d, sc_d, aux, t0, mask):
     trace.count("blen.newton_iters", _N_NEWTON)
-    t = t0
-    for _ in range(_N_NEWTON):
-        _, d1, d2 = engine.edge_lnl_terms(d, sc_d, aux, t)
-        newton = t - d1 / torch.where(d2 < 0, d2, -1.0)
-        # fall back to a multiplicative probe when curvature is
-        # useless; clamp each step to a factor-of-3 move
-        probe = torch.where(d1 > 0, t * 3.0, t / 3.0)
-        t_new = torch.where(d2 < -1e-12, newton, probe)
-        t_new = torch.minimum(torch.maximum(t_new, t / 3.0), t * 3.0)
-        t_new = torch.clamp(t_new, BL_MIN, BL_MAX)
-        # edge_lnl_terms accumulates in float64; keep t at the engine
-        # dtype
-        t = torch.where(mask, t_new, t0).to(t0.dtype)
-    return t
+    return engine.newton_solve(d, sc_d, aux, t0, _N_NEWTON, mask)
 
 
 @trace.traced("blen.round")

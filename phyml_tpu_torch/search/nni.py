@@ -57,14 +57,7 @@ def candidate_arrays(rv):
 @trace.traced("nni.newton")
 def _newton(engine, d, sc_d, aux, t, iters=5):
     """Safeguarded Newton on every configuration's length t [E, 3]."""
-    for _ in range(iters):
-        _, d1, d2 = engine.edge_lnl_terms(d, sc_d, aux, t)
-        nt = t - d1 / torch.where(d2 < 0, d2, -1.0)
-        probe = torch.where(d1 > 0, t * 3.0, t / 3.0)
-        tn = torch.where(d2 < -1e-12, nt, probe)
-        tn = torch.minimum(torch.maximum(tn, t / 3.0), t * 3.0)
-        t = torch.clamp(tn, BL_MIN, BL_MAX).to(t.dtype)
-    return t
+    return engine.newton_solve(d, sc_d, aux, t, iters)
 
 
 @trace.traced("nni.score")

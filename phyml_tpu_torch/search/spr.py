@@ -41,17 +41,6 @@ from phyml_tpu_torch.ops.likelihood import TreeArrays, tree_arrays
 from phyml_tpu_torch.optim.blen import BL_MAX, BL_MIN
 
 
-def _newton_1d(engine, d, sc_d, aux, t, iters):
-    for _ in range(iters):
-        _, d1, d2 = engine.edge_lnl_terms(d, sc_d, aux, t)
-        newton = t - d1 / torch.where(d2 < 0, d2, -1.0)
-        probe = torch.where(d1 > 0, t * 3.0, t / 3.0)
-        tn = torch.where(d2 < -1e-12, newton, probe)
-        tn = torch.minimum(torch.maximum(tn, t / 3.0), t * 3.0)
-        t = torch.clamp(tn, BL_MIN, BL_MAX).to(t.dtype)
-    return t
-
-
 def _spr_scorer(engine, sys, tree: TreeArrays, masks, vs, valids,
                 weights):
     """Per (candidate k, target edge e) the regraft lnL with the triple
@@ -96,7 +85,7 @@ def _spr_scorer(engine, sys, tree: TreeArrays, masks, vs, valids,
         return torch.einsum("czi,ekczp->ekcip", V, y) * b_v
 
     def newton(d, t):
-        return _newton_1d(engine, d, sc_base, aux, t, 6)
+        return engine.newton_solve(d, sc_base, aux, t, 6)
 
     def inside(t1):
         return torch.einsum("ekcxy,ekcyp->ekcxp", P_of(t1), clv)

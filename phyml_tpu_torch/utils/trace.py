@@ -17,6 +17,8 @@ apart (`profiled()`), so that whoever ran the profiler reads the
 counts of its window after it ends.  Names:
 
   launch.K1 .. launch.K5        hand-written kernel launches (ops/)
+  launch.K6                     the Newton solve (ops/newton.py): one a
+                                solve, or one an iteration when sharded
   launch.K3.batch.<B>           K3 by batch size of one schedule
   launch.K3.trees.<R>           K3, K2, K5 on a stack of R trees
   launch.K2.trees.<R>, launch.K5.trees.<R>
