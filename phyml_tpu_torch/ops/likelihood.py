@@ -79,7 +79,7 @@ from phyml_tpu_torch.ops.clv_slots import (
 )
 from phyml_tpu_torch.ops.clv_slots import geometry as slot_geometry
 from phyml_tpu_torch.ops.edotp import edge_dotprods, edge_dotprods_stream
-from phyml_tpu_torch.utils.trace import traced
+from phyml_tpu_torch.utils.trace import span, traced
 
 # K1 holds each class's P-matrices of the whole tree in its warp's
 # shared memory, K4 streams each step's two through a ring; K2 and K5 are
@@ -305,7 +305,8 @@ class LikelihoodEngine(nn.Module):
         hit = self._sys_cache
         if hit is not None and hit[0] == key:
             return hit[2]
-        sys = self._system(params)
+        with span("model.system"):
+            sys = self._system(params)
         # strong refs to the values keep their ids from being reused
         self._sys_cache = (key, list(params.values()), sys)
         return sys

@@ -89,9 +89,16 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
         sc_d = sc_tot[:, None].expand(d.shape[:2] + sc_tot.shape[1:])
         return _newton(engine, d, sc_d, aux, t)
 
+    def product(spec, a, b):
+        """A dense state product, counted from its shape: each output
+        entry sums ns terms (2 x rows x C x ns^2 x P FLOPs)."""
+        out = torch.einsum(spec, a, b)
+        trace.count("nni.state_flops", 2 * ns * out.numel())
+        return out
+
     def dots(x, y):
-        bx = torch.einsum("ciy,ekcyp->ekcip", Vinv, x)
-        ay = torch.einsum("czi,ekczp->ekcip", V, y)
+        bx = product("ciy,ekcyp->ekcip", Vinv, x)
+        ay = product("czi,ekczp->ekcip", V, y)
         return ay * bx
 
     def P_of(t):
@@ -100,10 +107,10 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
         return p.reshape(E, 3, C, ns, ns)
 
     def push(P, x):
-        return torch.einsum("ekcxy,ekcyp->ekcxp", P, x)
+        return product("ekcxy,ekcyp->ekcxp", P, x)
 
     def pushT(P, x):
-        return torch.einsum("ekcyx,ekcyp->ekcxp", P, x)
+        return product("ekcyx,ekcyp->ekcxp", P, x)
 
     with trace.span("nni.outside"):
         cand = torch.as_tensor(np.asarray(cand), dtype=torch.long,
@@ -120,7 +127,7 @@ def _nni_scorer(engine, sys, tree: TreeArrays, cand, weights):
         v, u, a, b, s = (cand[:, k] for k in range(5))
         # out[v] = (P_u^T out[u]) . pup[s]: the config-independent
         # outside factor above the central edge
-        G = torch.einsum("ecwz,ecwp->eczp", at(pmats, u), at(out, u))
+        G = product("ecwz,ecwp->eczp", at(pmats, u), at(out, u))
         sc_tot = at(sc, a) + at(sc, b) + at(sc, s) + at(sc_out, u)
         # per-config subtree roles: children (x1, x2) and sibling x3
         ca, cb, cs = at(clv, a), at(clv, b), at(clv, s)

@@ -19,6 +19,15 @@ counts of its window after it ends.  Names:
   launch.K1 .. launch.K5        hand-written kernel launches (ops/)
   launch.K6                     the Newton solve (ops/newton.py): one a
                                 solve, or one an iteration when sharded
+  nni.state_flops               FLOPs of the NNI scorer's dense state
+                                products (search/nni.py: G, push, pushT
+                                and both einsums of dots), 2 x rows x C
+                                x ns^2 x P each, counted from shapes as
+                                each is issued
+  (span) model.system           not a counter: the class system's
+                                construction (the eigensystem) in
+                                LikelihoodEngine.system_of, on a miss
+                                of its cache
   launch.K3.batch.<B>           K3 by batch size of one schedule
   launch.K3.trees.<R>           K3, K2, K5 on a stack of R trees
   launch.K2.trees.<R>, launch.K5.trees.<R>

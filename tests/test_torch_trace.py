@@ -10,6 +10,12 @@
 * `host.syncs.<site>` and `host.d2h_bytes` equal a count by hand from
   the shapes read; the optimiser's counters agree with each other and
   with the line search's grid.
+* `nni.state_flops` equals 2 x rows x C x ns^2 x P summed over the NNI
+  scorer's dense products, 35 1/3 products of 3E rows a call, at 80
+  states in one class (covarion) and 20 states in four (LG+G4).
+* `model.system` spans the class system's construction while a
+  profiler records, and only on a miss of the engine's cache; with none
+  recording it enters no `record_function` and counts nothing.
 * `cli.py --profile_out` on a CPU run writes a Chrome trace with the
   `phyml.cli.*` spans and the run's counters.
 """
@@ -46,6 +52,7 @@ SCORER_PARENT = {
     "nni.newton": "nni.sweep",
     "nni.final": "nni.score",
     "host.sync": "support.alrt",
+    "model.system": "support.alrt",
 }
 # spans a call opens: two sweeps of four Newton solves; seven host
 # reads (lnL, the four lengths, the site matrix, the weights)
@@ -104,6 +111,7 @@ def _profiled(fn):
 
 def test_scorer_and_engine_spans_nest_as_listed(problem):
     _, _, eng, model, params, topo = problem
+    eng._sys_cache = None           # the call builds its class system
     _, parents = _profiled(
         lambda: alrt_supports(eng, model, params, topo, method="abayes"))
     assert set(parents) == set(SCORER_PARENT)
@@ -145,6 +153,57 @@ def test_host_reads_by_hand(problem, method):
             if k.startswith("host.syncs.")} == want
     assert got["host.d2h_bytes"] == nbytes
     assert not any(k.startswith("launch.") for k in got)   # plain versions
+
+
+@pytest.fixture(scope="module")
+def aa_problem(tmp_path_factory):
+    """(alignment, topology): 8 taxa x 40 amino-acid sites simulated
+    under LG+G4 on a random tree."""
+    rng = np.random.default_rng(13)
+    model = SubstModel(datatype="aa", name="LG", n_classes=4)
+    params = model.init_params(np.full(20, 0.05))
+    topo = Topology.random(N_TAXA, rng, mean_blen=0.15)
+    names, seqs = simulate_alignment(topo, model, params, 40, rng)
+    path = str(tmp_path_factory.mktemp("trace_aa") / "aln.phy")
+    write_phylip(path, names, seqs)
+    aln = read_alignment(path, datatype="aa")
+    return aln, Topology.from_newick(topo.to_newick(names), aln.names)
+
+
+@pytest.mark.parametrize("covarion, C, ns", [(True, 1, 80),
+                                             (False, 4, 20)])
+def test_state_flops_by_shape(aa_problem, covarion, C, ns):
+    aln, topo = aa_problem
+    model = SubstModel(datatype="aa", name="LG", n_classes=C,
+                       covarion=covarion, n_hidden=4, cov_mode="alpha")
+    params = model.init_params(aln.obs_state_freqs)
+    eng = LikelihoodEngine(aln, model, dtype=torch.float64, device="cpu")
+    assert (eng.C, eng.ns) == (C, ns)
+    before = trace.snapshot()
+    alrt_supports(eng, model, params, topo, method="abayes")
+    E, P = N_TAXA - 3, eng.P
+    # G (E rows) and 35 products of 3E rows: 15 a sweep, 5 at the end
+    assert trace.since(before)["nni.state_flops"] == \
+        (2 * E + 35 * 2 * 3 * E) * C * ns * ns * P
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_model_system_span(problem, monkeypatch, recording):
+    _, _, eng, model, params, topo = problem
+    eng._sys_cache = None
+    before = trace.snapshot()
+    if recording:
+        _, parents = _profiled(lambda: [eng.system_of(params)
+                                        for _ in range(2)])
+        assert parents == {"model.system": [None]}     # one miss, one hit
+    else:
+        def refuse(*a, **kw):
+            raise AssertionError("record_function entered with no "
+                                 "profiler")
+
+        monkeypatch.setattr(torch.profiler, "record_function", refuse)
+        eng.system_of(params)
+    assert trace.since(before) == {}
 
 
 def test_branch_length_counters_agree(problem):
