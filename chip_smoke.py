@@ -158,12 +158,22 @@
    to `_loglik_np` + its prior + a float64 sequence lnL, and
    GeoModel.loglik on the card to the CPU's.
 
+Before step 3 it runs the edge-length Newton kernel K6 at the benchmark
+cells' shapes (`newton_phase`, whose support units must also launch
+K7 twice) and the scan passes' kernel K7 at all three cells' shapes
+(`scan_phase`: against the float32 loops, the NNI scorer through it
+against the scorer through them and two K7 launches a call, each pass
+timed beside its bound; K7's ptxas report read first, a spill fails).
+Each default run must launch K7 twice an NNI scorer call.
+
 It prints a JSON line of the default runs' numbers, a JSON line of the
 supports' numbers, a JSON line of step 10's numbers, a JSON line of
 the phytime runs' numbers, a JSON line of step 12's numbers, a JSON
 line of step 13's (`aux_tools`: each tool's wall-clock, the fits'
 launches, the idle shares), a JSON line of step 14's (`phyrex`), a
-JSON line of step 15's (`distributed`), a JSON line of per-kernel
+JSON line of step 15's (`distributed`), a JSON line of K6's rows
+(`newton`), one of K7's (`scan`, with its ptxas report), a JSON line of
+per-kernel
 results
 (`launches` from the default run, `launches_fixed_fit` from step 6,
 `launches_aux_tools_fit` from step 13's tools run; the stacked forms'
@@ -1291,10 +1301,15 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
         wall = time.time() - t1
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     busy = statistics.mean(util) if util else None
-    counts = launch_counts()
+    # K1-K5, and the NNI scorer's K6 solves and K7 scan passes
+    counts = dict(launch_counts(), **{
+        k: _counted().get(f"launch.{k}", 0) for k in ("K6", "K7")})
     k3_by_b = launches_by("K3", "batch")
     if rc != 0:
         fail(f"[{tag}] the default run returned {rc}")
+    if counts["K7"] != 2 * st["NNI scorer"]["calls"]:
+        fail(f"[{tag}] K7 launched {counts['K7']} times in "
+             f"{st['NNI scorer']['calls']} NNI scorer calls (want 2 a call)")
     text = out.getvalue()
     with open(os.path.join(os.path.dirname(aln_path),
                            "default_run.log"), "w") as fh:
@@ -1360,7 +1375,8 @@ def default_run(dt, aln_path, tree_path, cuda, batch_k, extra=(), tag=None):
     if k3_by_b.get(1, 0):
         fail(f"[{tag}] default run: K3 ran {k3_by_b[1]} single-system "
              f"passes; those belong to {path[0]}")
-    for name, count in counts.items():
+    for name in wrappers():  # K1-K5: the route's; K6 and K7 always run
+        count = counts[name]
         if name in path and count <= 0:
             fail(f"[{tag}] {name} never launched in the default run")
         if name not in path and count != 0:
@@ -4366,10 +4382,15 @@ def newton_phase(workdir, cuda):
         before = trace.snapshot()
         calls = captured_solves(eng, unit.run)
         torch.cuda.synchronize()
-        unit_launches = trace.since(before).get("launch.K6", 0)
+        moved = trace.since(before)
+        unit_launches = moved.get("launch.K6", 0)
         if unit_launches != 8 or len(calls) != 8:
             fail(f"[{cell}] {unit_launches} K6 launches, {len(calls)} "
                  "solves in a unit (want 8)")
+        # the unit's NNI scorer: one K7 launch a scan pass
+        scan_launches = moved.get("launch.K7", 0)
+        if scan_launches != 2:
+            fail(f"[{cell}] {scan_launches} K7 launches in a unit (want 2)")
         checks = {"nni": newton_check(eng, f"{cell} nni", calls)}
         nni_solve = calls[0]
         del calls
@@ -4385,7 +4406,9 @@ def newton_phase(workdir, cuda):
         for label, solve in (("nni", nni_solve), ("blen", blen_solve)):
             rows.append(dict(newton_time(eng, f"{cell} {label}", solve,
                                          label == "nni"),
-                             unit_launches=unit_launches, **checks[label]))
+                             unit_launches=unit_launches,
+                             unit_scan_launches=scan_launches,
+                             **checks[label]))
         unit.free()
         del nni_solve, blen_solve, d, sc, aux
         torch.cuda.empty_cache()
@@ -4415,6 +4438,234 @@ def newton_phase(workdir, cuda):
         rows.append(dict(newton_time(eng, name, calls[0], False),
                          candidates=len(vs), **check))
         del calls, eng
+        torch.cuda.empty_cache()
+    return rows
+
+
+# K7 (ops/scan.py, csrc/scan.cu), the scan passes, at the benchmark
+# cells' shapes: held to the float32 loops (the engine's plain version)
+# on the cell's data and simulating tree at the configuration's start
+# point, as tests/test_torch_scan_kernel.py holds it (reasons there):
+# each output's largest gap relative to its column's maximum within
+# SCAN_GAP_TOL (SCAN_GAP_TOL_WIDE past 64 states), the scales within
+# SCAN_SC_TOL x (1 + |the loop's|), the NNI scorer's lnL within
+# SCAN_LNL_TOL relative of the scorer's through the loops (about 0.75
+# lnL at 120 x 10,240 amino acids: aBayes supports turn on differences
+# of a few units) and counted, two K7 launches a call; timed
+# against the bound, each pass at most SCAN_OF_BOUND times it at 20 and
+# 80 states, both under SCAN_NT_MS at 4
+SCAN_CELLS = ("nt120x10240.abayes", "aa120x10240.abayes",
+              "aa120x10240-galtier4.abayes")
+SCAN_SEED = 2026101922
+SCAN_GAP_TOL = 5e-5
+SCAN_GAP_TOL_WIDE = 1e-4
+SCAN_SC_TOL = 5e-5
+SCAN_LNL_TOL = 1e-6
+SCAN_OF_BOUND = 3.0
+SCAN_NT_MS = 1.0
+
+
+def scan_ptxas(log_path):
+    """{mangled name: (registers, spill bytes)} of K7's instantiations
+    (scan_up_warp and scan_down_warp at each rung of the ladder,
+    scan_up_wide and scan_down_wide past it, at each tile); fails on a
+    missing report or a spill."""
+    from phyml_tpu_torch.ops import _build
+
+    import re
+
+    out, name = {}, None
+    with open(log_path) as fh:
+        for line in fh:
+            m = re.search(r"(?:entry function|properties for) '?"
+                          r"(\S*scan_(?:up|down)_w(?:arp|ide)[^\s']*)", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[name] = (out.get(name, (None, 0))[0],
+                             int(m.group(1)) + int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name] = (int(m.group(1)), out.get(name, (None, 0))[1])
+                name = None
+    print(f". K7 ptxas (registers, spill bytes): {out}")
+    # the one-warp bodies at each rung; the wide up body at tiles of 32
+    # (staged and not), 16, 8 and 4, the wide down body at the four
+    want = 2 * len(_build.LADDER) + 9
+    if len(out) != want or any(r is None for r, _ in out.values()):
+        fail(f"K7: {len(out)} of {want} instantiations in the ptxas report")
+    for name, (_, spill) in out.items():
+        if spill:
+            fail(f"K7 spills {spill} bytes in {name}")
+    return out
+
+
+def scan_bound(eng, down):
+    """(flops, bytes) a pass must do at least: the products (2 ns^2 a
+    column of a node, the root's excepted going down) and the elementwise
+    product and division of each internal step; reads of pup of every
+    non-root node (and the tips up, out of every internal non-root node
+    down), writes of pup and clv of every node up, out of every node down,
+    the scales and the P-matrices."""
+    n, n_int, C, ns, P = eng.n_otu, eng.n_internal, eng.C, eng.ns, eng.P
+    nodes = n + n_int
+    plane, row = C * ns * P * 4, C * P * 4
+    pm = nodes * C * ns * ns * 4
+    if down:
+        flops = (n_int - 1) * C * P * 2 * ns * ns + n_int * C * P * ns * 4
+        nbytes = ((nodes - 1) * plane + (n_int - 1) * plane + nodes * plane
+                  + (nodes - 1) * row + (n_int - 1) * row + nodes * row + pm)
+    else:
+        flops = nodes * C * P * 2 * ns * ns + n_int * C * P * ns * 2
+        nbytes = (n * ns * P * 4 + (nodes - 1) * plane + 2 * nodes * plane
+                  + (nodes - 1) * row + nodes * row + pm)
+    return flops, nbytes
+
+
+def scan_gaps(got, ref):
+    """Largest gaps of K7's (pup, clv, sc, out, sc_out) to the loops':
+    the partials relative to each column's maximum, the scales relative
+    to 1 + |the loop's|."""
+    out = {}
+    for k, name in enumerate(("pup", "clv", "sc", "out", "sc_out")):
+        x, y = got[k].double(), ref[k].double()
+        if name.startswith("sc"):
+            out[name] = float(((x - y).abs() / (1 + y.abs())).max())
+        else:
+            m = y.abs().amax(dim=-2, keepdim=True).clamp(min=1e-30)
+            out[name] = float(((x - y).abs() / m).max())
+    return out
+
+
+def scan_phase(workdir, cuda):
+    """K7 at each benchmark cell's shape (SCAN_CELLS): its data and
+    simulating tree, the configuration's start point.  Both passes
+    against the loops (scan_gaps), the root's outside rows zero, the NNI
+    scorer against the scorer through the loops, each pass timed
+    (`timed`, SCAN_SEED's data) beside its bound and the loop's time.
+    Returns the rows; fail() on a gap past its tolerance or a time past
+    its limit."""
+    import torch
+    from portbench import gen, harness, units
+    from phyml_tpu_torch import cli
+    from phyml_tpu_torch.io.alignment import read_alignment
+    from phyml_tpu_torch.ops import scan
+    from phyml_tpu_torch.ops.likelihood import LikelihoodEngine, tree_arrays
+    from phyml_tpu_torch.search import nni
+    from phyml_tpu_torch.topology import Topology
+    from phyml_tpu_torch.utils import trace
+
+    bench = harness.manifest()
+    rows = []
+    for cell in SCAN_CELLS:
+        t0 = time.time()
+        _, _, config, traffic, _ = harness.cell_of(bench, cell)
+        aln_path, tree_path = gen.write_problem(
+            config, SCAN_SEED, os.path.join(workdir, f"scan_{cell}"))
+        argv = units.fill(traffic["setup_argv"], aln_path, tree_path, config,
+                          "gpu", SCAN_SEED % (2 ** 31))
+        args = cli.build_parser().parse_args(argv)
+        aln = read_alignment(args.input, datatype=args.datatype)
+        model = cli._build_model(args, aln)
+        params = cli._init_params(args, model, aln)
+        eng = LikelihoodEngine(aln, model, dtype=torch.float32, device=cuda)
+        with open(tree_path) as fh:
+            rv = Topology.from_newick(fh.read(), aln.names).rooted()
+        tree = tree_arrays(rv, dtype=torch.float32, device=cuda)
+        lam, V, Vinv, pi = eng.system_of(params)[:4]
+        pm = eng._pmats(lam, V, Vinv, tree.blen)
+        if not eng._scan_kernel(pm, None):
+            fail(f"[{cell}] the scan passes do not take K7")
+        child = eng._scan_child(tree.child)
+        before = trace.snapshot()
+        up = scan.up_pass(child, eng.tips, pm)
+        got = up + scan.down_pass(child, pm, up[0], up[2], pi)
+        torch.cuda.synchronize()
+        if trace.since(before).get("launch.K7", 0) != 2:
+            fail(f"[{cell}] K7 launched {trace.since(before)} times")
+        loop = lambda pmats, mask: False
+        eng._scan_kernel = loop
+        try:
+            ref_up = eng._up_pass(pm, tree.child)
+            ref = ref_up + eng._down_pass(pm, tree.child, ref_up[0],
+                                          ref_up[2], pi)
+            torch.cuda.synchronize()
+            gaps = scan_gaps(got, ref)
+            del ref, ref_up
+            root = eng.n_nodes - 1
+            if float(got[3][root].abs().max()) != 0.0 or \
+                    float(got[4][root].abs().max()) != 0.0:
+                fail(f"[{cell}] K7's root outside row is not zero")
+            tol = SCAN_GAP_TOL_WIDE if eng.ns > 64 else SCAN_GAP_TOL
+            print(f"  K7 [{cell}] against the loops: {gaps} (tolerance "
+                  f"{tol:g}, scales {SCAN_SC_TOL:g})")
+            if max(gaps["pup"], gaps["clv"], gaps["out"]) > tol or \
+                    max(gaps["sc"], gaps["sc_out"]) > SCAN_SC_TOL:
+                fail(f"[{cell}] K7 is off the loops: {gaps}")
+            cand = nni.candidate_arrays(rv)
+            before = trace.snapshot()
+            lnl0 = nni.nni_scores(eng, params, tree, cand)[0]
+            if trace.since(before).get("launch.K7", 0) != 0:
+                fail(f"[{cell}] the scorer through the loops launched K7")
+            _, loop_up_ms = timed(lambda: eng._up_pass(pm, tree.child),
+                                  launches=1)
+            _, loop_down_ms = timed(lambda: eng._down_pass(
+                pm, tree.child, got[0], got[2], pi), launches=1)
+        finally:
+            del eng._scan_kernel
+        before = trace.snapshot()
+        lnl = nni.nni_scores(eng, params, tree, cand)[0]
+        scorer_launches = trace.since(before).get("launch.K7", 0)
+        if scorer_launches != 2:
+            fail(f"[{cell}] the NNI scorer launched K7 {scorer_launches} "
+                 "times (want 2)")
+        lnl_gap = float(np.max(np.abs(lnl - lnl0) / np.abs(lnl0)))
+        print(f"  K7 [{cell}] NNI scorer lnL, largest relative gap to the "
+              f"loops' {lnl_gap:.3e} (tolerance {SCAN_LNL_TOL:g})")
+        if not lnl_gap <= SCAN_LNL_TOL:
+            fail(f"[{cell}] the NNI scorer through K7 is off by {lnl_gap:.3e}")
+        del got
+        torch.cuda.empty_cache()
+        times = {}
+        for down, plain_ms in ((False, loop_up_ms), (True, loop_down_ms)):
+            if down:
+                pup, _, sc = scan.up_pass(child, eng.tips, pm)
+                _, ms = timed(lambda: scan.down_pass(child, pm, pup, sc, pi))
+                del pup, sc
+            else:
+                _, ms = timed(lambda: scan.up_pass(child, eng.tips, pm))
+            flops, nbytes = scan_bound(eng, down)
+            bound_ms, by = bound(flops, nbytes)
+            geo = scan.geometry(eng.ns, down)
+            name = "down" if down else "up"
+            times[name] = ms
+            print(f"  K7 {name} [{cell}] ({eng.n_nodes}, {eng.C}, {eng.ns}, "
+                  f"{eng.P}): {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB; "
+                  f"{100 * bound_ms / ms:.1f} %), loop {plain_ms:.3f} ms; "
+                  f"block {geo['threads']} threads, tile {geo['tile']}, "
+                  f"{geo['smem_bytes']} B"
+                  + (", matrix staged" if geo["staged"] else ""))
+            if eng.ns > 4 and not ms <= SCAN_OF_BOUND * bound_ms:
+                fail(f"[{cell}] K7 {name} takes {ms:.4f} ms, more than "
+                     f"{SCAN_OF_BOUND:g}x its bound {bound_ms:.4f} ms")
+            rows.append(dict(name=f"K7 {name}", cell=cell,
+                             shape=[eng.n_nodes, eng.C, eng.ns, eng.P],
+                             ms=ms, bound_ms=bound_ms, bound_by=by,
+                             of_bound=ms / bound_ms, plain_ms=plain_ms,
+                             gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                             lnl_gap=lnl_gap, scorer_launches=scorer_launches,
+                             **gaps, **geo))
+        if eng.ns == 4 and not times["up"] + times["down"] < SCAN_NT_MS:
+            fail(f"[{cell}] K7's passes take {times} ms, not under "
+                 f"{SCAN_NT_MS:g} ms together")
+        print(f". [scan] {cell}: {time.time() - t0:.1f} s")
+        del eng, pm, child
         torch.cuda.empty_cache()
     return rows
 
@@ -4458,11 +4709,14 @@ def main() -> int:
                                        "spill")):
                 print(f"  ptxas: {line.strip()}")
     regs = ptxas_regs(log_path)
+    scan_regs = scan_ptxas(log_path)
     sass = big_sass(so)
 
     rows, runs, supports, mix = [], {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         newton_rows = newton_phase(tmp, cuda)
+        torch.cuda.empty_cache()
+        scan_rows = scan_phase(tmp, cuda)
         torch.cuda.empty_cache()
         for dt in ("nt", "aa"):
             aln_path, tree_path = write_problem(
@@ -4549,6 +4803,7 @@ def main() -> int:
     print(json.dumps({"phyrex": phyrex}, default=str))
     print(json.dumps({"distributed": distributed}, default=str))
     print(json.dumps({"newton": newton_rows}))
+    print(json.dumps({"scan": scan_rows, "ptxas": scan_regs}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,12 @@ _SIGNATURES = {
     "phyml_edge_newton_sums": [_P] * 12 + [_I] * 8 + [_P],  # K6, sums
     # rows P C ns | cluster, resident blocks, SMs (int[3])
     "phyml_edge_newton_geometry": [_I] * 4 + [_P],
+    # child tips pmats pup clv sc | n_otu n_int ns C P Pw R | stream
+    "phyml_scan_up": [_P] * 6 + [_I] * 7 + [_P],                # K7
+    # child pmats pi pup sc out sc_out | n_otu n_int ns C P Pw R | stream
+    "phyml_scan_down": [_P] * 7 + [_I] * 7 + [_P],              # K7
+    # ns down | NS, tile, threads, shared memory bytes, staged (int[5])
+    "phyml_scan_geometry": [_I, _I, _P],
 }
 
 

@@ -32,12 +32,14 @@ kernels avx.c/sse.c).  Design:
     On CUDA tensors these launch the hand-written kernels; on CPU
     tensors the kernels' plain PyTorch versions run.
   * The scan path (`_up_pass` / `_down_pass`, divide-by-max
-    rescaling, a Python loop of a few tensor ops per node) is the
-    independent reference unmasked (`site_logliks_scan`,
-    `edge_dotprods_scan`) and, with prune masks and a leading
-    candidate axis, the passes of the NNI and SPR scorers
-    (search/nni.py, search/spr.py), which phyml_tpu also runs outside
-    its kernels.
+    rescaling) feeds the NNI scorer (search/nni.py, one tree or a
+    stack), the ancestral states and the cross-validation, and is the
+    reference unmasked (`site_logliks_scan`, `edge_dotprods_scan`); with
+    prune masks and a leading candidate axis it is the SPR scorer's
+    passes (search/spr.py).  Unmasked on CUDA float32 tensors each pass
+    is one launch of K7 (ops/scan.py); masked, on the CPU or in float64
+    it is a Python loop of a few tensor ops per node, K7's plain
+    version (`_scan_kernel` picks by those alone).
   * Class mixing (Gamma / FreeRate) is a leading axis; the +I
     invariant fraction mixes at the root exactly as lk.c:820-837.  All
     per-site logs accumulate in float64.
@@ -71,7 +73,7 @@ from torch import nn
 from phyml_tpu_torch.io.alignment import Alignment
 from phyml_tpu_torch.models.eigen import mgf_rates, pmat
 from phyml_tpu_torch.models.substitution import SubstModel
-from phyml_tpu_torch.ops import _build, newton
+from phyml_tpu_torch.ops import _build, newton, scan
 from phyml_tpu_torch.ops.clv import uppass_site_lse
 from phyml_tpu_torch.ops.clv_slots import (
     MAX_BLOCK_SMEM, build_slot_schedule, padded_tips, uppass_site_lse_slots,
@@ -514,6 +516,20 @@ class LikelihoodEngine(nn.Module):
         mb = m.reshape(lead + (1, 1, 1))
         return p * (1.0 - mb) + mb, s * (1.0 - m.reshape(lead + (1, 1)))
 
+    def _scan_kernel(self, pmats, mask) -> bool:
+        """True where the scan passes run K7 (ops/scan.py): unmasked
+        float32 P-matrices on a CUDA device.  Else the loops below run:
+        the prune masks of the SPR scorer, CPU tensors and float64 (the
+        reference)."""
+        return mask is None and pmats.is_cuda and \
+            pmats.dtype == torch.float32
+
+    def _scan_child(self, child):
+        """The device child table of a host one (one tree or a stack),
+        checked first: K7's blocks trap on one that is not a postorder."""
+        scan.check_child_table("scan pass", child, self.n_otu)
+        return self._topology(child)[0]
+
     @traced("engine.up_pass")
     def _up_pass(self, pmats, child, mask=None):
         """Inside partials: (pup, clv, sc) [*lead, n_nodes, C, ns, P] /
@@ -532,7 +548,13 @@ class LikelihoodEngine(nn.Module):
 
         A stack of trees (child [R, n_internal, 2], pmats [R, n_nodes,
         C, ns, ns]; no mask) gives [R, n_nodes, ...]: each step gathers
-        every tree's own children (the rapid bootstrap's NNI scorer)."""
+        every tree's own children (the rapid bootstrap's NNI scorer).
+
+        Unmasked on CUDA float32 tensors: one launch of K7 (_scan_kernel),
+        outputs of the same shapes stored with rows scan.padded(P) apart
+        (views of their first P patterns)."""
+        if self._scan_kernel(pmats, mask):
+            return scan.up_pass(self._scan_child(child), self.tips, pmats)
         if child.dim() == 3:
             return self._up_pass_stacked(pmats, child, mask)
         n, C, ns, P = self.n_otu, self.C, self.ns, self.P
@@ -632,7 +654,10 @@ class LikelihoodEngine(nn.Module):
         subtree(u), conditional on the state at u's parent.  `mask` as
         in _up_pass (a masked child's sibling sees a unit factor in
         place of the masked subtree); pup and sc are _up_pass's.  A
-        stack of trees as in _up_pass."""
+        stack of trees as in _up_pass; K7 as in _up_pass."""
+        if self._scan_kernel(pmats, mask):
+            return scan.down_pass(self._scan_child(child), pmats, pup, sc,
+                                  pi)
         if child.dim() == 3:
             return self._down_pass_stacked(pmats, child, pup, sc, pi, mask)
         n = self.n_otu

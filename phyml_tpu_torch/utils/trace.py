@@ -19,6 +19,8 @@ counts of its window after it ends.  Names:
   launch.K1 .. launch.K5        hand-written kernel launches (ops/)
   launch.K6                     the Newton solve (ops/newton.py): one a
                                 solve, or one an iteration when sharded
+  launch.K7                     the scan passes (ops/scan.py): one a pass
+                                (LikelihoodEngine._up_pass, _down_pass)
   nni.state_flops               FLOPs of the NNI scorer's dense state
                                 products (search/nni.py: G, push, pushT
                                 and both einsums of dots), 2 x rows x C
@@ -29,8 +31,8 @@ counts of its window after it ends.  Names:
                                 LikelihoodEngine.system_of, on a miss
                                 of its cache
   launch.K3.batch.<B>           K3 by batch size of one schedule
-  launch.K3.trees.<R>           K3, K2, K5 on a stack of R trees
-  launch.K2.trees.<R>, launch.K5.trees.<R>
+  launch.K3.trees.<R>           K3, K2, K5, K7 on a stack of R trees
+  launch.K2.trees.<R>, launch.K5.trees.<R>, launch.K7.trees.<R>
   round.rounds, round.zooms     outer rounds, line-search zoom levels
   round.probe_rows              parameter sets the line search scored
   blen.rounds, blen.newton_iters, blen.backtracks
